@@ -12,8 +12,9 @@ Phases (each raises on failure; nothing is caught):
 2. build the CUDA 1-NN kernel (``gradslam_torch/ops/csrc/knn.cu``) from the
    checkout's sources and print the build time;
 3. hold the kernel against its plain PyTorch version on the card (the
-   tracked slice's shapes, a ragged masked case with NaN padding, B=2, exact
-   ties) and time both with CUDA events;
+   tracked slice's shapes, the production recipe's 1-NN level shapes, a
+   ragged masked case with NaN padding, B=2, exact ties) and time both with
+   CUDA events at the two pipeline shapes;
 4. run tracked ``PointFusion(odom='gradicp', dsratio=4, numiters=10)`` on the
    30-frame 640x480 synthetic clip with the six-segment capacity schedule:
    one warm-up run, then timed runs that must launch the kernel exactly
@@ -23,23 +24,46 @@ Phases (each raises on failure; nothing is caught):
 5. run ``odom='gt'`` with the same schedule: map within 0.2% of 516,214;
 6. profile one tracked and one gt run with ``torch.profiler``: the
    device's busy share and the kernels that take the most device time;
-7. print the kernels' JSON line, the card's line, and the result line.
+7. run the production hard-clip recipe (hybrid projective + 1-NN pyramid,
+   robust gates, constant velocity, windowed fusion, quantized colors,
+   prune every 4 frames) on the 30-frame 640x480 hard clip: one warm-up and
+   two timed runs that must launch the kernel exactly 4 * 29 = 116 times
+   each, drop no point, track with an aligned ATE <= 0.025 m and end with a
+   map within 1% of the JAX package's CPU run
+   (``tests/port/data/hard_production_640x480_jax_cpu.npz``);
+8. run the same recipe at 160x120 on a 9-frame hard clip on the card and on
+   the CPU: each frame's step from the CPU run's state within 2e-4; the two
+   whole runs apart by at most 1e-4 on frame 1 and 5e-3 on any frame, with
+   map counts within 0.2%;
+9. run the JAX package's headline, ``odom='gt'`` with quantized colors and
+   the six-segment schedule: the same map count as phase 5's float-color
+   map, points within 1e-6 of it;
+10. profile one production run with ``torch.profiler``;
+11. print the kernels' JSON line, the card's line, and the result line.
 
 Exits non-zero, printing no result, when no CUDA device is available.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from gradslam_torch import PointFusion, synthetic_sequence
+from gradslam_torch import PointFusion, RGBDImages, hard_sequence, synthetic_sequence
+from gradslam_torch.geometry import (
+    compose_transformations,
+    inverse_transformation,
+    orthonormalize_rotations,
+)
 from gradslam_torch.interop import rgbdimages_from_numpy
+from gradslam_torch.metrics import ate_rmse
 from gradslam_torch.odometry.icputils import downsample_rgbdimages
 from gradslam_torch.ops import knn_cuda, nn_points
 from gradslam_torch.ops._build import load_library
@@ -58,6 +82,25 @@ ATE_BAR_M = 1e-4
 KNN_LAUNCHES_PER_RUN = 2 * NUMITERS * (L - 1)
 KNN_DIST_ATOL = 1e-5
 TIMED_RUNS = 2
+
+# The production hard-clip recipe (scripts/bench_all.py:606-612) and the
+# JAX package's CPU run of it on hard_sequence(1, 30, 480, 640).
+PRODUCTION = dict(
+    odom="gradicp", pyramid=[(8, 6), (8, 4)],
+    odom_assoc=["projective", "knn"], odom_sym_normals=True,
+    odom_angle_gate=45.0, map_capacity=1_228_800,
+    prune_every=4, prune_min_confidence=1.5,
+    quantize_colors=True, lookahead_assoc="reuse",
+    motion_model="constant_velocity", robust_loss="tukey",
+    robust_scale=0.03, dist_thresh=0.01, normal_pitch=4,
+)
+GOLDEN = Path(__file__).resolve().parent / "tests/port/data/hard_production_640x480_jax_cpu.npz"
+PROD_LAUNCHES_PER_RUN = PRODUCTION["pyramid"][1][1] * (L - 1)  # one search an iteration
+PROD_ATE_BAR_M = 0.025
+PROD_COUNT_REL = 0.01
+# The same recipe at 160x120 (pyramid strides and normal pitch scaled by 1/4).
+SMALL = dict(PRODUCTION, pyramid=[(2, 6), (2, 4)], normal_pitch=1, map_capacity=4 * 120 * 160)
+SMALL_L, SMALL_H, SMALL_W = 9, 120, 160
 
 
 def log(msg: str) -> None:
@@ -133,16 +176,52 @@ def check_knn_case(name, src, tgt, mask) -> float:
     return check_knn_result(name, src, tgt, mask, d_k, i_k)
 
 
-def knn_phase(frames) -> dict:
+def time_pair(src, tgt, mask) -> tuple:
+    """Median CUDA-event ms of the kernel and of the plain version at one
+    shape, timed in turns."""
+
+    def kernel():
+        knn_cuda.nn_points_cuda(src, tgt, mask)
+
+    def plain():
+        nn_points(src, tgt, mask)
+
+    for fn in (kernel, plain):
+        fn()
+    torch.cuda.synchronize()
+    t_plain, t_kernel = [], []
+    for fn, acc in ((plain, t_plain), (kernel, t_kernel), (kernel, t_kernel), (plain, t_plain)):
+        acc.extend(cuda_ms(fn, 10))
+    ms, plain_ms = float(np.median(t_kernel)), float(np.median(t_plain))
+    log(f"knn timing at N={src.shape[1]} M={tgt.shape[1]}: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20, CUDA events)")
+    return ms, plain_ms
+
+
+def padded_window(pc):
+    """A frame cloud as a map window: twice its rows, the second half NaN
+    padding behind the mask."""
+    n = pc.points.shape[1]
+    tgt = torch.cat([pc.points, torch.full_like(pc.points, float("nan"))], dim=1).contiguous()
+    mask = torch.arange(2 * n, device=tgt.device)[None] < pc.num_points[:, None]
+    return tgt, mask
+
+
+def knn_phase(frames, hard) -> dict:
     dev = frames.device
     # The tracked slice's shapes: the ds-4 frame cloud (N = 19,200) against
     # a map window of capacity 2 * 120 * 160 = 38,400, half of it NaN padding.
     pc0 = downsample_rgbdimages(frames[:, 0], DSRATIO)
     pc1 = downsample_rgbdimages(frames[:, 1].with_poses(frames.poses[:, 0:1]), DSRATIO)
-    n0 = pc0.points.shape[1]
-    slice_tgt = torch.cat([pc0.points, torch.full_like(pc0.points, float("nan"))], dim=1)
-    slice_mask = torch.arange(2 * n0, device=dev)[None] < pc0.num_points[:, None]
+    slice_tgt, slice_mask = padded_window(pc0)
     slice_src = pc1.points.contiguous()
+    # The production recipe's 1-NN level: the ds-8 hard-clip frame cloud
+    # (N = 4,800) against a window of capacity 2 * 60 * 80 = 9,600.
+    ds_prod = PRODUCTION["pyramid"][1][0]
+    h0 = downsample_rgbdimages(hard[:, 0], ds_prod)
+    h1 = downsample_rgbdimages(hard[:, 1].with_poses(hard.poses[:, 0:1]), ds_prod)
+    level_tgt, level_mask = padded_window(h0)
+    level_src = h1.points.contiguous()
 
     g = torch.Generator(device="cpu").manual_seed(0)
 
@@ -156,7 +235,8 @@ def knn_phase(frames) -> dict:
     tie_tgt = base.repeat(1, 4, 1)  # every target appears 4 times
     tie_src = torch.cat([randn(2, 300, 3), base[:, :200]], dim=1)  # some exact hits
     cases = [
-        ("slice", slice_src, slice_tgt.contiguous(), slice_mask),
+        ("slice", slice_src, slice_tgt, slice_mask),
+        ("production_knn_level", level_src, level_tgt, level_mask),
         ("ragged_masked_nan", randn(1, 1001, 3), ragged_tgt, ragged_mask),
         ("batched_B2", randn(2, 777, 3), randn(2, 2049, 3), None),
         ("exact_ties", tie_src, tie_tgt.contiguous(), None),
@@ -166,23 +246,13 @@ def knn_phase(frames) -> dict:
     if not bool((tie_idx < 500).all()):
         raise AssertionError("knn exact_ties: a duplicate target won over its first copy")
 
-    # Time kernel and plain version in turns at the slice's shapes.
-    def kernel():
-        knn_cuda.nn_points_cuda(slice_src, slice_tgt, slice_mask)
-
-    def plain():
-        nn_points(slice_src, slice_tgt, slice_mask)
-
-    for fn in (kernel, plain):
-        fn()
-    torch.cuda.synchronize()
-    t_plain, t_kernel = [], []
-    for fn, acc in ((plain, t_plain), (kernel, t_kernel), (kernel, t_kernel), (plain, t_plain)):
-        acc.extend(cuda_ms(fn, 10))
-    ms, plain_ms = float(np.median(t_kernel)), float(np.median(t_plain))
-    log(f"knn timing at N={slice_src.shape[1]} M={slice_tgt.shape[1]}: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20, CUDA events)")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    shapes = []
+    for src, tgt, mask in ((slice_src, slice_tgt, slice_mask),
+                           (level_src, level_tgt, level_mask)):
+        ms, plain_ms = time_pair(src, tgt, mask)
+        shapes.append({"N": src.shape[1], "M": tgt.shape[1], "ms": ms, "plain_ms": plain_ms})
+    return {"max_abs_err": max_err, "ms": shapes[0]["ms"], "plain_ms": shapes[0]["plain_ms"],
+            "shapes": shapes}
 
 
 def ate_m(poses: np.ndarray, gt: np.ndarray) -> float:
@@ -192,15 +262,16 @@ def ate_m(poses: np.ndarray, gt: np.ndarray) -> float:
     return float(np.sqrt(np.mean(np.sum(err**2, axis=-1))))
 
 
-def check_map(pc, poses, ref_count: int, tag: str) -> int:
+def check_map(pc, poses, ref_count: int, tag: str, rel: float = 0.002) -> int:
     n = int(pc.num_points[0])
     dropped = int(pc.num_dropped[0])
     if dropped != 0:
         raise AssertionError(f"{tag}: {dropped} points dropped")
-    if abs(n - ref_count) > 0.002 * ref_count:
-        raise AssertionError(f"{tag}: map count {n} not within 0.2% of {ref_count}")
+    if abs(n - ref_count) > rel * ref_count:
+        raise AssertionError(f"{tag}: map count {n} not within {100 * rel:g}% of {ref_count}")
     for name in ("points", "normals", "colors", "features"):
-        if not bool(torch.isfinite(getattr(pc, name)[0, :n]).all()):
+        buf = getattr(pc, name)
+        if buf is not None and not bool(torch.isfinite(buf[0, :n]).all()):
             raise AssertionError(f"{tag}: non-finite map {name}")
     if tuple(poses.shape) != (B, L, 4, 4) or not bool(torch.isfinite(poses).all()):
         raise AssertionError(f"{tag}: bad poses {tuple(poses.shape)}")
@@ -242,6 +313,116 @@ def small_clip_agrees_with_cpu() -> None:
     if not (dpose <= 1e-4 and abs(nc - nh) <= 0.002 * nh):
         raise AssertionError(f"small clip: card vs CPU |dpose| {dpose}, counts {nc} vs {nh}")
     log(f"small clip 96x128x6: card vs CPU max |dpose| {dpose:.3e}, counts {nc} vs {nh}")
+
+
+def production_phase():
+    """The production recipe on the 640x480 hard clip against the JAX
+    package's CPU golden. Returns the pipeline, the frames, the mean
+    seconds a run and the launch count of the last run."""
+    golden = np.load(GOLDEN)
+    rgb, depth, K, P = hard_sequence(B, L, H, W)
+    frames = rgbdimages_from_numpy(rgb, depth, K, P, device="cuda")
+    slam = PointFusion(**PRODUCTION)
+    pc, poses, secs, peak, launches = timed_runs(slam, frames, PROD_LAUNCHES_PER_RUN, "production")
+    ref = int(golden["num_points"])
+    count = check_map(pc, poses, ref, "production", rel=PROD_COUNT_REL)
+    est = poses[0].cpu()
+    ate = float(ate_rmse(est, torch.from_numpy(P[0])))
+    if not ate <= PROD_ATE_BAR_M:
+        raise AssertionError(f"production: aligned ATE {ate} m above {PROD_ATE_BAR_M} m")
+    gap = np.linalg.norm(est.numpy()[:, :3, 3] - golden["poses"][:, :3, 3], axis=-1)
+    log(f"PointFusion(production recipe) hard {H}x{W}x{L}: {L / secs:.4f} frames/s "
+        f"({secs:.4f} s/run, mean of {TIMED_RUNS}), aligned ATE {ate:.6f} m "
+        f"(JAX CPU golden {float(golden['ate_m']):.6f} m), map {count} points "
+        f"(golden {ref}, {100 * (count - ref) / ref:+.3f}%), 0 dropped, "
+        f"knn launches {launches}/run, peak memory {peak} B")
+    log("production: per-frame translation gap to the JAX CPU golden (m): "
+        + " ".join(f"{g:.4f}" for g in gap) + f"; max {gap.max():.6f} at frame {int(gap.argmax())}")
+    return slam, frames, secs, launches
+
+
+def pointclouds_to(pc, device):
+    return dataclasses.replace(pc, **{
+        f.name: getattr(pc, f.name).to(device)
+        for f in dataclasses.fields(pc) if getattr(pc, f.name) is not None
+    })
+
+
+def small_recipe_agrees_with_cpu() -> None:
+    """The production recipe at 160x120x9 on the card and on the CPU.
+
+    - Each frame's step (localization and fusion) from the CPU run's state:
+      poses within 2e-4, equal map counts. The kernel returns the plain
+      version's distances bit for bit, but cuBLAS and the CUDA reductions
+      round the solver's iterates differently from the CPU's, and one 1-NN
+      near-tie that flips moves a step's pose by up to about 1e-4 (measured
+      1.06e-4 on one of 8 steps, NVIDIA H100 80GB HBM3, 700 W).
+    - The two whole runs: frame 1 within 1e-4, every frame within 5e-3,
+      counts within 0.2%. The hard clip amplifies the steps' gaps from
+      frame to frame (1-NN near-ties, Tukey and distance gates, and the
+      constant-velocity prediction carries each gap into the next frame),
+      as for the port against the JAX package on the CPU
+      (``tests/port/test_torch_recipe.py``).
+    """
+    rgb, depth, K, P = hard_sequence(1, SMALL_L, SMALL_H, SMALL_W)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        frames = rgbdimages_from_numpy(rgb, depth, K, P, device=dev)
+        pc, poses = PointFusion(**SMALL)(frames)
+        runs[dev] = (int(pc.num_points[0]), poses.cpu().numpy())
+    gap = np.abs(runs["cuda"][1] - runs["cpu"][1]).reshape(SMALL_L, 16).max(-1)
+    nc, nh = runs["cuda"][0], runs["cpu"][0]
+    if not (gap[1] <= 1e-4 and (gap <= 5e-3).all() and abs(nc - nh) <= 0.002 * nh):
+        raise AssertionError(f"small recipe whole runs: card vs CPU gaps {gap}, counts {nc} vs {nh}")
+
+    slam = PointFusion(**SMALL)
+    frames = {d: rgbdimages_from_numpy(rgb, depth, K, P, device=d) for d in ("cuda", "cpu")}
+    cap = SMALL["map_capacity"]
+    cpu_map = slam._map(slam.empty_map(1, cap, device="cpu"), frames["cpu"][:, 0])
+    prev = frames["cpu"].poses[:, 0]
+    delta = torch.eye(4)[None]
+    step_gap = []
+    for f in range(1, SMALL_L):
+        pred = orthonormalize_rotations(compose_transformations(delta, prev))
+        live = {d: RGBDImages(frames[d].rgb_image[:, f:f + 1], frames[d].depth_image[:, f:f + 1],
+                              frames[d].intrinsics, pred[:, None].to(d))
+                for d in ("cuda", "cpu")}
+        pose = slam._localize(cpu_map, live["cpu"], live["cpu"])
+        card_pose = slam._localize(pointclouds_to(cpu_map, "cuda"), live["cuda"], live["cuda"])
+        step_gap.append(float((card_pose.cpu() - pose).abs().max()))
+        card_map = slam._map(pointclouds_to(cpu_map, "cuda"), live["cuda"].with_poses(pose.cuda()))
+        cpu_map = slam._map(cpu_map, live["cpu"].with_poses(pose))
+        if int(card_map.num_points[0]) != int(cpu_map.num_points[0]):
+            raise AssertionError(f"small recipe frame {f}: card map {int(card_map.num_points[0])} "
+                                 f"vs CPU {int(cpu_map.num_points[0])}")
+        if (f + 1) % SMALL["prune_every"] == 0:
+            cpu_map = slam._prune(cpu_map)
+        delta = compose_transformations(pose[:, 0], inverse_transformation(prev))
+        prev = pose[:, 0]
+    if not max(step_gap) <= 2e-4:
+        raise AssertionError(f"small recipe steps: card vs CPU pose gaps {step_gap}")
+    log(f"small recipe {SMALL_H}x{SMALL_W}x{SMALL_L}: per-step card vs CPU max |dpose| "
+        f"{max(step_gap):.3e}; whole runs: per-frame max |dpose| "
+        + " ".join(f"{g:.2e}" for g in gap) + f", counts {nc} vs {nh}")
+
+
+def quantized_headline(frames, pc_gt) -> float:
+    """``bench.py``'s headline, gt with quantized colors, on the easy clip:
+    the float-color map's count and points. Returns the mean seconds a
+    run."""
+    slam = PointFusion(odom="gt", quantize_colors=True, map_capacity=SCHEDULE)
+    pc, poses, secs, peak, _ = timed_runs(slam, frames, 0, "gt quantized")
+    n = check_map(pc, poses, int(pc_gt.num_points[0]), "gt quantized", rel=0.0)
+    pts_err = float((pc.points[0, :n] - pc_gt.points[0, :n]).abs().max())
+    cc_err = float((pc.features[0, :n, 0] - pc_gt.features[0, :n, 0]).abs().max())
+    if not (pts_err <= 1e-6 and cc_err <= 1e-6):
+        raise AssertionError(f"gt quantized: points {pts_err}, ccounts {cc_err} from the float map")
+    col_err = float((PointFusion.decode_map(pc).colors[0, :n] - pc_gt.colors[0, :n]).abs().max())
+    log(f"PointFusion(gt, quantize_colors) {H}x{W}x{L}: {L / secs:.4f} frames/s "
+        f"({secs:.4f} s/run), map {n} points = the float-color map's, max |dpoint| "
+        f"{pts_err:.3e}, max |dccount| {cc_err:.3e}, max |dcolor| {col_err:.4f} "
+        f"({col_err * 255:.2f} 8-bit steps), peak memory {peak} B")
+    return secs
 
 
 def profile_run(slam, frames, tag: str, unprofiled_s: float) -> None:
@@ -291,7 +472,9 @@ def main() -> int:
 
     rgb, depth, K, P = synthetic_sequence(B, L, H, W, seed=0)
     frames = rgbdimages_from_numpy(rgb, depth, K, P, device="cuda")
-    knn = knn_phase(frames)
+    hard = rgbdimages_from_numpy(*hard_sequence(1, 2, H, W), device="cuda",
+                                 normal_pitch=PRODUCTION["normal_pitch"])
+    knn = knn_phase(frames, hard)
 
     small_clip_agrees_with_cpu()
 
@@ -318,15 +501,24 @@ def main() -> int:
     profile_run(tracked, frames, "gradicp", secs)
     profile_run(gt, frames, "gt", secs_gt)
 
+    prod, hard_frames, secs_prod, launches_prod = production_phase()
+    small_recipe_agrees_with_cpu()
+    quantized_headline(frames, pc_gt)
+    profile_run(prod, hard_frames, "production", secs_prod)
+
+    per_path = {"tracked_easy": launches, "gt_easy": 0, "production_hard": launches_prod,
+                "gt_quantized_easy": 0}
     print(json.dumps({"kernels": [{
         "name": "knn1_cuda",
         "route": "cuda",
         "source": "gradslam_torch/ops/csrc/knn.cu",
         "replaces": "gradslam_tpu/ops/knn_pallas.py:41",
-        "launches": launches,
+        "launches": sum(per_path.values()),
+        "launches_per_path": per_path,
         "max_abs_err": knn["max_abs_err"],
         "ms": knn["ms"],
         "plain_ms": knn["plain_ms"],
+        "shapes": knn["shapes"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

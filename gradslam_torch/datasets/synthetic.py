@@ -1,11 +1,12 @@
 r"""Synthetic RGB-D sequences (numpy only).
 
-Counterpart of ``gradslam_tpu/datasets/synthetic.py:22-89``: a procedurally
+Counterpart of ``gradslam_tpu/datasets/synthetic.py:22-156``: a procedurally
 rendered static scene — a gently wavy wall observed by a slowly translating
-camera with mm-scale sensor noise. The same seed gives the same arrays as the
-JAX package's ``synthetic_sequence``, so both packages can be driven with one
-clip. The port cannot import the original: importing ``gradslam_tpu`` imports
-JAX.
+camera with mm-scale sensor noise (``synthetic_sequence``), or by a fast,
+accelerating camera with heavy noise and outlier patches (``hard_sequence``).
+The same seed gives the same arrays as the JAX package's generators, so both
+packages can be driven with one clip. The port cannot import the original:
+importing ``gradslam_tpu`` imports JAX.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from functools import lru_cache
 
 import numpy as np
 
-__all__ = ["synthetic_sequence"]
+__all__ = ["hard_sequence", "synthetic_sequence"]
 
 
 @lru_cache(maxsize=8)
@@ -80,4 +81,54 @@ def synthetic_sequence(
     ).reshape(B, L, H, W, 1).astype(np.float32)
     rgb = rng.rand(B, L, H, W, 3).astype(np.float32)
     poses = _pan_poses(cam_ts, B)
+    return rgb, depths, intrinsics, poses
+
+
+def hard_sequence(
+    B: int,
+    L: int,
+    H: int,
+    W: int,
+    seed: int = 0,
+    speed: float = 12.0,
+    noise_sigma: float = 0.005,
+    outlier_frac: float = 0.12,
+    outlier_mag: float = 0.35,
+):
+    r"""Render the hard tracked-SLAM clip (``gradslam_tpu/datasets/
+    synthetic.py:92-156``): the same scene as :func:`synthetic_sequence`,
+    seen by an accelerating camera (``speed=12`` is a 6 cm/frame pan,
+    modulated by ``s + 0.3 sin(s / 2)``), with Gaussian depth noise of
+    ``noise_sigma`` metres and, on every frame, 8 random rectangles covering
+    about ``outlier_frac`` of the pixels, biased by up to ``outlier_mag``
+    metres. The ``RandomState`` draws come in the JAX package's order, so a
+    seed gives bit-identical arrays. Ground-truth poses are exact.
+
+    Same return contract as :func:`synthetic_sequence`.
+    """
+    rng = np.random.RandomState(seed)
+    fx, cx, cy, intrinsics = _camera_model(H, W, B)
+
+    def cam_t(s):
+        u = s + 0.3 * np.sin(s / 2.0)
+        return 0.005 * speed * u, 0.002 * speed * u
+
+    depths = np.empty((B, L, H, W, 1), dtype=np.float32)
+    for b in range(B):
+        for s in range(L):
+            tx, tz = cam_t(s)
+            z = _render_depth(H, W, fx, cx, cy, tx, tz)
+            z = z + noise_sigma * rng.randn(H, W)
+            if outlier_frac > 0 and outlier_mag != 0:
+                n_patches = 8
+                target = outlier_frac * H * W / n_patches
+                ph = max(2, int(np.sqrt(target * H / W)))
+                pw = max(2, int(np.sqrt(target * W / H)))
+                for _ in range(n_patches):
+                    y0 = rng.randint(0, max(1, H - ph))
+                    x0 = rng.randint(0, max(1, W - pw))
+                    z[y0:y0 + ph, x0:x0 + pw] += outlier_mag * (2.0 * rng.rand() - 1.0)
+            depths[b, s, ..., 0] = z.astype(np.float32)
+    rgb = rng.rand(B, L, H, W, 3).astype(np.float32)
+    poses = _pan_poses([cam_t(s) for s in range(L)], B)
     return rgb, depths, intrinsics, poses

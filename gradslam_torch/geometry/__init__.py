@@ -4,6 +4,7 @@ from .geometryutils import (
     compose_transformations,
     create_meshgrid,
     inverse_transformation,
+    orthonormalize_rotations,
     transform_normals,
     transform_pointcloud,
 )
@@ -19,6 +20,7 @@ __all__ = [
     "compose_transformations",
     "create_meshgrid",
     "inverse_transformation",
+    "orthonormalize_rotations",
     "transform_normals",
     "transform_pointcloud",
     "homogenize_points",

@@ -1,8 +1,9 @@
 r"""GradICP odometry provider (PyTorch).
 
-Counterpart of ``gradslam_tpu/odometry/gradicp.py``: the gradLM solver with
-the reference's parameters (lambda_max=2.0, B=1.0, B2=1.0, nu=200.0), solved
-for the whole batch at once.
+Counterpart of ``gradslam_tpu/odometry/gradicp.py:26-125``: the gradLM solver
+with the reference's parameters (lambda_max=2.0, B=1.0, B2=1.0, nu=200.0),
+the lookahead reuse, the robust kernel and the normal gate, solved for the
+whole batch at once.
 """
 
 from __future__ import annotations
@@ -30,7 +31,13 @@ class GradICPOdometryProvider(OdometryProvider):
         B: float = 1.0,
         B2: float = 1.0,
         nu: float = 200.0,
+        lookahead_assoc: str = "fresh",
+        robust_loss: Optional[str] = None,
+        robust_scale: float = 0.05,
+        dot_gate: Optional[float] = None,
     ):
+        if dot_gate is not None and not (-1.0 <= dot_gate <= 1.0):
+            raise ValueError(f"dot_gate must be a cosine in [-1, 1] or None. Got {dot_gate}.")
         self.numiters = numiters
         self.damp = damp
         self.dist_thresh = dist_thresh
@@ -38,6 +45,10 @@ class GradICPOdometryProvider(OdometryProvider):
         self.B = B
         self.B2 = B2
         self.nu = nu
+        self.lookahead_assoc = lookahead_assoc
+        self.robust_loss = robust_loss
+        self.robust_scale = robust_scale
+        self.dot_gate = dot_gate
 
     def provide(
         self,
@@ -47,7 +58,9 @@ class GradICPOdometryProvider(OdometryProvider):
     ) -> torch.Tensor:
         r"""Relative transforms ``(B, 1, 4, 4)`` aligning each live-frame
         cloud to its map cloud; ``initial_transform (B, 4, 4)`` warm-starts
-        the solve and is included in the result."""
+        the solve (for example from a coarser pyramid level) and is included
+        in the result. With ``dot_gate`` the frame cloud's normals are the
+        gate's source normals."""
         if maps_pointclouds.normals is None:
             raise ValueError(
                 "maps_pointclouds missing normals. Map normals must be provided "
@@ -57,6 +70,11 @@ class GradICPOdometryProvider(OdometryProvider):
             raise ValueError(
                 "Batch size of maps_pointclouds and frames_pointclouds should be "
                 f"equal ({len(maps_pointclouds)} != {len(frames_pointclouds)})."
+            )
+        if self.dot_gate is not None and frames_pointclouds.normals is None:
+            raise ValueError(
+                "dot_gate requires frames_pointclouds normals (the source "
+                "normals the gate compares against the map's)."
             )
         transform, _ = point_to_plane_gradICP(
             frames_pointclouds.points,
@@ -72,5 +90,10 @@ class GradICPOdometryProvider(OdometryProvider):
             nu=self.nu,
             src_mask=frames_pointclouds.nonpad_mask,
             tgt_mask=maps_pointclouds.nonpad_mask,
+            lookahead_assoc=self.lookahead_assoc,
+            robust_loss=self.robust_loss,
+            robust_scale=self.robust_scale,
+            src_normals=None if self.dot_gate is None else frames_pointclouds.normals,
+            dot_gate=self.dot_gate,
         )
         return transform[:, None]

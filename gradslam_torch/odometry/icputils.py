@@ -1,10 +1,11 @@
 r"""Point-to-plane GradICP solver toolbox (PyTorch).
 
 Counterpart of ``gradslam_tpu/odometry/icputils.py``: ``solve_linear_system``
-(:53), ``gauss_newton_solve`` (:170), ``_ptp_system`` (:212),
-``point_to_plane_gradICP`` (:460, fresh lookahead, no robust kernel and no
-normal gate), ``downsample_pointclouds`` (:556) and ``downsample_rgbdimages``
-(:590).
+(:53), ``robust_weights`` (:76), ``_normal_gate`` (:105), ``validate_robust``
+(:125), ``validate_pyramid`` (:141), ``gauss_newton_solve`` (:170),
+``_ptp_system`` (:212), ``_safe_sqrt`` (:229), ``_guard_robust_step`` (:238),
+``_reused_residual`` (:301), ``point_to_plane_gradICP`` (:460),
+``downsample_pointclouds`` (:556) and ``downsample_rgbdimages`` (:590).
 
 The JAX solvers work on one cloud pair and are ``vmap``-ed; here every
 function takes an explicit leading batch dimension, and the ``lax.scan``
@@ -28,6 +29,9 @@ from ..structures.rgbdimages import RGBDImages
 
 __all__ = [
     "solve_linear_system",
+    "robust_weights",
+    "validate_robust",
+    "validate_pyramid",
     "gauss_newton_solve",
     "point_to_plane_gradICP",
     "downsample_pointclouds",
@@ -51,12 +55,83 @@ def solve_linear_system(A: torch.Tensor, b: torch.Tensor, damp=1e-8) -> torch.Te
     return x
 
 
-def _ptp_system(s, assoc_pts, assoc_normals, valid):
-    """Masked point-to-plane rows ``A = [n | s x n]``, ``b = n . (d - s)``."""
+def robust_weights(r: torch.Tensor, loss: Optional[str], scale: float) -> torch.Tensor:
+    r"""IRLS square-root weights of a robust loss at residuals ``r``:
+    ``None`` gives ones (plain least squares), ``'huber'``
+    ``min(1, sqrt(scale / |r|))`` and ``'tukey'`` ``1 - (r / scale)^2``
+    inside ``|r| <= scale``, 0 outside."""
+    if loss is None:
+        return torch.ones_like(r)
+    if loss == "huber":
+        return torch.clamp(torch.sqrt(scale / torch.clamp(torch.abs(r), min=1e-12)), max=1.0)
+    if loss == "tukey":
+        u = torch.clamp(r / scale, -1.0, 1.0)
+        return 1.0 - u * u
+    raise ValueError(f"Unknown robust loss: {loss!r}. Expected None, 'huber' or 'tukey'.")
+
+
+def _normal_gate(src_n: torch.Tensor, assoc_n: torch.Tensor, dot_gate: float) -> torch.Tensor:
+    r"""Cosine gate ``n1 . n2 >= gate * |n1| |n2|``: the normalized test
+    without a division, since fused map normals are averages and not unit
+    vectors. ``>=`` so that ``dot_gate=-1`` admits every row."""
+    dot = torch.sum(src_n * assoc_n, dim=-1)
+    nn = torch.linalg.norm(src_n, dim=-1) * torch.linalg.norm(assoc_n, dim=-1)
+    return dot >= dot_gate * torch.clamp(nn, min=1e-12)
+
+
+def validate_robust(robust_loss, robust_scale) -> None:
+    """Constructor-time check of the robust kernel's parameters."""
+    if robust_loss not in (None, "huber", "tukey"):
+        raise ValueError(
+            f"Unknown robust_loss: {robust_loss!r}. Expected None, 'huber' or 'tukey'."
+        )
+    if robust_loss is not None and not robust_scale > 0:
+        # scale 0 zeroes every weight and silently turns the solver off
+        raise ValueError(f"robust_scale must be > 0. Got {robust_scale}.")
+
+
+def validate_pyramid(pyramid):
+    """Normalize a coarse-to-fine ``[(dsratio, numiters), ...]`` schedule
+    (or None)."""
+    if pyramid is None:
+        return None
+    try:
+        pyramid = [(int(d), int(n)) for d, n in pyramid]
+    except (TypeError, ValueError) as e:
+        raise ValueError(
+            f"pyramid must be a list of (dsratio, numiters) pairs. Got {pyramid!r}."
+        ) from e
+    if not pyramid or any(d < 1 or n < 1 for d, n in pyramid):
+        raise ValueError(
+            f"pyramid levels must have dsratio >= 1 and numiters >= 1. Got {pyramid!r}."
+        )
+    ds = [d for d, _ in pyramid]
+    if any(d2 > d1 for d1, d2 in zip(ds, ds[1:])):
+        raise ValueError(
+            f"pyramid must be coarse-to-fine (non-increasing dsratio). Got dsratios {ds}."
+        )
+    return pyramid
+
+
+def _validate_gate_args(dot_gate, src_normals) -> None:
+    if dot_gate is not None and src_normals is None:
+        raise ValueError("dot_gate requires src_normals.")
+    if src_normals is not None and dot_gate is None:
+        raise ValueError(
+            "src_normals were provided but dot_gate is None: the gate is their "
+            "only consumer. Pass dot_gate (-1.0 admits everything) or drop them."
+        )
+
+
+def _ptp_system(s, assoc_pts, assoc_normals, valid, robust_loss=None, robust_scale=0.05):
+    """Masked, optionally IRLS-weighted point-to-plane rows
+    ``A = [n | s x n]``, ``b = n . (d - s)``."""
     n = assoc_normals
     A = torch.cat([n, torch.linalg.cross(s, n, dim=-1)], dim=-1)
     b = torch.sum(n * (assoc_pts - s), dim=-1, keepdim=True)
     validf = valid[..., None].to(A.dtype)
+    if robust_loss is not None:
+        validf = validf * robust_weights(b, robust_loss, robust_scale)
     return A * validf, b * validf
 
 
@@ -67,10 +142,17 @@ def gauss_newton_solve(
     src_mask: Optional[torch.Tensor] = None,  # (B, N) bool
     tgt_mask: Optional[torch.Tensor] = None,  # (B, M) bool
     dist_thresh: Optional[float] = None,
+    robust_loss: Optional[str] = None,
+    robust_scale: float = 0.05,
+    src_normals: Optional[torch.Tensor] = None,  # (B, N, 3), same frame as tgt
+    dot_gate: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     r"""Linearise the point-to-plane error around the current source cloud.
     Returns ``(A (B, N, 6), b (B, N, 1), chamfer_idx (B, N))``; rows of
-    masked-out or distance-filtered source points are zero."""
+    masked-out, distance-filtered (``dist_thresh`` in squared metres) or
+    normal-gated source points are zero, and ``robust_loss`` weights the
+    rest."""
+    _validate_gate_args(dot_gate, src_normals)
     dists, idx = nn_points_auto(src_pc, tgt_pc, tgt_mask)
     valid = (
         torch.ones(src_pc.shape[:2], dtype=torch.bool, device=src_pc.device)
@@ -78,10 +160,83 @@ def gauss_newton_solve(
     )
     if dist_thresh is not None:
         valid = valid & (dists < dist_thresh)
+    assoc_normals = gather_rows(tgt_normals, idx)
+    if dot_gate is not None:
+        valid = valid & _normal_gate(src_normals, assoc_normals, dot_gate)
     A, b = _ptp_system(
-        src_pc, gather_rows(tgt_pc, idx), gather_rows(tgt_normals, idx), valid
+        src_pc, gather_rows(tgt_pc, idx), assoc_normals, valid, robust_loss, robust_scale
     )
     return A, b, idx
+
+
+_MIN_INLIER_MASS = 12.0  # two constraints per DOF of the 6-vector solve
+_TRUST_RADIUS_SCALES = 10.0  # max point motion per iteration, in robust_scale units
+
+
+def _safe_sqrt(sq: torch.Tensor) -> torch.Tensor:
+    """sqrt whose gradient is 0, not inf, at 0 (double where)."""
+    pos = sq > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, sq, torch.ones_like(sq))),
+                       torch.zeros_like(sq))
+
+
+def _guard_robust_step(xi, A, robust_scale, src_pc, src_mask, wmass=None):
+    r"""Bound and fade the solved twists ``xi (B, 6)`` of robust solves
+    (``gradslam_tpu/odometry/icputils.py:238``). Both factors are exactly 1
+    for healthy solves.
+
+    - Trust region: the worst-case point motion of the step, taken about the
+      cloud's centroid ``c`` (``|v + w x c| + |w| r_spread``), is capped at
+      ``10 * robust_scale``.
+    - Inlier-mass fade: below ``min(12, N / 2)`` units of squared-weight
+      mass ``sum(A[:, :3]^2)`` (or ``wmass``) the step fades linearly to 0.
+      ``N`` is the PADDED row count ``src_pc.shape[1]``, as in the JAX
+      package; the valid count would change trajectories.
+    """
+    mass_floor = min(_MIN_INLIER_MASS, 0.5 * src_pc.shape[1])
+    if wmass is None:
+        wmass = torch.sum(A[..., :3] ** 2, dim=(1, 2))
+    fade = torch.clamp(wmass / mass_floor, max=1.0)
+    radius = _TRUST_RADIUS_SCALES * robust_scale
+    v, omega = xi[:, :3], xi[:, 3:]
+    if src_mask is None:
+        c = torch.mean(src_pc, dim=1)
+        r2 = torch.amax(torch.sum((src_pc - c[:, None]) ** 2, dim=-1), dim=1)
+    else:
+        m = src_mask.to(src_pc.dtype)[..., None]
+        cnt = torch.clamp(torch.sum(m, dim=(1, 2)), min=1.0)
+        c = torch.sum(src_pc * m, dim=1) / cnt[:, None]
+        r2 = torch.amax(torch.sum(((src_pc - c[:, None]) * m) ** 2, dim=-1), dim=1)
+    disp = (_safe_sqrt(torch.sum((v + torch.linalg.cross(omega, c, dim=-1)) ** 2, dim=-1))
+            + _safe_sqrt(torch.sum(omega * omega, dim=-1)) * _safe_sqrt(r2))
+    trust = radius / torch.clamp(disp, min=radius)
+    return xi * (fade * trust)[:, None]
+
+
+def _reused_residual(pc, idx, tgt_pc, tgt_normals, src_mask, dist_thresh,
+                     robust_loss=None, robust_scale=0.05, src_normals=None, dot_gate=None):
+    """Lookahead residual ``b (B, N, 1)`` with the iteration's association
+    ``idx`` kept: only distances and residuals at the moved source points are
+    recomputed (no second 1-NN search). ``src_normals`` must be rotated to
+    the moved source when ``dot_gate`` is set."""
+    assoc_pts = gather_rows(tgt_pc, idx)
+    assoc_normals = gather_rows(tgt_normals, idx)
+    valid = (
+        torch.ones(pc.shape[:2], dtype=torch.bool, device=pc.device)
+        if src_mask is None else src_mask
+    )
+    if dist_thresh is not None:
+        valid = valid & (torch.sum((pc - assoc_pts) ** 2, dim=-1) < dist_thresh)
+    if dot_gate is not None:
+        valid = valid & _normal_gate(src_normals, assoc_normals, dot_gate)
+    _, b = _ptp_system(pc, assoc_pts, assoc_normals, valid, robust_loss, robust_scale)
+    return b
+
+
+def _rotate(x: torch.Tensor, transform: torch.Tensor) -> torch.Tensor:
+    """``x (B, N, 3) @ R^T``: points or normals rotated by transforms
+    ``(B, 4, 4)``."""
+    return torch.matmul(x, transform[:, :3, :3].transpose(1, 2))
 
 
 def point_to_plane_gradICP(
@@ -98,23 +253,38 @@ def point_to_plane_gradICP(
     nu: float = 200.0,
     src_mask: Optional[torch.Tensor] = None,
     tgt_mask: Optional[torch.Tensor] = None,
+    lookahead_assoc: str = "fresh",
+    robust_loss: Optional[str] = None,
+    robust_scale: float = 0.05,
+    src_normals: Optional[torch.Tensor] = None,
+    dot_gate: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     r"""Differentiable gradLM ICP (reference icputils.py:370-545): smooth
     sigmoid-blended damping and step scaling, the step always applied, the
-    error difference clamped to +-70. The lookahead error re-associates
-    (a second nearest-neighbour search per iteration).
+    error difference clamped to +-70.
+
+    ``lookahead_assoc``: ``'fresh'`` re-associates for the lookahead error
+    (a second nearest-neighbour search per iteration), ``'reuse'`` keeps the
+    iteration's association. ``robust_loss``/``robust_scale`` weight the rows
+    and guard the step (:func:`_guard_robust_step`). ``dot_gate`` with
+    ``src_normals`` (in the source cloud's frame; they rotate with every
+    iterate) rejects normal-incompatible associations.
 
     Clouds are ``(N, 3)`` or batched ``(B, N, 3)``; masks ``(N,)``/``(B, N)``.
     Returns ``(transform, chamfer_idx)``: ``(4, 4)`` and ``(N,)`` for
     unbatched input, ``(B, 4, 4)`` and ``(B, N)`` for batched input.
     """
+    if lookahead_assoc not in ("fresh", "reuse"):
+        raise ValueError(f"Unknown lookahead_assoc mode: {lookahead_assoc}")
     if numiters < 1:
         raise ValueError(f"numiters must be >= 1. Got {numiters}.")
+    _validate_gate_args(dot_gate, src_normals)
     batched = src_pc.ndim == 3
     if not batched:
         src_pc, tgt_pc, tgt_normals = src_pc[None], tgt_pc[None], tgt_normals[None]
         src_mask = None if src_mask is None else src_mask[None]
         tgt_mask = None if tgt_mask is None else tgt_mask[None]
+        src_normals = None if src_normals is None else src_normals[None]
         if initial_transform is not None:
             initial_transform = initial_transform[None]
     nb = src_pc.shape[0]
@@ -126,18 +296,28 @@ def point_to_plane_gradICP(
     pc = transform_pointcloud(src_pc, transform)
     damp_t = torch.full((nb,), damp, dtype=src_pc.dtype, device=src_pc.device)
     lambda_min = 1.0 / lambda_max
+    src_n = None if dot_gate is None else src_normals.to(src_pc.dtype)
 
-    def gn(p):
-        return gauss_newton_solve(p, tgt_pc, tgt_normals, src_mask, tgt_mask, dist_thresh)
+    def gn(p, nrm):
+        return gauss_newton_solve(p, tgt_pc, tgt_normals, src_mask, tgt_mask, dist_thresh,
+                                  robust_loss, robust_scale, nrm, dot_gate)
 
     idx = None
     for _ in range(numiters):
-        A, b, idx = gn(pc)
+        n_cur = None if src_n is None else _rotate(src_n, transform)
+        A, b, idx = gn(pc, n_cur)
         xi = solve_linear_system(A, b, damp_t)[..., 0]  # (B, 6)
+        if robust_loss is not None:
+            xi = _guard_robust_step(xi, A, robust_scale, pc, src_mask)
         residual_transform = se3_exp(xi)
         err = torch.sum(b * b, dim=(1, 2))
         one_step_pc = transform_pointcloud(pc, residual_transform)
-        _, b1, _ = gn(one_step_pc)
+        n_step = None if n_cur is None else _rotate(n_cur, residual_transform)
+        if lookahead_assoc == "reuse":
+            b1 = _reused_residual(one_step_pc, idx, tgt_pc, tgt_normals, src_mask, dist_thresh,
+                                  robust_loss, robust_scale, n_step, dot_gate)
+        else:
+            _, b1, _ = gn(one_step_pc, n_step)
         new_err = torch.sum(b1 * b1, dim=(1, 2))
 
         errdiff = torch.clamp(new_err - err, -70.0, 70.0)

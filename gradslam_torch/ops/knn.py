@@ -10,7 +10,9 @@ index of the nearest valid target, computed in the expanded form
   +1e30 penalty, so they never win;
 - ties going to the smallest index (strict ``<`` across target tiles,
   first minimum inside a tile);
-- distances clamped to >= 0.
+- distances clamped to >= 0;
+- ``|s|^2`` and ``|t|^2`` rounded as the FMA chain ``fma(z, z, fma(y, y,
+  x * x))``, as the kernel and XLA's CPU backend compute them.
 
 Targets stream through in tiles, so the N x M distance matrix never exists
 whole. The cross term is a float32 ``bmm``; the pipelines turn TF32 off
@@ -54,6 +56,21 @@ def _check_shapes(src: torch.Tensor, tgt: torch.Tensor) -> None:
         )
 
 
+def _sq_norm_fma(x: torch.Tensor) -> torch.Tensor:
+    """``|x|^2`` of ``(..., 3)`` float32 rows rounded as the FMA chain
+    ``fma(z, z, fma(y, y, x * x))`` that the CUDA kernel and XLA's CPU
+    backend compute: each step is exact in float64 and rounded once to
+    float32. A plain ``sum(x * x)`` rounds every product and differs by an
+    ulp, which flips near-tie indices."""
+    if x.dtype != torch.float32:
+        return torch.sum(x * x, dim=-1)
+    acc = x[..., 0] * x[..., 0]
+    for k in (1, 2):
+        xk = x[..., k].double()
+        acc = (xk * xk + acc.double()).float()
+    return acc
+
+
 def nn_points(
     src: torch.Tensor,
     tgt: torch.Tensor,
@@ -80,8 +97,8 @@ def nn_points(
     tgt, penalty = _apply_tgt_mask(tgt, tgt_mask)
     B, N, _ = src.shape
     M = tgt.shape[1]
-    s2 = torch.sum(src * src, dim=-1)
-    t2pen = torch.sum(tgt * tgt, dim=-1) + penalty
+    s2 = _sq_norm_fma(src)
+    t2pen = _sq_norm_fma(tgt) + penalty
     best_d = torch.full((B, N), _INF, dtype=src.dtype, device=src.device)
     best_i = torch.zeros((B, N), dtype=torch.int64, device=src.device)
     for start in range(0, M, tile_size):

@@ -1,37 +1,62 @@
 r"""Point-based map fusion (Keller et al. "PointFusion"), PyTorch.
 
-Counterpart of ``gradslam_tpu/slam/fusionutils.py``: ``get_alpha`` (:84),
-``find_active_map_points`` (:137), ``_project_map_points`` (:360) and
-``update_map_fusion`` (:405) with the ``sort_full`` association and the
-``gather`` merge on a float-color map. Every stage is a dense masked
-computation over the fixed-capacity map buffer:
+Counterpart of ``gradslam_tpu/slam/fusionutils.py``: ``pack_colors`` and
+``unpack_colors`` (:59-81), ``get_alpha`` (:84), ``find_active_map_points``
+(:137), ``_project_map_points`` (:360), ``update_map_fusion`` (:405) with
+both associations (``sort_full``, ``windowed``), both merges (``gather``,
+``scatter``) and both map layouts (float colors, quantized colors), and
+``prune_map`` (:827). Every stage is a dense masked computation over the
+fixed-capacity map buffer:
 
 1. a streaming projection of all map rows into the live frame;
-2. gating of each row against the frame pixel it lands on;
-3. one winner per pixel by the lexicographic order
-   ``(pixel, -ccount, raydist, index)``;
-4. a confidence-weighted merge of winners and an append of un-corresponded
-   valid pixels, written back by rebuilding the map by gather.
+2. optionally, a compaction of the rows that land in the frame into a
+   fixed window;
+3. gating of each candidate against the frame pixel it lands on;
+4. one winner per pixel by the lexicographic order
+   ``(pixel, -ccount, raydist, map row)``;
+5. a confidence-weighted merge of winners and an append of un-corresponded
+   valid pixels, written back by gather or by scatter.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 from ..geometry.geometryutils import inverse_transformation, transform_pointcloud
 from ..geometry.projutils import project_points
-from ..structures.pointclouds import Pointclouds, gather_rows, scatter_rows
+from ..structures.pointclouds import Pointclouds, compact_masked, gather_rows, scatter_rows
 from ..structures.rgbdimages import RGBDImages
 
 __all__ = [
     "ActiveMapPoints",
     "get_alpha",
     "find_active_map_points",
+    "pack_colors",
+    "prune_map",
+    "unpack_colors",
     "update_map_fusion",
 ]
+
+
+def pack_colors(colors: torch.Tensor) -> torch.Tensor:
+    r"""Quantize float colors ``(..., 3)`` in [0, 1] to 8 bits a channel
+    (round half to even, as ``jnp.round``) and pack them into one float32
+    channel ``(..., 1)`` holding the integer ``r << 16 | g << 8 | b``, which
+    float32 holds exactly (at most 2^24 - 1)."""
+    q = torch.clamp(torch.round(colors * 255.0), 0, 255).to(torch.int32)
+    packed = (q[..., 0] << 16) | (q[..., 1] << 8) | q[..., 2]
+    return packed.to(torch.float32)[..., None]
+
+
+def unpack_colors(packed: torch.Tensor) -> torch.Tensor:
+    r"""Inverse of :func:`pack_colors`: ``(..., 1)`` to float colors
+    ``(..., 3)`` in [0, 1]."""
+    p = packed[..., 0].to(torch.int32)
+    rgb = torch.stack([(p >> 16) & 0xFF, (p >> 8) & 0xFF, p & 0xFF], dim=-1)
+    return rgb.to(torch.float32) / 255.0
 
 
 def get_alpha(
@@ -140,36 +165,46 @@ def _lexsort(keys) -> torch.Tensor:
     return order
 
 
+def _resolve_modes(association: str, merge: str, cap: int, HW: int, window: int):
+    """``'auto'`` exactly as the JAX package resolves it
+    (``gradslam_tpu/slam/fusionutils.py:501-509``)."""
+    if association == "auto":
+        association = "sort_full" if cap <= max(3 * HW, window) else "windowed"
+    if association not in ("sort_full", "windowed"):
+        raise ValueError(f"Unknown association mode: {association!r}")
+    if merge == "auto":
+        merge = "gather" if cap <= 6 * HW else "scatter"
+    if merge not in ("scatter", "gather"):
+        raise ValueError(f"Unknown merge mode: {merge!r}")
+    return association, merge
+
+
 def update_map_fusion(
     pointclouds: Pointclouds,
     rgbdimages: RGBDImages,
     dist_th: Union[float, int],
     dot_th: Union[float, int],
     sigma: Union[float, int, torch.Tensor],
+    active_capacity: Optional[int] = None,
     association: str = "auto",
     merge: str = "auto",
 ) -> Pointclouds:
     r"""One PointFusion map update from a live frame.
 
     ``association``: ``'sort_full'`` gates and sorts every map row (exact:
-    no window overflow); ``'auto'`` resolves to it. ``merge``: ``'gather'``
-    rebuilds the map by gather; ``'auto'`` resolves to it. The JAX package's
-    ``'windowed'`` and ``'scatter'`` modes are not ported yet (ROADMAP.md
-    queue 1, item 1); they would give the same map as these two whenever the
-    window does not overflow.
+    nothing overflows); ``'windowed'`` first compacts the rows that land in
+    the frame into a window of ``active_capacity`` rows (default
+    ``2 * H * W``), and rows past the window are left unmerged for this
+    frame; ``'auto'`` picks ``'windowed'`` when the capacity exceeds
+    ``max(3 * H * W, window)``. ``merge``: ``'gather'`` rebuilds the map by
+    gather, ``'scatter'`` writes the pixel rows into the map buffers; both
+    give the same map, and ``'auto'`` picks ``'gather'`` up to
+    ``6 * H * W`` rows. ``'auto'`` resolves exactly as in the JAX package.
+
+    The map is either float-color (``colors (B, CAP, 3)``, features
+    ``[ccount]``) or quantized (``colors=None``, features ``[ccount,
+    packed_color]``, see :func:`pack_colors`).
     """
-    for name, mode, ported, other in (
-        ("association", association, "sort_full", "windowed"),
-        ("merge", merge, "gather", "scatter"),
-    ):
-        if mode == other:
-            raise NotImplementedError(
-                f"update_map_fusion({name}={other!r}) is not ported yet "
-                "(ROADMAP.md queue 1, item 1); use 'auto' or "
-                f"{ported!r}."
-            )
-        if mode not in ("auto", ported):
-            raise ValueError(f"Unknown {name} mode: {mode!r}")
     if rgbdimages.shape[1] != 1:
         raise ValueError(
             f"Expected rgbdimages to have sequence length of 1. Got {rgbdimages.shape[1]}."
@@ -181,59 +216,91 @@ def update_map_fusion(
             "update_map_fusion needs a map with normals and features "
             "(ccounts): use the pipeline's empty_map() to build one."
         )
-    if pointclouds.colors is None or pointclouds.features.shape[-1] != 1:
+    quantized = pointclouds.colors is None
+    base = 2 if quantized else 1
+    if pointclouds.features.shape[-1] != base:
         raise NotImplementedError(
-            "update_map_fusion supports the float-color map with one ccount "
-            "feature channel; the quantized-color layout and user feature "
-            "channels are not ported yet (ROADMAP.md queue 1, item 8)."
+            "update_map_fusion supports the float-color map ([ccount]) and the "
+            "quantized map ([ccount, packed_color]); user feature channels are "
+            "not ported yet (ROADMAP.md queue 1, item 8)."
         )
     B, _, H, W = rgbdimages.shape
     cap = pointclouds.capacity
     HW = H * W
     device = pointclouds.points.device
-    points, normals, colors = pointclouds.points, pointclouds.normals, pointclouds.colors
-    ccount = pointclouds.features
+    window = min(active_capacity if active_capacity is not None else 2 * HW, cap)
+    association, merge = _resolve_modes(association, merge, cap, HW, window)
+    pose = rgbdimages.poses[:, 0]
+    K = rgbdimages.intrinsics[:, 0]
+    points, normals, feats = pointclouds.points, pointclouds.normals, pointclouds.features
+    # one packed row per map point: points | normals | ccount | packed color
+    # (quantized) or float color
+    map_row = torch.cat(
+        [points, normals, feats] + ([] if quantized else [pointclouds.colors]), dim=-1
+    )
 
     # --- 1. streaming projection over the full map -----------------------
-    valid, pix = _project_map_points(
-        points, pointclouds.nonpad_mask, rgbdimages.poses[:, 0],
-        rgbdimages.intrinsics[:, 0], H, W,
-    )
+    valid, pix = _project_map_points(points, pointclouds.nonpad_mask, pose, K, H, W)
     vertex_flat = rgbdimages.global_vertex_map.reshape(B, HW, 3)
     normal_flat = rgbdimages.global_normal_map.reshape(B, HW, 3)
 
-    # --- 2. gating against the frame pixel each map row lands on ---------
-    safe_pix = torch.clamp(pix, max=HW - 1)
+    # --- 2. candidates (width N): pixel, map row, geometry ---------------
+    if association == "sort_full":
+        cand_valid, cand_pix = valid, pix
+        cand_idx = None  # the candidate's position is its map row
+        c_pts, c_nrm, c_cc = points, normals, feats[..., 0]
+    else:
+        # compact the rows that land in the frame into the window, in row
+        # order; overflow goes to unique trash rows past the window
+        N = window
+        rank = torch.cumsum(valid.to(torch.int64), dim=-1) - 1
+        trash = N + torch.arange(cap, device=device)[None, :]
+        dest = torch.where(valid & (rank < N), rank, trash)
+        row_ids = torch.arange(cap, device=device)[None, :].expand(B, cap)
+        cand_idx = scatter_rows(N, dest, row_ids)
+        num_active = torch.clamp(valid.sum(dim=-1), max=N)
+        cand_valid = torch.arange(N, device=device)[None, :] < num_active[:, None]
+        w_row = gather_rows(map_row[..., :7], cand_idx)
+        c_pts, c_nrm, c_cc = w_row[..., :3], w_row[..., 3:6], w_row[..., 6]
+        # each candidate's pixel from its gathered position, as in JAX
+        _, cand_pix = _project_map_points(c_pts, cand_valid, pose, K, H, W)
+
+    # --- 3. gating against the frame pixel each candidate lands on -------
+    safe_pix = torch.clamp(cand_pix, max=HW - 1)
     fp = gather_rows(vertex_flat, safe_pix)
     fn = gather_rows(normal_flat, safe_pix)
-    is_close = torch.linalg.norm(fp - points, dim=-1) < dist_th
-    is_similar = torch.sum(fn * normals, dim=-1) > dot_th
-    eligible = valid & is_close & is_similar
+    is_close = torch.linalg.norm(fp - c_pts, dim=-1) < dist_th
+    is_similar = torch.sum(fn * c_nrm, dim=-1) > dot_th
+    eligible = cand_valid & is_close & is_similar
 
-    # --- 3. per-pixel winner by (pixel, -ccount, raydist, index) ---------
+    # --- 4. per-pixel winner by (pixel, -ccount, raydist, map row) -------
+    # Window candidates are in map-row order, so the candidate's position
+    # breaks ties as the map row does.
     inf = torch.full((), float("inf"), dtype=points.dtype, device=device)
-    ray_dists = torch.sum((points - fp) ** 2, dim=-1)
-    k_pix = torch.where(eligible, pix, torch.full_like(pix, HW))  # ineligible last
-    k_negcc = torch.where(eligible, -ccount[..., 0], inf)
+    ray_dists = torch.sum((c_pts - fp) ** 2, dim=-1)
+    k_pix = torch.where(eligible, cand_pix, torch.full_like(cand_pix, HW))  # ineligible last
+    k_negcc = torch.where(eligible, -c_cc, inf)
     k_ray = torch.where(eligible, ray_dists, inf)
-    order = _lexsort([k_ray, k_negcc, k_pix])  # row index is the implicit last key
+    order = _lexsort([k_ray, k_negcc, k_pix])  # position is the implicit last key
     s_pix = torch.gather(k_pix, 1, order)
+    s_idx = order if cand_idx is None else torch.gather(cand_idx, 1, order)
     first = torch.ones_like(s_pix, dtype=torch.bool)
     first[:, 1:] = s_pix[:, 1:] != s_pix[:, :-1]
     s_winner = first & (s_pix < HW)
 
     # per-pixel winner map row (cap = "no winner"); losers park at HW + i
-    park = HW + torch.arange(cap, device=device)[None, :]
-    winner_row = scatter_rows(HW, torch.where(s_winner, s_pix, park), order, fill=cap)
+    park = HW + torch.arange(s_pix.shape[1], device=device)[None, :]
+    winner_row = scatter_rows(HW, torch.where(s_winner, s_pix, park), s_idx, fill=cap)
     corresponded = winner_row < cap
     safe_row = torch.clamp(winner_row, max=cap - 1)
 
-    # --- 4. confidence-weighted merge + append, in pixel space -----------
+    # --- 5. confidence-weighted merge + append, in pixel space -----------
     color_flat = rgbdimages.rgb_image.reshape(B, HW, 3)
     alpha = get_alpha(rgbdimages.vertex_map, sigma=sigma, dim=4, keepdim=True)
     alpha_flat = alpha.reshape(B, HW, 1)
-    m_row = gather_rows(torch.cat([points, normals, ccount, colors], dim=-1), safe_row)
-    m_pts, m_nrm, m_cc, m_col = m_row[..., :3], m_row[..., 3:6], m_row[..., 6:7], m_row[..., 7:]
+    m_row = gather_rows(map_row, safe_row)
+    m_pts, m_nrm, m_cc = m_row[..., :3], m_row[..., 3:6], m_row[..., 6:7]
+    m_col = unpack_colors(m_row[..., 7:8]) if quantized else m_row[..., 7:]
 
     corr = corresponded[..., None]
     cc_old = torch.where(corr, m_cc, torch.zeros_like(m_cc))  # new points start at zero mass
@@ -242,6 +309,9 @@ def update_map_fusion(
     out_pts = (cc_old * m_pts + alpha_flat * vertex_flat) * inv_cc
     out_nrm = (cc_old * m_nrm + alpha_flat * normal_flat) * inv_cc
     out_col = (cc_old * m_col + alpha_flat * color_flat) * inv_cc
+    out_row = torch.cat(
+        [out_pts, out_nrm, new_cc, pack_colors(out_col) if quantized else out_col], dim=-1
+    )
 
     # destination row per pixel: the winner row for merges, a fresh tail slot
     # for appends, a unique trash slot cap + i otherwise
@@ -256,20 +326,52 @@ def update_map_fusion(
     if num_dropped is not None:
         num_dropped = num_dropped + (new_mask.sum(dim=-1) - appended)
 
-    # --- 5. rebuild by gather: invert pixel -> row, then every row gathers
-    pix_ids = torch.arange(HW, device=device)[None, :].expand(B, HW)
-    row_src = scatter_rows(cap, dest, pix_ids, fill=HW)
-    touched = (row_src < HW)[..., None]
-    g = gather_rows(
-        torch.cat([out_pts, out_nrm, new_cc, out_col], dim=-1),
-        torch.where(row_src < HW, row_src, torch.zeros_like(row_src)),
-    )
+    # --- 6. write-back ---------------------------------------------------
+    if merge == "gather":
+        # invert pixel -> row, then every map row gathers its new value
+        pix_ids = torch.arange(HW, device=device)[None, :].expand(B, HW)
+        row_src = scatter_rows(cap, dest, pix_ids, fill=HW)
+        touched = row_src < HW
+        g = gather_rows(out_row, torch.where(touched, row_src, torch.zeros_like(row_src)))
+        new_row = torch.where(touched[..., None], g, map_row)
+    else:
+        # write the pixel rows over the map rows (trash rows cut off)
+        bidx = torch.arange(B, device=device)[:, None].expand(B, HW)
+        padded = torch.cat([map_row, map_row.new_zeros((B, HW, map_row.shape[-1]))], dim=1)
+        new_row = padded.index_put((bidx, dest), out_row, accumulate=False)[:, :cap]
+    f_end = 6 + base
     return dataclasses.replace(
         pointclouds,
-        points=torch.where(touched, g[..., :3], points),
-        normals=torch.where(touched, g[..., 3:6], normals),
-        features=torch.where(touched, g[..., 6:7], ccount),
-        colors=torch.where(touched, g[..., 7:], colors),
+        points=new_row[..., :3].contiguous(),
+        normals=new_row[..., 3:6].contiguous(),
+        features=new_row[..., 6:f_end].contiguous(),
+        colors=None if quantized else new_row[..., f_end:].contiguous(),
         num_points=pointclouds.num_points + appended,
         num_dropped=num_dropped,
+    )
+
+
+def prune_map(pointclouds: Pointclouds, min_confidence: Union[float, int]) -> Pointclouds:
+    r"""Remove unstable map points, those whose confidence (features channel
+    0) is below ``min_confidence``, and pack the survivors to the front in
+    order (Keller et al.'s map maintenance; ``gradslam_tpu/slam/
+    fusionutils.py:827``). ``num_dropped`` carries over."""
+    if pointclouds.features is None:
+        raise ValueError("Pointclouds must have features (ccounts) to prune.")
+    keep = pointclouds.nonpad_mask & (pointclouds.features[..., 0] >= min_confidence)
+    bufs = [b for b in (pointclouds.points, pointclouds.normals, pointclouds.colors,
+                        pointclouds.features) if b is not None]
+    packed, counts = compact_masked(torch.cat(bufs, dim=-1), keep, pointclouds.capacity)
+    parts = iter(torch.split(packed, [b.shape[-1] for b in bufs], dim=-1))
+
+    def part(buf):
+        return None if buf is None else next(parts).contiguous()
+
+    return Pointclouds(
+        points=part(pointclouds.points),
+        num_points=counts,
+        normals=part(pointclouds.normals),
+        colors=part(pointclouds.colors),
+        features=part(pointclouds.features),
+        num_dropped=pointclouds.num_dropped,
     )

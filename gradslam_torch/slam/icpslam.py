@@ -1,11 +1,13 @@
 r"""ICP-SLAM pipeline base (PyTorch).
 
-Counterpart of ``gradslam_tpu/slam/icpslam.py``: the constructor for the
-options this port supports, ``_capacity_schedule`` (:755),
-``_default_icp_capacity`` (:776), ``empty_map`` (:794), ``_icp_target_window``
-(:816, no recency window), ``_localize`` (:850, single-level) and
-``_forward_impl`` (:1217) — its ground-truth branch and its tracked branch
-without the relocalization, keyframe-anchor and constant-velocity paths.
+Counterpart of ``gradslam_tpu/slam/icpslam.py``: ``split_prune_segments``
+(:51), the constructor for the options this port supports (:336-544),
+``_capacity_schedule`` (:755), ``_default_icp_capacity`` (:776),
+``empty_map`` (:794), ``_icp_target_window`` (:816, no recency window),
+``_localize`` (:850, with the pyramid and its nested single compaction) and
+``_forward_impl`` (:1217): the ground-truth branch and the tracked branch with
+the constant-velocity model and prune between segments, without the
+relocalization and keyframe-anchor paths.
 
 The JAX ``lax.scan`` over frames is a Python loop here. The capacity
 schedule is static and host-side; nothing inside the frame or solver loops
@@ -20,32 +22,32 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..geometry.geometryutils import compose_transformations
+from ..geometry.geometryutils import (
+    compose_transformations,
+    inverse_transformation,
+    orthonormalize_rotations,
+)
 from ..odometry.gradicp import GradICPOdometryProvider
-from ..odometry.icputils import downsample_pointclouds, downsample_rgbdimages
-from ..structures.pointclouds import Pointclouds
+from ..odometry.icputils import (
+    downsample_pointclouds,
+    downsample_rgbdimages,
+    validate_pyramid,
+    validate_robust,
+)
+from ..odometry.projective import ProjectiveOdometryProvider
+from ..structures.pointclouds import Pointclouds, compact_masked
 from ..structures.rgbdimages import RGBDImages
 from ..utils.precision import disable_tf32
-from .fusionutils import find_active_map_points
+from .fusionutils import find_active_map_points, prune_map
 
-__all__ = ["ICPSLAM"]
+__all__ = ["ICPSLAM", "split_prune_segments"]
 
 # Options of the JAX pipelines that this port does not carry yet, with the
 # value that means "off" and the ROADMAP.md item that will port them.
 _UNPORTED = {
-    "odom_assoc": ("knn", "queue 1, item 6 (projective odometry)"),
-    "odom_angle_gate": (None, "queue 1, item 4 (robust kernels and gates)"),
-    "odom_sym_normals": (False, "queue 1, item 6 (projective odometry)"),
     "odom_point_weight": (0.0, "queue 1, item 6 (projective odometry)"),
     "odom_subpixel": (False, "queue 1, item 6 (projective odometry)"),
-    "pyramid": (None, "queue 1, item 3 (pyramids, windows and lookahead reuse)"),
-    "robust_loss": (None, "queue 1, item 4 (robust kernels and gates)"),
-    "robust_scale": (0.05, "queue 1, item 4 (robust kernels and gates)"),
     "icp_window_frames": (None, "queue 1, item 3 (pyramids, windows and lookahead reuse)"),
-    "motion_model": ("static", "queue 1, item 5 (constant-velocity model)"),
-    "lookahead_assoc": ("fresh", "queue 1, item 3 (pyramids, windows and lookahead reuse)"),
-    "prune_every": (0, "queue 1, item 8 (quantized colors, prune and features)"),
-    "prune_min_confidence": (1.0, "queue 1, item 8 (quantized colors, prune and features)"),
     "feature_channels": (0, "queue 1, item 8 (quantized colors, prune and features)"),
     "relocalize_below": (0.0, "queue 1, item 7 (recovery)"),
     "relocalize_grid": (None, "queue 1, item 7 (recovery)"),
@@ -68,6 +70,26 @@ def _reject_unported(options: dict) -> None:
             )
 
 
+def split_prune_segments(start: int, n: int, prune_every: int):
+    """Split the global frame run ``[start, start + n)`` into
+    ``(sub_n, prune_after)`` chunks whose boundaries land after every
+    ``prune_every``-th mapped frame (global frame ``g`` with
+    ``(g + 1) % prune_every == 0``), where :func:`prune_map` runs."""
+    if not prune_every:
+        return [(n, False)] if n else []
+    out = []
+    s, end, k = start, start + n, prune_every
+    while s < end:
+        g = s + (k - 1 - (s % k)) % k  # next boundary frame >= s
+        if g < end:
+            out.append((g - s + 1, True))
+            s = g + 1
+        else:
+            out.append((end - s, False))
+            s = end
+    return out
+
+
 class ICPSLAM(nn.Module):
     r"""Frame-to-map SLAM driver. Use :class:`~gradslam_torch.PointFusion`:
     the aggregate map of the JAX ``ICPSLAM`` (``update_map_aggregate``) is
@@ -76,14 +98,32 @@ class ICPSLAM(nn.Module):
     Args:
         odom: ``'gt'`` (fuse at the frames' poses) or ``'gradicp'``
             (frame-to-map gradLM ICP).
-        dsratio, numiters, damp, dist_thresh: ICP solver parameters.
+        odom_assoc: ``'knn'`` (1-NN association every iteration) or
+            ``'projective'`` (project the map window into the live frame);
+            with a ``pyramid``, a list with one mode per level.
+        odom_angle_gate: reject associations whose normals differ by more
+            than this angle (degrees); None disables.
+        odom_sym_normals: symmetric normals in the projective rows.
+        dsratio, numiters, damp, dist_thresh: ICP solver parameters
+            (``dist_thresh`` in squared metres).
+        pyramid: coarse-to-fine ``[(dsratio, numiters), ...]`` replacing
+            ``dsratio``/``numiters``; each level warm-starts the next.
+        robust_loss, robust_scale: ``'huber'`` or ``'tukey'`` IRLS weights
+            and the step guard; None is plain least squares.
         lambda_max, B, B2, nu: gradLM parameters.
         map_capacity: map buffer capacity, a fixed int (default
             ``L * H * W``) or a growth schedule ``[(frames, capacity), ...]``;
             the map is zero-padded between segments. The returned map's
             ``num_dropped`` counts rows lost to a full buffer.
         icp_capacity: capacity of the downsampled ICP target buffer
-            (default ``2 * ceil(H / ds) * ceil(W / ds)``).
+            (default ``2 * ceil(H / ds) * ceil(W / ds)`` for each level).
+        motion_model: ``'static'`` (each solve starts at the previous pose)
+            or ``'constant_velocity'`` (at the previous pose composed with the
+            previous frame's motion, re-projected onto SO(3)).
+        lookahead_assoc: ``'fresh'`` or ``'reuse'`` (the lookahead error
+            keeps the iteration's association).
+        prune_every, prune_min_confidence: every ``prune_every``-th mapped
+            frame ends with :func:`~gradslam_torch.slam.fusionutils.prune_map`.
         normal_pitch: finite-difference baseline of the frames' normal maps
             (None keeps the frames' own).
 
@@ -97,16 +137,26 @@ class ICPSLAM(nn.Module):
         self,
         *,
         odom: str = "gradicp",
+        odom_assoc="knn",
+        odom_angle_gate: Optional[float] = None,
+        odom_sym_normals: bool = False,
         dsratio: int = 4,
         numiters: int = 20,
+        pyramid: Optional[list] = None,
         damp: float = 1e-8,
         dist_thresh: Optional[float] = None,
+        robust_loss: Optional[str] = None,
+        robust_scale: float = 0.05,
         lambda_max: float = 2.0,
         B: float = 1.0,
         B2: float = 1.0,
         nu: float = 200.0,
         map_capacity=None,
         icp_capacity: Optional[int] = None,
+        motion_model: str = "static",
+        lookahead_assoc: str = "fresh",
+        prune_every: int = 0,
+        prune_min_confidence: float = 1.0,
         normal_pitch: Optional[int] = None,
         **unported,
     ):
@@ -129,10 +179,41 @@ class ICPSLAM(nn.Module):
                 "ICPSLAM's aggregate map (update_map_aggregate) is not ported "
                 "to gradslam_torch yet (ROADMAP.md queue 1, item 1); use PointFusion."
             )
+        if isinstance(odom_assoc, (list, tuple)):
+            if pyramid is None or len(odom_assoc) != len(pyramid):
+                raise ValueError(
+                    "A per-level odom_assoc list requires a pyramid of the same "
+                    f"length. Got {odom_assoc!r} with pyramid={pyramid!r}."
+                )
+            odom_assoc = tuple(odom_assoc)
+            levels = odom_assoc
+        else:
+            levels = (odom_assoc,)
+        bad = [a for a in levels if a not in ("knn", "projective")]
+        if bad:
+            raise ValueError(f"Unknown odom_assoc: {bad!r}. Expected 'knn' or 'projective'.")
+        if odom_angle_gate is not None:
+            if odom == "gt":
+                raise ValueError(
+                    "odom_angle_gate requires tracked odometry (odom='gradicp'), not odom='gt'."
+                )
+            if not (0 < odom_angle_gate <= 180):
+                raise ValueError(
+                    f"odom_angle_gate must be in (0, 180] degrees or None. Got {odom_angle_gate}."
+                )
+        if odom_sym_normals and "projective" not in levels:
+            raise ValueError("odom_sym_normals requires odom_assoc='projective'.")
         if not isinstance(dsratio, int) or dsratio < 1:
             raise ValueError(f"dsratio must be an int >= 1. Got {dsratio}.")
         if not isinstance(numiters, int) or numiters < 1:
             raise ValueError(f"numiters must be an int >= 1. Got {numiters}.")
+        if motion_model not in ("static", "constant_velocity"):
+            raise ValueError(
+                f"Unknown motion_model: {motion_model!r}. "
+                "Expected 'static' or 'constant_velocity'."
+            )
+        if prune_every < 0:
+            raise ValueError(f"prune_every must be >= 0. Got {prune_every}.")
         if normal_pitch is not None and (
             not isinstance(normal_pitch, int) or normal_pitch < 1
         ):
@@ -142,11 +223,39 @@ class ICPSLAM(nn.Module):
         self.dsratio = dsratio
         self.map_capacity = map_capacity
         self.icp_capacity = icp_capacity
+        self.motion_model = motion_model
+        self.prune_every = int(prune_every)
+        self.prune_min_confidence = prune_min_confidence
         self.normal_pitch = normal_pitch
-        self.odomprov = (
-            GradICPOdometryProvider(numiters, damp, dist_thresh, lambda_max, B, B2, nu)
-            if odom == "gradicp" else None
-        )
+        self.pyramid = validate_pyramid(pyramid)
+        validate_robust(robust_loss, robust_scale)
+        dot_gate = None if odom_angle_gate is None else math.cos(math.radians(odom_angle_gate))
+
+        def make_provider(n_iters, assoc):
+            if odom == "gt":
+                return None
+            if assoc == "projective":
+                return ProjectiveOdometryProvider(
+                    numiters=n_iters, damp=damp, dist_thresh=dist_thresh, dot_gate=dot_gate,
+                    lambda_max=lambda_max, B=B, B2=B2, nu=nu,
+                    lookahead_assoc=lookahead_assoc, robust_loss=robust_loss,
+                    robust_scale=robust_scale, sym_normals=odom_sym_normals,
+                )
+            return GradICPOdometryProvider(
+                n_iters, damp, dist_thresh, lambda_max, B, B2, nu,
+                lookahead_assoc, robust_loss, robust_scale, dot_gate=dot_gate,
+            )
+
+        if self.pyramid is None:
+            self.odomprov = make_provider(numiters, odom_assoc)
+            self._pyramid_provs = None
+        else:
+            assocs = odom_assoc if isinstance(odom_assoc, tuple) else (odom_assoc,) * len(
+                self.pyramid)
+            self._pyramid_provs = [
+                make_provider(n, a) for (_, n), a in zip(self.pyramid, assocs)
+            ]
+            self.odomprov = self._pyramid_provs[-1]  # finest level
 
     # ------------------------------------------------------------------ #
     # Map layout and capacities (host-side, static)
@@ -172,23 +281,23 @@ class ICPSLAM(nn.Module):
             raise ValueError(f"Capacity schedule must be non-decreasing. Got {caps}.")
         return sched
 
-    def _default_icp_capacity(self, H: int, W: int) -> int:
+    def _default_icp_capacity(self, H: int, W: int, ds: Optional[int] = None) -> int:
         if self.icp_capacity is not None:
             return self.icp_capacity
-        return 2 * math.ceil(H / self.dsratio) * math.ceil(W / self.dsratio)
+        ds = self.dsratio if ds is None else ds
+        return 2 * math.ceil(H / ds) * math.ceil(W / ds)
 
     def empty_map(
         self, batch_size: int, capacity: int, *, device, dtype=torch.float32
     ) -> Pointclouds:
         r"""An empty map buffer for this pipeline on ``device``."""
-        return Pointclouds.empty(
-            batch_size, capacity, device=device, dtype=dtype,
-            has_normals=True, has_colors=True,
-            feature_dim=1 if self.has_features else None,
-        )
+        raise NotImplementedError
 
     def _map(self, pointclouds: Pointclouds, live_frame: RGBDImages) -> Pointclouds:
         raise NotImplementedError
+
+    def _prune(self, pointclouds: Pointclouds) -> Pointclouds:
+        return prune_map(pointclouds, self.prune_min_confidence)
 
     def _with_normal_pitch(self, frames: RGBDImages) -> RGBDImages:
         if self.normal_pitch is None or frames.normal_pitch == self.normal_pitch:
@@ -202,7 +311,7 @@ class ICPSLAM(nn.Module):
     # Odometry
     # ------------------------------------------------------------------ #
     def _icp_target_window(self, pointclouds: Pointclouds) -> Pointclouds:
-        """Geometry-only view of the map (the solver reads no colors or
+        """Geometry-only view of the map (the solvers read no colors or
         features)."""
         return Pointclouds(
             points=pointclouds.points,
@@ -213,18 +322,70 @@ class ICPSLAM(nn.Module):
     def _localize(
         self, pointclouds: Pointclouds, live_frame: RGBDImages, prev_frame: RGBDImages
     ) -> torch.Tensor:
-        r"""Align the live frame against the downsampled active map; returns
-        poses ``(B, 1, 4, 4)``."""
+        r"""Align the live frame against the downsampled active map, level by
+        level; returns poses ``(B, 1, 4, 4)``."""
         _, _, H, W = live_frame.shape
         live_frame = live_frame.with_poses(prev_frame.poses)
         target = self._icp_target_window(pointclouds)
         active = find_active_map_points(target, prev_frame)
-        maps_pc = downsample_pointclouds(
-            target, active.valid, active.pix_h, active.pix_w,
-            self.dsratio, self._default_icp_capacity(H, W),
-        )
-        frames_pc = downsample_rgbdimages(live_frame, self.dsratio)
-        transform = self.odomprov.provide(maps_pc, frames_pc)
+
+        def solve_with(prov, maps_pc, ds, init_T):
+            if isinstance(prov, ProjectiveOdometryProvider):
+                # the live frame's own vertex and normal images are the target
+                return prov.provide(maps_pc, live_frame, initial_transform=init_T)
+            frames_pc = downsample_rgbdimages(live_frame, ds)
+            return prov.provide(maps_pc, frames_pc, initial_transform=init_T)
+
+        def window(ds):
+            return downsample_pointclouds(
+                target, active.valid, active.pix_h, active.pix_w, ds,
+                self._default_icp_capacity(H, W, ds),
+            )
+
+        if self.pyramid is None:
+            transform = solve_with(self.odomprov, window(self.dsratio), self.dsratio, None)
+        else:
+            ds_fine = self.pyramid[-1][0]
+            nested = len(self.pyramid) > 1 and all(ds % ds_fine == 0 for ds, _ in self.pyramid)
+            transform = None
+            if nested:
+                # Compact the full map once at the finest stride, the pixel
+                # coordinates riding along as two float channels, and carve
+                # the coarser windows out of that small buffer (every coarser
+                # stride is a multiple of the finest one).
+                capf = self._default_icp_capacity(H, W, ds_fine)
+                dt = target.points.dtype
+                packed = torch.cat([
+                    target.points, target.normals,
+                    active.pix_h[..., None].to(dt), active.pix_w[..., None].to(dt),
+                ], dim=-1)
+                keep = (active.valid & (active.pix_h % ds_fine == 0)
+                        & (active.pix_w % ds_fine == 0))
+                win8, counts = compact_masked(packed, keep, capf)
+                dropped_f = keep.sum(dim=-1) - counts
+                rowmask = torch.arange(capf, device=counts.device)[None] < counts[:, None]
+                for prov, (ds_l, _n) in zip(self._pyramid_provs, self.pyramid):
+                    init_T = None if transform is None else transform[:, 0]
+                    if ds_l == ds_fine:
+                        maps_pc = Pointclouds(
+                            points=win8[..., :3], num_points=counts,
+                            normals=win8[..., 3:6], num_dropped=dropped_f,
+                        )
+                    else:
+                        ph = win8[..., 6].to(torch.int64)
+                        pw = win8[..., 7].to(torch.int64)
+                        keep_l = rowmask & (ph % ds_l == 0) & (pw % ds_l == 0)
+                        sub, c_l = compact_masked(
+                            win8[..., :6], keep_l, self._default_icp_capacity(H, W, ds_l))
+                        maps_pc = Pointclouds(
+                            points=sub[..., :3], num_points=c_l, normals=sub[..., 3:6],
+                            num_dropped=dropped_f + keep_l.sum(dim=-1) - c_l,
+                        )
+                    transform = solve_with(prov, maps_pc, ds_l, init_T)
+            else:
+                for prov, (ds, _n) in zip(self._pyramid_provs, self.pyramid):
+                    init_T = None if transform is None else transform[:, 0]
+                    transform = solve_with(prov, window(ds), ds, init_T)
         return compose_transformations(transform[:, 0], prev_frame.poses[:, 0])[:, None]
 
     # ------------------------------------------------------------------ #
@@ -243,34 +404,50 @@ class ICPSLAM(nn.Module):
         map_pc = self.empty_map(B, schedule[0][1], device=frames.device, dtype=frames.dtype)
 
         if self.odom == "gt":
-            s = 0
+            start = 0
             for n, cap_seg in schedule:
                 map_pc = map_pc.with_capacity(cap_seg)
-                for i in range(s, s + n):
-                    map_pc = self._map(map_pc, frames[:, i])
-                s += n
+                for sub_n, prune_after in split_prune_segments(start, n, self.prune_every):
+                    for i in range(start, start + sub_n):
+                        map_pc = self._map(map_pc, frames[:, i])
+                    if prune_after:
+                        map_pc = self._prune(map_pc)
+                    start += sub_n
             return map_pc, frames.poses
 
         # Tracked: bootstrap frame 0 at the provided (or identity) pose,
-        # then track frame to map, each solve starting at the previous pose.
+        # then track frame to map, each solve starting at the prediction.
         if frames.poses is not None:
             prev_pose = frames.poses[:, 0]
         else:
             prev_pose = torch.eye(4, dtype=frames.dtype, device=frames.device).expand(B, 4, 4)
         poses = [prev_pose]
         map_pc = self._map(map_pc, frames[:, 0].with_poses(prev_pose[:, None]))
-        f = 1
+        if self.prune_every == 1:  # (0 + 1) % prune_every == 0 only then
+            map_pc = self._prune(map_pc)
+        cv = self.motion_model == "constant_velocity"
+        prev_delta = torch.eye(4, dtype=frames.dtype, device=frames.device).expand(B, 4, 4)
+        start = 0  # tracked frames done; global frame = start + 1
         for i, (n, cap_seg) in enumerate(schedule):
+            n_track = n - 1 if i == 0 else n  # frame 0 was mapped above
             map_pc = map_pc.with_capacity(cap_seg)
-            for _ in range(n - 1 if i == 0 else n):
-                live = RGBDImages(
-                    frames.rgb_image[:, f:f + 1], frames.depth_image[:, f:f + 1],
-                    frames.intrinsics, prev_pose[:, None],
-                    normal_pitch=frames.normal_pitch,
-                )
-                pose = self._localize(map_pc, live, live)
-                map_pc = self._map(map_pc, live.with_poses(pose))
-                prev_pose = pose[:, 0]
-                poses.append(prev_pose)
-                f += 1
+            for sub_n, prune_after in split_prune_segments(start + 1, n_track, self.prune_every):
+                for f in range(start + 1, start + 1 + sub_n):
+                    # the constant-velocity chain pose @ inv(prev) @ pose doubles
+                    # the rotation's orthonormality error each frame: re-project
+                    pred = (orthonormalize_rotations(compose_transformations(prev_delta, prev_pose))
+                            if cv else prev_pose)
+                    live = RGBDImages(
+                        frames.rgb_image[:, f:f + 1], frames.depth_image[:, f:f + 1],
+                        frames.intrinsics, pred[:, None], normal_pitch=frames.normal_pitch,
+                    )
+                    pose = self._localize(map_pc, live, live)[:, 0]
+                    map_pc = self._map(map_pc, live.with_poses(pose[:, None]))
+                    if cv:  # world-frame motion of this frame, the next prediction
+                        prev_delta = compose_transformations(pose, inverse_transformation(prev_pose))
+                    prev_pose = pose
+                    poses.append(pose)
+                if prune_after:
+                    map_pc = self._prune(map_pc)
+                start += sub_n
         return map_pc, torch.stack(poses, dim=1)

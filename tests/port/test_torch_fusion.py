@@ -5,9 +5,13 @@ frame.
 
 Tolerances: points within 1e-4 and normals within 1e-3 (the bars
 ``PARITY.md`` sets for maps); counts within 0.2% and confidence mass equal
-to float32 summation error (rtol 1e-6). Every test runs under
+to float32 summation error (rtol 1e-6). The association x merge x
+color-layout combinations on an overflowing window: equal counts and every
+buffer row within 1e-5, packed colors within one 8-bit step. ``pack_colors``/``unpack_colors`` exact;
+``prune_map`` equal counts and rows within 1e-6. Every test runs under
 ``torch.use_deterministic_algorithms(True)``."""
 
+import dataclasses
 import math
 
 import numpy as np
@@ -163,12 +167,143 @@ def test_pixel_snap_is_round_half_to_even():
 
 
 @pytest.mark.parametrize("kw, exc", [
-    ({"association": "windowed"}, NotImplementedError),
-    ({"merge": "scatter"}, NotImplementedError),
     ({"association": "bogus"}, ValueError),
     ({"merge": "bogus"}, ValueError),
+    ({"features": 3}, NotImplementedError),
 ])
 def test_unported_and_unknown_modes_raise(mid_sequence, kw, exc):
     jmap, _, live_t = mid_sequence
-    with pytest.raises(exc):
-        F.update_map_fusion(jax_map_to_torch(jmap), live_t, DIST_TH, DOT_TH, SIGMA, **kw)
+    tmap = jax_map_to_torch(jmap)
+    if "features" in kw:  # user feature channels past [ccount, packed_color]
+        tmap = dataclasses.replace(
+            tmap, colors=None,
+            features=torch.zeros(tmap.points.shape[:2] + (kw.pop("features"),)),
+        )
+    with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError else None):
+        F.update_map_fusion(tmap, live_t, DIST_TH, DOT_TH, SIGMA, **kw)
+
+
+def _quantized(pc):
+    """A JAX float-color map in the quantized layout: features
+    ``[ccount, packed_color]``, no colors."""
+    feats = jnp.concatenate([pc.features, JF.pack_colors(pc.colors)], axis=-1)
+    return dataclasses.replace(pc, colors=None, features=feats)
+
+
+@pytest.fixture(scope="module")
+def overflowing():
+    """The mid-sequence map grown to capacity ``4 * H * W`` with its first
+    ``H * W`` rows copied behind it, the second half of the copies with 0.5
+    more confidence: more than ``2 * H * W`` rows land in the frame, so the
+    default window overflows, and the dropped copies would have won their
+    pixels in ``sort_full``. Colors are scaled to [0, 1], the range the
+    quantized layout packs."""
+    m = msrd()
+    m["colors"] = m["colors"] / np.float32(255.0)
+    H, W = m["depths"].shape[2:4]
+    HW = H * W
+    jf, _ = both_frames(m["colors"][:, :2], m["depths"][:, :2], m["intrinsics"], m["poses"][:, :2])
+    jmap, _ = G.PointFusion(odom="gt", map_capacity=4 * HW)(jf)
+    n = np.asarray(jmap.num_points)
+
+    def dup(buf, bump=None):
+        buf = np.array(buf)
+        for b in range(buf.shape[0]):
+            copy = buf[b, :HW].copy()
+            if bump is not None:
+                copy[HW // 2:] += bump
+            buf[b, n[b]:n[b] + HW] = copy
+        return jnp.asarray(buf)
+
+    big = G.Pointclouds(
+        points=dup(jmap.points), num_points=jnp.asarray(n + HW),
+        normals=dup(jmap.normals), colors=dup(jmap.colors),
+        features=dup(jmap.features, bump=0.5), num_dropped=jmap.num_dropped,
+    )
+    live_j, live_t = both_frames(m["colors"][:, 2:3], m["depths"][:, 2:3], m["intrinsics"],
+                                 m["poses"][:, 2:3])
+    active = np.asarray(JF.find_active_map_points(big, live_j).valid).sum(-1)
+    assert (active > 2 * HW).all(), active
+    return big, live_j, live_t
+
+
+def _assert_buffers_agree(ours, theirs, atol):
+    np.testing.assert_array_equal(ours.num_points.numpy(), np.asarray(theirs.num_points))
+    np.testing.assert_array_equal(ours.num_dropped.numpy(), np.asarray(theirs.num_dropped))
+    for name in ("points", "normals", "colors", "features"):
+        o, t = getattr(ours, name), getattr(theirs, name)
+        assert (o is None) == (t is None), name
+        if o is None:
+            continue
+        o, t = o.numpy(), np.asarray(t)
+        if name == "features" and ours.colors is None:
+            # a merged color that lies within an ulp of a rounding midpoint
+            # may quantize one 8-bit step apart (the JAX CPU backend fuses
+            # multiply-adds): compare the packed colors unpacked, to a step
+            np.testing.assert_allclose(
+                F.unpack_colors(torch.from_numpy(o[..., 1:2])).numpy(),
+                np.asarray(JF.unpack_colors(jnp.asarray(t[..., 1:2]))),
+                atol=1.0 / 255 + 1e-6, rtol=0, err_msg="packed colors")
+            o, t = o[..., :1], t[..., :1]
+        np.testing.assert_allclose(o, t, atol=atol, rtol=0, err_msg=name)
+
+
+def test_auto_resolves_to_the_window_like_jax(overflowing):
+    """Capacity 4 * H * W: JAX's 'auto' fuses with the 2 * H * W window,
+    which overflows here, so 'auto' must pick it on both sides."""
+    big, live_j, live_t = overflowing
+    theirs = JF.update_map_fusion(big, live_j, DIST_TH, DOT_TH, SIGMA)
+    ours = F.update_map_fusion(jax_map_to_torch(big), live_t, DIST_TH, DOT_TH, SIGMA)
+    _assert_buffers_agree(ours, theirs, atol=1e-5)
+    full = JF.update_map_fusion(big, live_j, DIST_TH, DOT_TH, SIGMA, association="sort_full")
+    assert not np.array_equal(np.asarray(full.features), np.asarray(theirs.features))
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "quantized"])
+@pytest.mark.parametrize("merge", ["gather", "scatter", "auto"])
+@pytest.mark.parametrize("association", ["sort_full", "windowed", "auto"])
+def test_fusion_modes_match_jax(overflowing, association, merge, quantized):
+    big, live_j, live_t = overflowing
+    if quantized:
+        big = _quantized(big)
+    kw = dict(association=association, merge=merge)
+    theirs = JF.update_map_fusion(big, live_j, DIST_TH, DOT_TH, SIGMA, **kw)
+    ours = F.update_map_fusion(jax_map_to_torch(big), live_t, DIST_TH, DOT_TH, SIGMA, **kw)
+    _assert_buffers_agree(ours, theirs, atol=1e-5)
+
+
+@pytest.mark.parametrize("cap_hw, active_capacity, expect", [
+    (3, None, ("sort_full", "gather")),
+    (4, None, ("windowed", "gather")),
+    (4, 5, ("sort_full", "gather")),
+    (7, None, ("windowed", "scatter")),
+    (7, 3, ("windowed", "scatter")),
+])
+def test_auto_resolution_follows_jax(cap_hw, active_capacity, expect):
+    HW = 100
+    window = min(active_capacity * HW if active_capacity else 2 * HW, cap_hw * HW)
+    assert F._resolve_modes("auto", "auto", cap_hw * HW, HW, window) == expect
+
+
+def test_pack_colors_round_trip_matches_jax():
+    rng = np.random.RandomState(3)
+    colors = rng.rand(4, 500, 3).astype(np.float32)
+    colors[0, :6] = [[0, 0, 0], [1, 1, 1], [0.5 / 255, 1.5 / 255, 2.5 / 255],
+                     [-0.1, 1.2, 0.5], [127.5 / 255] * 3, [254.5 / 255] * 3]
+    ours = F.pack_colors(torch.from_numpy(colors))
+    theirs = np.asarray(JF.pack_colors(jnp.asarray(colors)))
+    np.testing.assert_array_equal(ours.numpy(), theirs)
+    assert ours.dtype == torch.float32 and float(ours.max()) <= 2**24 - 1
+    np.testing.assert_array_equal(F.unpack_colors(ours).numpy(),
+                                  np.asarray(JF.unpack_colors(jnp.asarray(theirs))))
+
+
+@pytest.mark.parametrize("min_confidence", [0.5, 1.5, 100.0])
+def test_prune_map_matches_jax(mid_sequence, min_confidence):
+    jmap, live_j, live_t = mid_sequence
+    theirs = JF.prune_map(jmap, min_confidence)
+    ours = F.prune_map(jax_map_to_torch(jmap), min_confidence)
+    _assert_buffers_agree(ours, theirs, atol=1e-6)
+    qmap = _quantized(jmap)
+    _assert_buffers_agree(F.prune_map(jax_map_to_torch(qmap), min_confidence),
+                          JF.prune_map(qmap, min_confidence), atol=1e-6)

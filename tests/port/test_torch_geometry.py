@@ -172,3 +172,23 @@ def test_rgbdimages_indexing_and_poses():
         type(tf)(tf.rgb_image, tf.depth_image[..., :2, :], tf.intrinsics)
     with pytest.raises(ValueError):
         type(tf)(tf.rgb_image, tf.depth_image, tf.intrinsics, normal_pitch=0)
+
+
+@pytest.mark.parametrize("noise", [0.0, 1e-4, 1e-2])
+def test_orthonormalize_rotations_matches_jax(noise):
+    """Within 1e-6 of JAX, and a Newton step shrinks an orthonormality error
+    ``eps`` to ``O(eps^2)``; the translation is left as it was."""
+    rng = np.random.RandomState(9)
+    T0 = rigid_transforms(rng, 12).reshape(3, 4, 4, 4)
+    T0[..., :3, :3] += (noise * rng.randn(3, 4, 3, 3)).astype(np.float32)
+    ours = T.orthonormalize_rotations(torch.from_numpy(T0))
+    theirs = np.asarray(G.orthonormalize_rotations(jnp.asarray(T0)))
+    np.testing.assert_allclose(ours.numpy(), theirs, atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(ours[..., :3, 3].numpy(), T0[..., :3, 3])
+    def ortho_err(R):
+        R = torch.as_tensor(R).double()
+        return float((R.transpose(-1, -2) @ R - torch.eye(3, dtype=torch.float64)).abs().max())
+
+    assert ortho_err(ours[..., :3, :3]) < max(1e-6, 2 * ortho_err(T0[..., :3, :3]) ** 2)
+    with pytest.raises(ValueError):
+        T.orthonormalize_rotations(torch.zeros(3, 3))

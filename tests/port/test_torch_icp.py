@@ -4,7 +4,8 @@ plain version, which ``test_torch_knn.py`` holds to the Pallas kernel.
 
 Tolerances: solver transforms within |dT| <= 1e-5 (the bar ``PARITY.md``
 sets for the reference goldens); linear-system rows and solutions within
-1e-5; downsampled clouds exactly (gathers and compaction only)."""
+1e-5; downsampled clouds exactly (gathers and compaction only); robust
+weights and the guarded step within 1e-6; the normal gate exactly."""
 
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 
 import gradslam_tpu as G  # noqa: E402
 from gradslam_torch.odometry import GradICPOdometryProvider  # noqa: E402
+from gradslam_torch.odometry import icputils as T  # noqa: E402
 from gradslam_torch.odometry.icputils import (  # noqa: E402
     downsample_rgbdimages,
     gauss_newton_solve,
@@ -152,3 +154,115 @@ def test_provider_matches_jax():
     np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=ATOL_T, rtol=0)
     with pytest.raises(ValueError):
         GradICPOdometryProvider().provide(jax_map_to_torch(live), jax_map_to_torch(live))
+
+
+@pytest.mark.parametrize("loss", [None, "huber", "tukey"])
+def test_robust_weights_match_jax(loss):
+    rng = np.random.RandomState(4)
+    r = np.concatenate([[0.0, -0.0, 0.03, -0.03, 1e-13, 5.0],
+                        rng.randn(200) * 0.05]).astype(np.float32)[:, None]
+    ours = T.robust_weights(_t(r), loss, 0.03)
+    theirs = J.robust_weights(jnp.asarray(r), loss, 0.03)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=1e-6, rtol=0)
+    assert torch.isfinite(ours).all()
+    with pytest.raises(ValueError):
+        T.robust_weights(_t(r), "cauchy", 0.03)
+
+
+@pytest.mark.parametrize("gate", [-1.0, 0.0, 0.7071, 1.0])
+def test_normal_gate_matches_jax(gate):
+    rng = np.random.RandomState(5)
+    n1 = rng.randn(300, 3).astype(np.float32) * rng.rand(300, 1).astype(np.float32)
+    n2 = rng.randn(300, 3).astype(np.float32) * 0.3
+    n1[:5] = 0.0  # padding rows with zero normals
+    n2[5:10] = -n1[5:10] * 2.0  # exactly anti-parallel, non-unit
+    ours = T._normal_gate(_t(n1), _t(n2), gate)
+    theirs = J._normal_gate(jnp.asarray(n1), jnp.asarray(n2), gate)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+    # zero-normal padding rows: admitted by non-positive gates only
+    assert bool(ours[:5].all()) == (gate <= 0)
+
+
+@pytest.mark.parametrize("case", ["all_rejected", "healthy", "huge_step"])
+def test_guard_robust_step_matches_jax(case):
+    rng = np.random.RandomState(6)
+    N = 40
+    src = (rng.randn(N, 3) * 0.3 + [0.0, 0.0, 1.5]).astype(np.float32)
+    mask = rng.rand(N) < 0.8
+    A = rng.randn(N, 6).astype(np.float32)
+    xi = (rng.randn(6, 1) * 0.01).astype(np.float32)
+    if case == "all_rejected":
+        A[:] = 0.0
+        xi = (rng.randn(6, 1) * 1e6).astype(np.float32)
+    if case == "huge_step":
+        xi = (rng.randn(6, 1) * 3.0).astype(np.float32)
+    ours = T._guard_robust_step(_t(xi[:, 0])[None], _t(A)[None], 0.03, _t(src)[None],
+                                _t(mask)[None])
+    theirs = J._guard_robust_step(jnp.asarray(xi), jnp.asarray(A), 0.03, jnp.asarray(src),
+                                  jnp.asarray(mask))
+    np.testing.assert_allclose(ours[0].numpy(), np.asarray(theirs)[:, 0], atol=1e-6, rtol=1e-6)
+    if case == "all_rejected":
+        assert (ours == 0).all()
+    ours_nomask = T._guard_robust_step(_t(xi[:, 0])[None], _t(A)[None], 0.03, _t(src)[None], None)
+    theirs_nomask = J._guard_robust_step(jnp.asarray(xi), jnp.asarray(A), 0.03,
+                                         jnp.asarray(src), None)
+    np.testing.assert_allclose(ours_nomask[0].numpy(), np.asarray(theirs_nomask)[:, 0],
+                               atol=1e-6, rtol=1e-6)
+
+
+def _tilted_normals(nrm):
+    rng = np.random.RandomState(7)
+    return (nrm + 0.2 * rng.randn(*nrm.shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("lookahead, loss, gate", [
+    ("reuse", None, None),
+    ("fresh", "tukey", None),
+    ("reuse", "huber", 0.7071),
+    ("reuse", "tukey", 0.7071),
+    ("fresh", None, -1.0),
+])
+def test_gated_robust_reuse_gradicp_matches_jax(lookahead, loss, gate):
+    src, tgt, nrm, src_mask, tgt_mask = _batched_masked_inputs()
+    src_n = _tilted_normals(src * 0.0 + nrm[:, :src.shape[1]]) if gate is not None else None
+    rng = np.random.RandomState(1)
+    init = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    init[:, :3, 3] = 0.01 * rng.randn(2, 3)
+    kw = dict(numiters=6, dist_thresh=0.05, lookahead_assoc=lookahead, robust_loss=loss,
+              robust_scale=0.03, dot_gate=gate)
+    ours, _ = point_to_plane_gradICP(
+        _t(src), _t(tgt), _t(nrm), initial_transform=_t(init), src_mask=_t(src_mask),
+        tgt_mask=_t(tgt_mask), src_normals=None if src_n is None else _t(src_n), **kw)
+    for b in range(2):
+        theirs, _ = J.point_to_plane_gradICP(
+            jnp.asarray(src[b]), jnp.asarray(tgt[b]), jnp.asarray(nrm[b]),
+            initial_transform=jnp.asarray(init[b]), src_mask=jnp.asarray(src_mask[b]),
+            tgt_mask=jnp.asarray(tgt_mask[b]),
+            src_normals=None if src_n is None else jnp.asarray(src_n[b]), **kw)
+        np.testing.assert_allclose(ours[b].numpy(), np.asarray(theirs), atol=ATOL_T, rtol=0)
+    assert torch.isfinite(ours).all()
+
+
+def test_gate_arguments_come_in_pairs():
+    src, tgt, nrm = (_t(a) for a in _icp_golden_inputs())
+    with pytest.raises(ValueError, match="dot_gate requires"):
+        point_to_plane_gradICP(src, tgt, nrm, numiters=1, dot_gate=0.5)
+    with pytest.raises(ValueError, match="src_normals"):
+        point_to_plane_gradICP(src, tgt, nrm, numiters=1, src_normals=nrm[: src.shape[0]])
+    with pytest.raises(ValueError, match="lookahead"):
+        point_to_plane_gradICP(src, tgt, nrm, numiters=1, lookahead_assoc="bogus")
+
+
+def test_provider_with_options_matches_jax():
+    m = msrd()
+    jf, tf = both_frames(m["colors"], m["depths"], m["intrinsics"], m["poses"])
+    jmap = J.downsample_rgbdimages(jf[:, 0], 4)
+    maps = G.Pointclouds(points=jmap.points, num_points=jmap.num_points, normals=jmap.normals)
+    jlive = J.downsample_rgbdimages(jf[:, 1].with_poses(jf.poses[:, 0:1]), 4)
+    kw = dict(numiters=5, dist_thresh=0.01, lookahead_assoc="reuse", robust_loss="tukey",
+              robust_scale=0.03, dot_gate=0.7071)
+    theirs = G.GradICPOdometryProvider(**kw).provide(maps, jlive)
+    ours = GradICPOdometryProvider(**kw).provide(jax_map_to_torch(maps), jax_map_to_torch(jlive))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=ATOL_T, rtol=0)
+    with pytest.raises(ValueError, match="cosine"):
+        GradICPOdometryProvider(dot_gate=1.5)

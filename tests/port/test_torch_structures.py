@@ -86,6 +86,24 @@ def test_with_capacity_grows_and_keeps_contents():
         pc.with_capacity(4)
 
 
+def test_quantized_layout_empty_and_grown_match_jax():
+    """The quantized map layout: no colors, features ``[ccount,
+    packed_color]``; growing it keeps colors None and pads the features."""
+    pc = Pointclouds.empty(2, 5, device="cpu", has_colors=False, feature_dim=2)
+    jpc = G.Pointclouds.empty(2, 5, has_colors=False, feature_dim=2)
+    assert pc.colors is None and jpc.colors is None
+    feats = np.arange(20, dtype=np.float32).reshape(2, 5, 2)
+    pc = pointclouds_from_numpy(np.ones((2, 5, 3)), [5, 3], normals=np.ones((2, 5, 3)),
+                                features=feats, num_dropped=[0, 0])
+    jpc = G.Pointclouds(points=jnp.ones((2, 5, 3)), num_points=jnp.asarray([5, 3]),
+                        normals=jnp.ones((2, 5, 3)), features=jnp.asarray(feats),
+                        num_dropped=jnp.zeros(2, jnp.int32))
+    grown, jgrown = pc.with_capacity(8), jpc.with_capacity(8)
+    assert grown.colors is None and jgrown.colors is None
+    np.testing.assert_array_equal(grown.features.numpy(), np.asarray(jgrown.features))
+    assert grown.features_list[1].shape == (3, 2)
+
+
 def test_with_capacity_matches_jax():
     values, _ = _cloud(1)
     jpc = G.Pointclouds(points=jnp.asarray(values), num_points=jnp.asarray([30, 12]))
