@@ -4,6 +4,9 @@ SLAM has no weights: its state is the map and the frames. These functions
 build port structures from numpy arrays and turn them back, so that one
 state (for example a map that the JAX package built half-way through a
 sequence, read out with ``np.asarray``) can start both pipelines.
+
+The structures land on the card (``device="cuda"``) unless the caller asks
+for another device: a run on the CPU is asked for, never fallen into.
 """
 
 from __future__ import annotations
@@ -39,11 +42,11 @@ def pointclouds_from_numpy(
     colors=None,
     features=None,
     num_dropped=None,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> Pointclouds:
     r"""A :class:`Pointclouds` from padded numpy buffers ``(B, CAP, *)`` and
-    counters ``(B,)`` (float32 buffers, int64 counters) on ``device``. The
-    arrays are copied, never aliased."""
+    counters ``(B,)`` (float32 buffers, int64 counters) on ``device`` (the
+    card by default). The arrays are copied, never aliased."""
     return Pointclouds(
         points=_float(points, device),
         num_points=_count(num_points, device),
@@ -61,9 +64,10 @@ def rgbdimages_from_numpy(
     poses=None,
     *,
     normal_pitch: int = 1,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> RGBDImages:
-    r"""A channels-last :class:`RGBDImages` from numpy arrays on ``device``."""
+    r"""A channels-last :class:`RGBDImages` from numpy arrays on ``device``
+    (the card by default)."""
     return RGBDImages(
         _float(rgb_image, device),
         _float(depth_image, device),

@@ -1,11 +1,12 @@
-r"""Point-to-plane GradICP solver toolbox (PyTorch).
+r"""Point-to-plane ICP solver toolbox, LM and gradLM (PyTorch).
 
 Counterpart of ``gradslam_tpu/odometry/icputils.py``: ``solve_linear_system``
 (:53), ``robust_weights`` (:76), ``_normal_gate`` (:105), ``validate_robust``
 (:125), ``validate_pyramid`` (:141), ``gauss_newton_solve`` (:170),
 ``_ptp_system`` (:212), ``_safe_sqrt`` (:229), ``_guard_robust_step`` (:238),
-``_reused_residual`` (:301), ``point_to_plane_gradICP`` (:460),
-``downsample_pointclouds`` (:556) and ``downsample_rgbdimages`` (:590).
+``_reused_residual`` (:301), ``point_to_plane_ICP`` (:370),
+``point_to_plane_gradICP`` (:460), ``downsample_pointclouds`` (:556) and
+``downsample_rgbdimages`` (:590).
 
 The JAX solvers work on one cloud pair and are ``vmap``-ed; here every
 function takes an explicit leading batch dimension, and the ``lax.scan``
@@ -33,6 +34,7 @@ __all__ = [
     "validate_robust",
     "validate_pyramid",
     "gauss_newton_solve",
+    "point_to_plane_ICP",
     "point_to_plane_gradICP",
     "downsample_pointclouds",
     "downsample_rgbdimages",
@@ -239,41 +241,19 @@ def _rotate(x: torch.Tensor, transform: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, transform[:, :3, :3].transpose(1, 2))
 
 
-def point_to_plane_gradICP(
-    src_pc: torch.Tensor,
-    tgt_pc: torch.Tensor,
-    tgt_normals: torch.Tensor,
-    initial_transform: Optional[torch.Tensor] = None,
-    numiters: int = 20,
-    damp: float = 1e-8,
-    dist_thresh: Optional[float] = None,
-    lambda_max: float = 2.0,
-    B: float = 1.0,
-    B2: float = 1.0,
-    nu: float = 200.0,
-    src_mask: Optional[torch.Tensor] = None,
-    tgt_mask: Optional[torch.Tensor] = None,
-    lookahead_assoc: str = "fresh",
-    robust_loss: Optional[str] = None,
-    robust_scale: float = 0.05,
-    src_normals: Optional[torch.Tensor] = None,
-    dot_gate: Optional[float] = None,
+def _knn_icp_core(
+    mode: str,  # 'lm' (classic accept/reject) or 'gradlm'
+    src_pc, tgt_pc, tgt_normals, initial_transform, numiters: int, damp: float,
+    dist_thresh, lambda_max: float, B: float, B2: float, nu: float,
+    src_mask, tgt_mask, lookahead_assoc: str, robust_loss, robust_scale: float,
+    src_normals, dot_gate,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    r"""Differentiable gradLM ICP (reference icputils.py:370-545): smooth
-    sigmoid-blended damping and step scaling, the step always applied, the
-    error difference clamped to +-70.
-
-    ``lookahead_assoc``: ``'fresh'`` re-associates for the lookahead error
-    (a second nearest-neighbour search per iteration), ``'reuse'`` keeps the
-    iteration's association. ``robust_loss``/``robust_scale`` weight the rows
-    and guard the step (:func:`_guard_robust_step`). ``dot_gate`` with
-    ``src_normals`` (in the source cloud's frame; they rotate with every
-    iterate) rejects normal-incompatible associations.
-
-    Clouds are ``(N, 3)`` or batched ``(B, N, 3)``; masks ``(N,)``/``(B, N)``.
-    Returns ``(transform, chamfer_idx)``: ``(4, 4)`` and ``(N,)`` for
-    unbatched input, ``(B, 4, 4)`` and ``(B, N)`` for batched input.
-    """
+    """The 1-NN solvers' shared loop: each iteration associates, solves the
+    damped system, guards a robust step and evaluates the lookahead error;
+    ``'lm'`` then accepts or rejects the step and halves or doubles the
+    damping, ``'gradlm'`` blends both smoothly. Takes ``(N, 3)`` clouds as a
+    batch of one or ``(B, N, 3)`` clouds, and returns ``(transform,
+    chamfer_idx)`` of the last iteration in the same form."""
     if lookahead_assoc not in ("fresh", "reuse"):
         raise ValueError(f"Unknown lookahead_assoc mode: {lookahead_assoc}")
     if numiters < 1:
@@ -320,16 +300,98 @@ def point_to_plane_gradICP(
             _, b1, _ = gn(one_step_pc, n_step)
         new_err = torch.sum(b1 * b1, dim=(1, 2))
 
-        errdiff = torch.clamp(new_err - err, -70.0, 70.0)
-        damp_new = lambda_min + (lambda_max - lambda_min) / (1.0 + torch.exp(-B * errdiff))
-        damp_t = damp_t * damp_new
-        sigmoid = 1.0 / (1.0 + torch.exp(-B2 * errdiff)) ** (1.0 / nu)
-        scaled_transform = se3_exp(sigmoid[:, None] * xi)
-        pc = transform_pointcloud(pc, scaled_transform)
-        transform = torch.matmul(scaled_transform, transform)
+        if mode == "lm":
+            accept = new_err < err
+            pc = torch.where(accept[:, None, None], one_step_pc, pc)
+            transform = torch.where(accept[:, None, None],
+                                    torch.matmul(residual_transform, transform), transform)
+            damp_t = torch.where(accept, damp_t / 2.0, damp_t * 2.0)
+        else:
+            errdiff = torch.clamp(new_err - err, -70.0, 70.0)
+            damp_new = lambda_min + (lambda_max - lambda_min) / (1.0 + torch.exp(-B * errdiff))
+            damp_t = damp_t * damp_new
+            sigmoid = 1.0 / (1.0 + torch.exp(-B2 * errdiff)) ** (1.0 / nu)
+            scaled_transform = se3_exp(sigmoid[:, None] * xi)
+            pc = transform_pointcloud(pc, scaled_transform)
+            transform = torch.matmul(scaled_transform, transform)
     if not batched:
         return transform[0], idx[0]
     return transform, idx
+
+
+def point_to_plane_ICP(
+    src_pc: torch.Tensor,
+    tgt_pc: torch.Tensor,
+    tgt_normals: torch.Tensor,
+    initial_transform: Optional[torch.Tensor] = None,
+    numiters: int = 20,
+    damp: float = 1e-8,
+    dist_thresh: Optional[float] = None,
+    src_mask: Optional[torch.Tensor] = None,
+    tgt_mask: Optional[torch.Tensor] = None,
+    lookahead_assoc: str = "fresh",
+    robust_loss: Optional[str] = None,
+    robust_scale: float = 0.05,
+    src_normals: Optional[torch.Tensor] = None,
+    dot_gate: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    r"""Point-to-plane ICP with the classic LM accept/reject loop
+    (``gradslam_tpu/odometry/icputils.py:370``): a step is taken only when
+    the lookahead error is smaller, and the damping then halves (else
+    doubles). ``lookahead_assoc``, ``robust_loss``/``robust_scale`` and
+    ``dot_gate``/``src_normals`` as in :func:`point_to_plane_gradICP`.
+
+    Clouds are ``(N, 3)`` or batched ``(B, N, 3)``; masks ``(N,)``/``(B, N)``.
+    Returns ``(transform, chamfer_idx)``: ``(4, 4)`` and ``(N,)`` for
+    unbatched input, ``(B, 4, 4)`` and ``(B, N)`` for batched input.
+    """
+    return _knn_icp_core(
+        "lm", src_pc, tgt_pc, tgt_normals, initial_transform, numiters, damp, dist_thresh,
+        2.0, 1.0, 1.0, 200.0, src_mask, tgt_mask, lookahead_assoc, robust_loss, robust_scale,
+        src_normals, dot_gate,
+    )
+
+
+def point_to_plane_gradICP(
+    src_pc: torch.Tensor,
+    tgt_pc: torch.Tensor,
+    tgt_normals: torch.Tensor,
+    initial_transform: Optional[torch.Tensor] = None,
+    numiters: int = 20,
+    damp: float = 1e-8,
+    dist_thresh: Optional[float] = None,
+    lambda_max: float = 2.0,
+    B: float = 1.0,
+    B2: float = 1.0,
+    nu: float = 200.0,
+    src_mask: Optional[torch.Tensor] = None,
+    tgt_mask: Optional[torch.Tensor] = None,
+    lookahead_assoc: str = "fresh",
+    robust_loss: Optional[str] = None,
+    robust_scale: float = 0.05,
+    src_normals: Optional[torch.Tensor] = None,
+    dot_gate: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    r"""Differentiable gradLM ICP (reference icputils.py:370-545): smooth
+    sigmoid-blended damping and step scaling, the step always applied, the
+    error difference clamped to +-70.
+
+    ``lookahead_assoc``: ``'fresh'`` re-associates for the lookahead error
+    (a second nearest-neighbour search per iteration), ``'reuse'`` keeps the
+    iteration's association. ``robust_loss``/``robust_scale`` weight the rows
+    and guard the step (:func:`_guard_robust_step`). ``dot_gate`` with
+    ``src_normals`` (in the source cloud's frame; they rotate with every
+    iterate) rejects normal-incompatible associations.
+
+    Clouds are ``(N, 3)`` or batched ``(B, N, 3)``; masks ``(N,)``/``(B, N)``.
+    Returns ``(transform, chamfer_idx)``: ``(4, 4)`` and ``(N,)`` for
+    unbatched input, ``(B, 4, 4)`` and ``(B, N)`` for batched input.
+    """
+    return _knn_icp_core(
+        "gradlm", src_pc, tgt_pc, tgt_normals, initial_transform, numiters, damp, dist_thresh,
+        lambda_max, B, B2, nu, src_mask, tgt_mask, lookahead_assoc, robust_loss, robust_scale,
+        src_normals, dot_gate,
+    )
 
 
 def downsample_pointclouds(

@@ -1,7 +1,8 @@
 r"""Projective data association odometry (frame-to-model, no 1-NN search).
 
 Counterpart of ``gradslam_tpu/odometry/projective.py``: ``projective_associate``
-(:73, nearest pixel), ``_projective_icp_core`` (:243, the gradLM mode),
+(:73, nearest pixel), ``_projective_icp_core`` (:243, the LM and gradLM
+modes), ``point_to_plane_ICP_projective`` (:373),
 ``point_to_plane_gradICP_projective`` (:407) and
 ``ProjectiveOdometryProvider`` (:444). The map window is projected into the
 live camera at the current pose estimate, and each map point reads the
@@ -10,9 +11,8 @@ elementwise projection and one row gather of the packed ``(H*W, 8)`` frame
 image, instead of a nearest-neighbour search.
 
 Every function takes an explicit leading batch dimension (the JAX package
-``vmap``-s single-pair functions). Not ported yet (ROADMAP.md queue 1):
-``point_weight`` and ``subpixel`` (item 6) and the classic LM solver
-``solver='icp'`` (item 2).
+``vmap``-s single-pair functions). Not ported yet (ROADMAP.md queue 1,
+item 6): ``point_weight`` and ``subpixel``.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from .icputils import _guard_robust_step, _normal_gate, _ptp_system, _rotate, va
 
 __all__ = [
     "projective_associate",
+    "point_to_plane_ICP_projective",
     "point_to_plane_gradICP_projective",
     "ProjectiveOdometryProvider",
 ]
@@ -97,6 +98,7 @@ def projective_associate(
 
 
 def _projective_icp_core(
+    mode: str,  # 'lm' (classic accept/reject) or 'gradlm'
     map_pts, map_normals, map_mask, frame_geom, intrinsics,
     init_pose,  # (B, 4, 4) predicted camera pose P
     initial_transform,  # (B, 4, 4) warm-start correction X0 or None
@@ -106,8 +108,8 @@ def _projective_icp_core(
     lookahead_assoc: str, robust_loss: Optional[str], robust_scale: float,
     sym_normals: bool = False,
 ) -> torch.Tensor:
-    """The gradLM solve over world-space corrections ``X``: the camera pose
-    is ``X @ init_pose``. Returns ``X (B, 4, 4)``."""
+    """The LM or gradLM solve over world-space corrections ``X``: the
+    camera pose is ``X @ init_pose``. Returns ``X (B, 4, 4)``."""
     if lookahead_assoc not in ("fresh", "reuse"):
         raise ValueError(f"Unknown lookahead_assoc mode: {lookahead_assoc}")
     if numiters < 1:
@@ -158,12 +160,46 @@ def _projective_icp_core(
             new_err = errsq(rows(s1, valid1, n_frame)[1])
         else:
             new_err = errsq(rows(*associate(torch.matmul(residual_transform, X)))[1])
-        errdiff = torch.clamp(new_err - errsq(b), -70.0, 70.0)
-        damp_new = lambda_min + (lambda_max - lambda_min) / (1.0 + torch.exp(-B * errdiff))
-        sigmoid = 1.0 / (1.0 + torch.exp(-B2 * errdiff)) ** (1.0 / nu)
-        X = torch.matmul(se3_exp(sigmoid[:, None] * xi), X)
-        damp_t = damp_t * damp_new
+        if mode == "lm":
+            accept = new_err < errsq(b)
+            X = torch.where(accept[:, None, None], torch.matmul(residual_transform, X), X)
+            damp_t = torch.where(accept, damp_t / 2.0, damp_t * 2.0)
+        else:
+            errdiff = torch.clamp(new_err - errsq(b), -70.0, 70.0)
+            damp_new = lambda_min + (lambda_max - lambda_min) / (1.0 + torch.exp(-B * errdiff))
+            sigmoid = 1.0 / (1.0 + torch.exp(-B2 * errdiff)) ** (1.0 / nu)
+            X = torch.matmul(se3_exp(sigmoid[:, None] * xi), X)
+            damp_t = damp_t * damp_new
     return X
+
+
+def point_to_plane_ICP_projective(
+    map_pts, map_normals, map_mask, frame_geom, intrinsics, init_pose,
+    H: int, W: int,
+    initial_transform=None,
+    numiters: int = 20,
+    damp: float = 1e-8,
+    dist_thresh: Optional[float] = None,
+    dot_gate: Optional[float] = None,
+    lookahead_assoc: str = "fresh",
+    robust_loss: Optional[str] = None,
+    robust_scale: float = 0.05,
+    sym_normals: bool = False,
+    point_weight: float = 0.0,
+    subpixel: bool = False,
+) -> torch.Tensor:
+    r"""Projective-association point-to-plane ICP with the classic LM
+    accept/reject loop (the 1-NN :func:`~gradslam_torch.odometry.icputils.
+    point_to_plane_ICP` with projection and gather in place of the 1-NN
+    search), over a batch; inputs as
+    :func:`point_to_plane_gradICP_projective`. Returns the world-space
+    corrections ``X (B, 4, 4)``: the solved pose is ``X @ init_pose``."""
+    _reject_unported(point_weight, subpixel)
+    return _projective_icp_core(
+        "lm", map_pts, map_normals, map_mask, frame_geom, intrinsics, init_pose,
+        initial_transform, H, W, numiters, damp, dist_thresh, dot_gate,
+        2.0, 1.0, 1.0, 200.0, lookahead_assoc, robust_loss, robust_scale, sym_normals,
+    )
 
 
 def point_to_plane_gradICP_projective(
@@ -193,7 +229,7 @@ def point_to_plane_gradICP_projective(
     ``X @ init_pose``."""
     _reject_unported(point_weight, subpixel)
     return _projective_icp_core(
-        map_pts, map_normals, map_mask, frame_geom, intrinsics, init_pose,
+        "gradlm", map_pts, map_normals, map_mask, frame_geom, intrinsics, init_pose,
         initial_transform, H, W, numiters, damp, dist_thresh, dot_gate,
         lambda_max, B, B2, nu, lookahead_assoc, robust_loss, robust_scale, sym_normals,
     )
@@ -211,11 +247,11 @@ def pack_frame_geom(live_frame: RGBDImages) -> torch.Tensor:
 
 class ProjectiveOdometryProvider(OdometryProvider):
     r"""Frame-to-model odometry with projective data association and the
-    gradLM solver (``solver='gradicp'``). ``dist_thresh`` is in squared
-    metres; ``dot_gate`` is a minimum cosine between the frame normal at
-    the landed pixel and the map normal; ``sym_normals`` uses the symmetric
-    normal in the rows. ``solver='icp'``, ``point_weight`` and ``subpixel``
-    are not ported yet."""
+    gradLM solver (``solver='gradicp'``) or the classic LM solver
+    (``solver='icp'``). ``dist_thresh`` is in squared metres; ``dot_gate``
+    is a minimum cosine between the frame normal at the landed pixel and the
+    map normal; ``sym_normals`` uses the symmetric normal in the rows.
+    ``point_weight`` and ``subpixel`` are not ported yet."""
 
     def __init__(
         self,
@@ -235,12 +271,7 @@ class ProjectiveOdometryProvider(OdometryProvider):
         point_weight: float = 0.0,
         subpixel: bool = False,
     ):
-        if solver == "icp":
-            raise NotImplementedError(
-                "The projective LM solver (solver='icp') is not ported to "
-                "gradslam_torch yet (ROADMAP.md queue 1, item 2)."
-            )
-        if solver != "gradicp":
+        if solver not in ("icp", "gradicp"):
             raise ValueError(f"Unknown solver: {solver!r}. Expected 'icp' or 'gradicp'.")
         validate_robust(robust_loss, robust_scale)
         if dot_gate is not None and not (-1.0 <= dot_gate <= 1.0):
@@ -248,6 +279,7 @@ class ProjectiveOdometryProvider(OdometryProvider):
         if point_weight < 0:
             raise ValueError(f"point_weight must be >= 0. Got {point_weight}.")
         _reject_unported(point_weight, subpixel)
+        self.solver = solver
         self.numiters = numiters
         self.damp = damp
         self.dist_thresh = dist_thresh
@@ -289,22 +321,25 @@ class ProjectiveOdometryProvider(OdometryProvider):
                 f"equal ({len(maps_pointclouds)} != {len(live_frame)})."
             )
         _, _, H, W = live_frame.shape
-        transform = point_to_plane_gradICP_projective(
-            maps_pointclouds.points, maps_pointclouds.normals, maps_pointclouds.nonpad_mask,
-            pack_frame_geom(live_frame), live_frame.intrinsics[:, 0], live_frame.poses[:, 0],
-            H, W,
+        kw = dict(
             initial_transform=initial_transform,
             numiters=self.numiters,
             damp=self.damp,
             dist_thresh=self.dist_thresh,
             dot_gate=self.dot_gate,
-            lambda_max=self.lambda_max,
-            B=self.B,
-            B2=self.B2,
-            nu=self.nu,
             lookahead_assoc=self.lookahead_assoc,
             robust_loss=self.robust_loss,
             robust_scale=self.robust_scale,
             sym_normals=self.sym_normals,
+        )
+        if self.solver == "gradicp":
+            fn = point_to_plane_gradICP_projective
+            kw.update(lambda_max=self.lambda_max, B=self.B, B2=self.B2, nu=self.nu)
+        else:
+            fn = point_to_plane_ICP_projective
+        transform = fn(
+            maps_pointclouds.points, maps_pointclouds.normals, maps_pointclouds.nonpad_mask,
+            pack_frame_geom(live_frame), live_frame.intrinsics[:, 0], live_frame.poses[:, 0],
+            H, W, **kw,
         )
         return transform[:, None]

@@ -1,7 +1,8 @@
 r"""Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` are compiled at first use with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded with
+``sm_90a``, one ``nvcc`` process per source, all started together, and
+linked into one shared library with a plain C interface, loaded with
 ``ctypes``. The library goes to ``gradslam_torch/_build/`` and its file name
 carries a hash of the sources and flags, so an edit rebuilds it. Nothing here
 runs at import time: the CPU tests import every module without ``nvcc``.
@@ -28,7 +29,7 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 
@@ -66,19 +67,32 @@ def load_library() -> ctypes.CDLL:
     if not lib_path.exists():
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+            objs = [os.path.join(work, f"{src.stem}.o") for src in sources]
+            compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                        for obj, src in zip(objs, sources)]
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True) for cmd in compiles]
+            outputs = [proc.communicate() for proc in procs]  # wait for all
+            for cmd, proc, (out, err) in zip(compiles, procs, outputs):
+                _check(cmd, proc.returncode, out, err)
+            tmp = os.path.join(work, "lib.so")
+            link = [nvcc, "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            _check(link, proc.returncode, proc.stdout, proc.stderr)
+            os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.gradslam_knn1.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.gradslam_knn1.restype = ci
+    lib.gradslam_scatter_rows.argtypes = [
+        vp, vp, ctypes.c_ulonglong, vp, ci, vp, ci, cll, cll, cll, cll, vp]
+    lib.gradslam_scatter_rows.restype = ci
     return lib
+
+
+def _check(cmd, returncode, stdout, stderr) -> None:
+    if returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({returncode}): {' '.join(cmd)}\n{stdout}\n{stderr}"
+        )

@@ -6,6 +6,7 @@ from .fusionutils import (
     pack_colors,
     prune_map,
     unpack_colors,
+    update_map_aggregate,
     update_map_fusion,
 )
 from .icpslam import ICPSLAM, split_prune_segments
@@ -20,5 +21,6 @@ __all__ = [
     "prune_map",
     "split_prune_segments",
     "unpack_colors",
+    "update_map_aggregate",
     "update_map_fusion",
 ]

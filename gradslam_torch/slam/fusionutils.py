@@ -4,9 +4,10 @@ Counterpart of ``gradslam_tpu/slam/fusionutils.py``: ``pack_colors`` and
 ``unpack_colors`` (:59-81), ``get_alpha`` (:84), ``find_active_map_points``
 (:137), ``_project_map_points`` (:360), ``update_map_fusion`` (:405) with
 both associations (``sort_full``, ``windowed``), both merges (``gather``,
-``scatter``) and both map layouts (float colors, quantized colors), and
-``prune_map`` (:827). Every stage is a dense masked computation over the
-fixed-capacity map buffer:
+``scatter``) and both map layouts (float colors, quantized colors),
+``update_map_aggregate`` (:771, ``ICPSLAM``'s aggregate map) and
+``prune_map`` (:827). Every fusion stage is a dense masked computation over
+the fixed-capacity map buffer:
 
 1. a streaming projection of all map rows into the live frame;
 2. optionally, a compaction of the rows that land in the frame into a
@@ -27,7 +28,13 @@ import torch
 
 from ..geometry.geometryutils import inverse_transformation, transform_pointcloud
 from ..geometry.projutils import project_points
-from ..structures.pointclouds import Pointclouds, compact_masked, gather_rows, scatter_rows
+from ..structures.pointclouds import (
+    Pointclouds,
+    compact_masked,
+    gather_rows,
+    scatter_rows,
+    scatter_rows_into,
+)
 from ..structures.rgbdimages import RGBDImages
 
 __all__ = [
@@ -37,6 +44,7 @@ __all__ = [
     "pack_colors",
     "prune_map",
     "unpack_colors",
+    "update_map_aggregate",
     "update_map_fusion",
 ]
 
@@ -251,11 +259,10 @@ def update_map_fusion(
         c_pts, c_nrm, c_cc = points, normals, feats[..., 0]
     else:
         # compact the rows that land in the frame into the window, in row
-        # order; overflow goes to unique trash rows past the window
+        # order; rows past the window are dropped
         N = window
         rank = torch.cumsum(valid.to(torch.int64), dim=-1) - 1
-        trash = N + torch.arange(cap, device=device)[None, :]
-        dest = torch.where(valid & (rank < N), rank, trash)
+        dest = torch.where(valid, rank, torch.full_like(rank, -1))
         row_ids = torch.arange(cap, device=device)[None, :].expand(B, cap)
         cand_idx = scatter_rows(N, dest, row_ids)
         num_active = torch.clamp(valid.sum(dim=-1), max=N)
@@ -288,9 +295,9 @@ def update_map_fusion(
     first[:, 1:] = s_pix[:, 1:] != s_pix[:, :-1]
     s_winner = first & (s_pix < HW)
 
-    # per-pixel winner map row (cap = "no winner"); losers park at HW + i
-    park = HW + torch.arange(s_pix.shape[1], device=device)[None, :]
-    winner_row = scatter_rows(HW, torch.where(s_winner, s_pix, park), s_idx, fill=cap)
+    # per-pixel winner map row (cap = "no winner"); losers are dropped
+    winner_row = scatter_rows(HW, torch.where(s_winner, s_pix, torch.full_like(s_pix, -1)),
+                              s_idx, fill=cap)
     corresponded = winner_row < cap
     safe_row = torch.clamp(winner_row, max=cap - 1)
 
@@ -314,13 +321,13 @@ def update_map_fusion(
     )
 
     # destination row per pixel: the winner row for merges, a fresh tail slot
-    # for appends, a unique trash slot cap + i otherwise
+    # for appends, -1 (dropped) otherwise
     valid_depth = rgbdimages.valid_depth_mask.reshape(B, HW)
     new_mask = valid_depth & ~corresponded
     tail = pointclouds.num_points[:, None] + torch.cumsum(new_mask.to(torch.int64), dim=-1) - 1
     appends = new_mask & (tail < cap)
-    trash = cap + torch.arange(HW, device=device)[None, :]
-    dest = torch.where(corresponded, winner_row, torch.where(appends, tail, trash))
+    dest = torch.where(corresponded, winner_row,
+                       torch.where(appends, tail, torch.full_like(tail, -1)))
     appended = appends.sum(dim=-1)
     num_dropped = pointclouds.num_dropped
     if num_dropped is not None:
@@ -335,10 +342,8 @@ def update_map_fusion(
         g = gather_rows(out_row, torch.where(touched, row_src, torch.zeros_like(row_src)))
         new_row = torch.where(touched[..., None], g, map_row)
     else:
-        # write the pixel rows over the map rows (trash rows cut off)
-        bidx = torch.arange(B, device=device)[:, None].expand(B, HW)
-        padded = torch.cat([map_row, map_row.new_zeros((B, HW, map_row.shape[-1]))], dim=1)
-        new_row = padded.index_put((bidx, dest), out_row, accumulate=False)[:, :cap]
+        # write the pixel rows over the map rows (rows marked -1 dropped)
+        new_row = scatter_rows_into(map_row, dest, out_row)
     f_end = 6 + base
     return dataclasses.replace(
         pointclouds,
@@ -348,6 +353,42 @@ def update_map_fusion(
         colors=None if quantized else new_row[..., f_end:].contiguous(),
         num_points=pointclouds.num_points + appended,
         num_dropped=num_dropped,
+    )
+
+
+def update_map_aggregate(
+    pointclouds: Pointclouds,
+    rgbdimages: RGBDImages,
+    sigma: Optional[Union[float, int]] = None,
+) -> Pointclouds:
+    r"""Naive aggregation: append every valid-depth pixel of the live frame
+    (global vertex, global normal, color) to the map, in pixel order
+    (:meth:`Pointclouds.append_masked`). A map with a features buffer gets
+    each point's confidence ``get_alpha`` (``sigma`` 0.6 by default) there;
+    user feature channels after it are not ported yet."""
+    if not isinstance(pointclouds, Pointclouds):
+        raise TypeError(f"Expected pointclouds to be of type Pointclouds. Got {type(pointclouds)}.")
+    if not isinstance(rgbdimages, RGBDImages):
+        raise TypeError(f"Expected rgbdimages to be of type RGBDImages. Got {type(rgbdimages)}.")
+    B, _, H, W = rgbdimages.shape
+    features = None
+    if pointclouds.features is not None:
+        if pointclouds.features.shape[-1] != 1:
+            raise NotImplementedError(
+                "update_map_aggregate supports no user feature channels yet "
+                "(ROADMAP.md queue 1, item 8)."
+            )
+        alpha = get_alpha(rgbdimages.vertex_map, sigma=0.6 if sigma is None else sigma,
+                          dim=4, keepdim=True)
+        features = alpha.reshape(B, H * W, 1)
+    return pointclouds.append_masked(
+        rgbdimages.global_vertex_map.reshape(B, H * W, 3),
+        rgbdimages.valid_depth_mask.reshape(B, H * W),
+        normals=(rgbdimages.global_normal_map.reshape(B, H * W, 3)
+                 if pointclouds.normals is not None else None),
+        colors=(rgbdimages.rgb_image.reshape(B, H * W, 3)
+                if pointclouds.colors is not None else None),
+        features=features,
     )
 
 

@@ -3,11 +3,12 @@ r"""ICP-SLAM pipeline base (PyTorch).
 Counterpart of ``gradslam_tpu/slam/icpslam.py``: ``split_prune_segments``
 (:51), the constructor for the options this port supports (:336-544),
 ``_capacity_schedule`` (:755), ``_default_icp_capacity`` (:776),
-``empty_map`` (:794), ``_icp_target_window`` (:816, no recency window),
-``_localize`` (:850, with the pyramid and its nested single compaction) and
-``_forward_impl`` (:1217): the ground-truth branch and the tracked branch with
-the constant-velocity model and prune between segments, without the
-relocalization and keyframe-anchor paths.
+``empty_map`` and ``_map`` (:794-811, the aggregate map),
+``_icp_target_window`` (:816, with the ``icp_window_frames`` recency
+window), ``_localize`` (:850, with the pyramid and its nested single
+compaction) and ``_forward_impl`` (:1217): the ground-truth branch and the
+tracked branch with the constant-velocity model and prune between segments,
+without the relocalization and keyframe-anchor paths.
 
 The JAX ``lax.scan`` over frames is a Python loop here. The capacity
 schedule is static and host-side; nothing inside the frame or solver loops
@@ -28,6 +29,7 @@ from ..geometry.geometryutils import (
     orthonormalize_rotations,
 )
 from ..odometry.gradicp import GradICPOdometryProvider
+from ..odometry.icp import ICPOdometryProvider
 from ..odometry.icputils import (
     downsample_pointclouds,
     downsample_rgbdimages,
@@ -35,10 +37,10 @@ from ..odometry.icputils import (
     validate_robust,
 )
 from ..odometry.projective import ProjectiveOdometryProvider
-from ..structures.pointclouds import Pointclouds, compact_masked
+from ..structures.pointclouds import Pointclouds, compact_masked, gather_rows
 from ..structures.rgbdimages import RGBDImages
 from ..utils.precision import disable_tf32
-from .fusionutils import find_active_map_points, prune_map
+from .fusionutils import find_active_map_points, prune_map, update_map_aggregate
 
 __all__ = ["ICPSLAM", "split_prune_segments"]
 
@@ -47,7 +49,6 @@ __all__ = ["ICPSLAM", "split_prune_segments"]
 _UNPORTED = {
     "odom_point_weight": (0.0, "queue 1, item 6 (projective odometry)"),
     "odom_subpixel": (False, "queue 1, item 6 (projective odometry)"),
-    "icp_window_frames": (None, "queue 1, item 3 (pyramids, windows and lookahead reuse)"),
     "feature_channels": (0, "queue 1, item 8 (quantized colors, prune and features)"),
     "relocalize_below": (0.0, "queue 1, item 7 (recovery)"),
     "relocalize_grid": (None, "queue 1, item 7 (recovery)"),
@@ -91,13 +92,15 @@ def split_prune_segments(start: int, n: int, prune_every: int):
 
 
 class ICPSLAM(nn.Module):
-    r"""Frame-to-map SLAM driver. Use :class:`~gradslam_torch.PointFusion`:
-    the aggregate map of the JAX ``ICPSLAM`` (``update_map_aggregate``) is
-    not ported yet, so this class serves as PointFusion's base.
+    r"""Frame-to-map SLAM with an aggregate map: every valid pixel of every
+    frame is appended to the map (:func:`~gradslam_torch.slam.fusionutils.
+    update_map_aggregate`). :class:`~gradslam_torch.PointFusion` replaces
+    the map update with point-based fusion.
 
     Args:
-        odom: ``'gt'`` (fuse at the frames' poses) or ``'gradicp'``
-            (frame-to-map gradLM ICP).
+        odom: ``'gt'`` (map at the frames' poses), ``'icp'`` (frame-to-map
+            ICP with the classic LM solver) or ``'gradicp'`` (with the
+            differentiable gradLM solver).
         odom_assoc: ``'knn'`` (1-NN association every iteration) or
             ``'projective'`` (project the map window into the live frame);
             with a ``pyramid``, a list with one mode per level.
@@ -117,13 +120,17 @@ class ICPSLAM(nn.Module):
             ``num_dropped`` counts rows lost to a full buffer.
         icp_capacity: capacity of the downsampled ICP target buffer
             (default ``2 * ceil(H / ds) * ceil(W / ds)`` for each level).
+        icp_window_frames: if set, odometry associates against only the
+            most recent ``icp_window_frames * H * W`` map rows (a recency
+            window, per sequence of the batch), not the whole map.
         motion_model: ``'static'`` (each solve starts at the previous pose)
             or ``'constant_velocity'`` (at the previous pose composed with the
             previous frame's motion, re-projected onto SO(3)).
         lookahead_assoc: ``'fresh'`` or ``'reuse'`` (the lookahead error
             keeps the iteration's association).
         prune_every, prune_min_confidence: every ``prune_every``-th mapped
-            frame ends with :func:`~gradslam_torch.slam.fusionutils.prune_map`.
+            frame ends with :func:`~gradslam_torch.slam.fusionutils.prune_map`
+            (PointFusion only: the aggregate map has no confidences).
         normal_pitch: finite-difference baseline of the frames' normal maps
             (None keeps the frames' own).
 
@@ -153,6 +160,7 @@ class ICPSLAM(nn.Module):
         nu: float = 200.0,
         map_capacity=None,
         icp_capacity: Optional[int] = None,
+        icp_window_frames: Optional[int] = None,
         motion_model: str = "static",
         lookahead_assoc: str = "fresh",
         prune_every: int = 0,
@@ -165,19 +173,9 @@ class ICPSLAM(nn.Module):
         if unknown:
             raise TypeError(f"Unknown option(s): {sorted(unknown)}.")
         _reject_unported(unported)
-        if odom == "icp":
-            raise NotImplementedError(
-                "odom='icp' is not ported to gradslam_torch yet "
-                "(ROADMAP.md queue 1, item 2)."
-            )
-        if odom not in ("gt", "gradicp"):
+        if odom not in ("gt", "icp", "gradicp"):
             raise ValueError(
-                f"Odometry method ({odom}) not supported. Supported: 'gt', 'gradicp'."
-            )
-        if not self.has_features:
-            raise NotImplementedError(
-                "ICPSLAM's aggregate map (update_map_aggregate) is not ported "
-                "to gradslam_torch yet (ROADMAP.md queue 1, item 1); use PointFusion."
+                f"Odometry method ({odom}) not supported. Supported: 'gt', 'icp', 'gradicp'."
             )
         if isinstance(odom_assoc, (list, tuple)):
             if pyramid is None or len(odom_assoc) != len(pyramid):
@@ -195,7 +193,8 @@ class ICPSLAM(nn.Module):
         if odom_angle_gate is not None:
             if odom == "gt":
                 raise ValueError(
-                    "odom_angle_gate requires tracked odometry (odom='gradicp'), not odom='gt'."
+                    "odom_angle_gate requires tracked odometry (odom='icp'/'gradicp'), "
+                    "not odom='gt'."
                 )
             if not (0 < odom_angle_gate <= 180):
                 raise ValueError(
@@ -212,8 +211,15 @@ class ICPSLAM(nn.Module):
                 f"Unknown motion_model: {motion_model!r}. "
                 "Expected 'static' or 'constant_velocity'."
             )
+        if icp_window_frames is not None and icp_window_frames < 1:
+            raise ValueError(f"icp_window_frames must be >= 1. Got {icp_window_frames}.")
         if prune_every < 0:
             raise ValueError(f"prune_every must be >= 0. Got {prune_every}.")
+        if prune_every and not self.has_features:
+            raise ValueError(
+                "prune_every requires a pipeline whose map carries confidence "
+                "counters (PointFusion); ICPSLAM's aggregate map has none."
+            )
         if normal_pitch is not None and (
             not isinstance(normal_pitch, int) or normal_pitch < 1
         ):
@@ -223,6 +229,7 @@ class ICPSLAM(nn.Module):
         self.dsratio = dsratio
         self.map_capacity = map_capacity
         self.icp_capacity = icp_capacity
+        self.icp_window_frames = icp_window_frames
         self.motion_model = motion_model
         self.prune_every = int(prune_every)
         self.prune_min_confidence = prune_min_confidence
@@ -236,10 +243,15 @@ class ICPSLAM(nn.Module):
                 return None
             if assoc == "projective":
                 return ProjectiveOdometryProvider(
-                    numiters=n_iters, damp=damp, dist_thresh=dist_thresh, dot_gate=dot_gate,
-                    lambda_max=lambda_max, B=B, B2=B2, nu=nu,
+                    solver=odom, numiters=n_iters, damp=damp, dist_thresh=dist_thresh,
+                    dot_gate=dot_gate, lambda_max=lambda_max, B=B, B2=B2, nu=nu,
                     lookahead_assoc=lookahead_assoc, robust_loss=robust_loss,
                     robust_scale=robust_scale, sym_normals=odom_sym_normals,
+                )
+            if odom == "icp":
+                return ICPOdometryProvider(
+                    n_iters, damp, dist_thresh, lookahead_assoc, robust_loss, robust_scale,
+                    dot_gate=dot_gate,
                 )
             return GradICPOdometryProvider(
                 n_iters, damp, dist_thresh, lambda_max, B, B2, nu,
@@ -290,11 +302,15 @@ class ICPSLAM(nn.Module):
     def empty_map(
         self, batch_size: int, capacity: int, *, device, dtype=torch.float32
     ) -> Pointclouds:
-        r"""An empty map buffer for this pipeline on ``device``."""
-        raise NotImplementedError
+        r"""An empty map buffer for this pipeline on ``device``: the
+        aggregate map carries normals and float colors, no features."""
+        return Pointclouds.empty(
+            batch_size, capacity, device=device, dtype=dtype,
+            has_normals=True, has_colors=True, feature_dim=None,
+        )
 
     def _map(self, pointclouds: Pointclouds, live_frame: RGBDImages) -> Pointclouds:
-        raise NotImplementedError
+        return update_map_aggregate(pointclouds, live_frame)
 
     def _prune(self, pointclouds: Pointclouds) -> Pointclouds:
         return prune_map(pointclouds, self.prune_min_confidence)
@@ -310,13 +326,26 @@ class ICPSLAM(nn.Module):
     # ------------------------------------------------------------------ #
     # Odometry
     # ------------------------------------------------------------------ #
-    def _icp_target_window(self, pointclouds: Pointclouds) -> Pointclouds:
+    def _icp_target_window(self, pointclouds: Pointclouds, H: int, W: int) -> Pointclouds:
         """Geometry-only view of the map (the solvers read no colors or
-        features)."""
+        features), cut to the ``icp_window_frames`` recency window when it
+        is set: for each sequence the ``rows`` map rows starting at
+        ``clip(num_points - rows, 0, cap - rows)``, gathered on the device
+        (the start differs per sequence and stays there)."""
+        rows = None if self.icp_window_frames is None else self.icp_window_frames * H * W
+        cap = pointclouds.capacity
+        if rows is None or rows >= cap:
+            return Pointclouds(
+                points=pointclouds.points,
+                num_points=pointclouds.num_points,
+                normals=pointclouds.normals,
+            )
+        start = torch.clamp(pointclouds.num_points - rows, min=0, max=cap - rows)
+        idx = start[:, None] + torch.arange(rows, device=start.device)[None, :]
         return Pointclouds(
-            points=pointclouds.points,
-            num_points=pointclouds.num_points,
-            normals=pointclouds.normals,
+            points=gather_rows(pointclouds.points, idx),
+            num_points=torch.clamp(pointclouds.num_points, max=rows),
+            normals=gather_rows(pointclouds.normals, idx),
         )
 
     def _localize(
@@ -326,7 +355,7 @@ class ICPSLAM(nn.Module):
         level; returns poses ``(B, 1, 4, 4)``."""
         _, _, H, W = live_frame.shape
         live_frame = live_frame.with_poses(prev_frame.poses)
-        target = self._icp_target_window(pointclouds)
+        target = self._icp_target_window(pointclouds, H, W)
         active = find_active_map_points(target, prev_frame)
 
         def solve_with(prov, maps_pc, ds, init_T):

@@ -24,7 +24,7 @@ __all__ = ["PointFusion"]
 
 class PointFusion(ICPSLAM):
     r"""Point-based fusion SLAM: projective data association and
-    confidence-weighted map merging, with ``odom='gt'`` or ``'gradicp'``
+    confidence-weighted map merging, with ``odom='gt'``, ``'icp'`` or ``'gradicp'``
     tracking.
 
     Args (besides :class:`ICPSLAM`'s):

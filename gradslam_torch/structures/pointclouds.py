@@ -10,9 +10,11 @@ dataclass of tensors
 - optional ``num_dropped`` ``(B,)`` int64: rows lost to a full buffer.
 
 Writes that JAX parks past the end of an array and drops with
-``mode="drop"`` go here to trash rows past the end of a larger buffer, which
-is sliced off afterwards: every destination is unique, so the writes are
-deterministic, and no index is ever out of bounds.
+``mode="drop"`` go through :func:`scatter_rows` and :func:`scatter_rows_into`,
+which drop every destination outside the table: on the card in the
+hand-written scatter kernel (``ops/csrc/scatter.cu``), on the CPU in the
+plain version (``ops/scatter.py``). Every destination inside the table is
+unique, so the writes are deterministic.
 """
 
 from __future__ import annotations
@@ -24,27 +26,100 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-__all__ = ["Pointclouds", "compact_masked", "gather_rows", "scatter_rows"]
+from ..ops import scatter_cuda
+from ..ops.scatter import scatter_rows_into_plain, scatter_rows_plain
+
+__all__ = ["Pointclouds", "compact_masked", "gather_rows", "scatter_rows", "scatter_rows_into"]
+
+
+def _scatter_rows(size, dest, values, fill):
+    if values.is_cuda:
+        return scatter_cuda.scatter_rows_cuda(size, dest.contiguous(), values.contiguous(), fill)
+    return scatter_rows_plain(size, dest, values, fill)
+
+
+def _scatter_rows_into(buf, dest, values):
+    if values.is_cuda:
+        return scatter_cuda.scatter_rows_into_cuda(
+            buf.contiguous(), dest.contiguous(), values.contiguous())
+    return scatter_rows_into_plain(buf, dest, values)
+
+
+def _rows_at(grad: torch.Tensor, dest: torch.Tensor) -> torch.Tensor:
+    """Rows of ``grad (B, S, *C)`` at ``dest (B, M)``, zero where ``dest``
+    lies outside ``[0, S)``: the gradient of the scattered values."""
+    B, M = dest.shape
+    S = grad.shape[1]
+    keep = (dest >= 0) & (dest < S)
+    rows = gather_rows(grad.reshape(B, S, -1), torch.where(keep, dest, torch.zeros_like(dest)))
+    rows = torch.where(keep[..., None], rows, torch.zeros_like(rows))
+    return rows.reshape((B, M) + tuple(grad.shape[2:]))
+
+
+class _ScatterRows(torch.autograd.Function):
+    """``scatter_rows`` with the gradient of the values: the output's
+    gradient rows at ``dest``, zero for dropped rows."""
+
+    @staticmethod
+    def forward(ctx, size, dest, values, fill):
+        ctx.save_for_backward(dest)
+        return _scatter_rows(size, dest, values, fill)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (dest,) = ctx.saved_tensors
+        return None, None, _rows_at(grad, dest), None
+
+
+class _ScatterRowsInto(torch.autograd.Function):
+    """``scatter_rows_into`` with the gradients of the buffer (the output's
+    gradient with the overwritten rows zeroed, by the same scatter) and of
+    the values."""
+
+    @staticmethod
+    def forward(ctx, buf, dest, values):
+        ctx.save_for_backward(dest)
+        ctx.values_shape = values.shape
+        return _scatter_rows_into(buf, dest, values)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (dest,) = ctx.saved_tensors
+        g_buf = g_val = None
+        if ctx.needs_input_grad[0]:
+            g_buf = scatter_rows_into(grad, dest, grad.new_zeros(ctx.values_shape))
+        if ctx.needs_input_grad[2]:
+            g_val = _rows_at(grad, dest)
+        return g_buf, None, g_val
 
 
 def scatter_rows(
     size: int, dest: torch.Tensor, values: torch.Tensor, fill=0
 ) -> torch.Tensor:
     r"""Write ``values (B, M, *C)`` to rows ``dest (B, M)`` of a new
-    ``(B, size, *C)`` buffer filled with ``fill``.
+    ``(B, size, *C)`` table filled with ``fill``.
 
-    Destinations ``>= size`` are trash rows: the buffer is allocated with
-    ``max(dest) < size + M`` rows (callers park unused rows at unique slots
-    ``size + i``) and cut back to ``size``. Destinations must be unique.
+    Destinations outside ``[0, size)`` are dropped; those inside must be
+    unique in each batch row. A CUDA tensor launches the scatter kernel, a
+    CPU tensor takes the plain version; nothing falls back. Float values
+    that need a gradient get it (the output's gradient rows at ``dest``).
     """
-    B, M = dest.shape
-    out = torch.full(
-        (B, size + M) + tuple(values.shape[2:]), fill,
-        dtype=values.dtype, device=values.device,
-    )
-    bidx = torch.arange(B, device=dest.device)[:, None].expand(B, M)
-    out = out.index_put((bidx, dest), values, accumulate=False)
-    return out[:, :size].contiguous()
+    if torch.is_grad_enabled() and values.requires_grad:
+        return _ScatterRows.apply(size, dest, values, fill)
+    return _scatter_rows(size, dest, values, fill)
+
+
+def scatter_rows_into(buf: torch.Tensor, dest: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    r"""A copy of ``buf (B, S, *C)`` with ``values (B, M, *C)`` (cast to
+    ``buf``'s dtype) written to rows ``dest (B, M)``: JAX's
+    ``buf.at[b, dest].set(values, mode="drop", unique_indices=True)``.
+    ``buf`` itself is not written. Dispatch and gradients as
+    :func:`scatter_rows`.
+    """
+    values = values.to(buf.dtype)
+    if torch.is_grad_enabled() and (values.requires_grad or buf.requires_grad):
+        return _ScatterRowsInto.apply(buf, dest, values)
+    return _scatter_rows_into(buf, dest, values)
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -57,10 +132,8 @@ def compact_masked(values: torch.Tensor, mask: torch.Tensor, capacity: int):
     r"""Compact the masked rows of ``values (B, M, C)`` to the front of a
     ``(B, capacity, C)`` buffer, in order. Returns ``(buffer, counts)``;
     rows past ``capacity`` are dropped."""
-    B, M = mask.shape
     rank = torch.cumsum(mask.to(torch.int64), dim=-1) - 1
-    oob = capacity + torch.arange(M, device=mask.device)[None, :]
-    dest = torch.where(mask & (rank < capacity), rank, oob)
+    dest = torch.where(mask, rank, torch.full_like(rank, -1))  # rank >= capacity drops too
     out = scatter_rows(capacity, dest, values)
     counts = torch.clamp(mask.sum(dim=-1), max=capacity)
     return out, counts
@@ -179,4 +252,53 @@ class Pointclouds:
             normals=grow(self.normals),
             colors=grow(self.colors),
             features=grow(self.features),
+        )
+
+    def append_masked(
+        self,
+        points: torch.Tensor,
+        mask: torch.Tensor,
+        normals: Optional[torch.Tensor] = None,
+        colors: Optional[torch.Tensor] = None,
+        features: Optional[torch.Tensor] = None,
+    ) -> "Pointclouds":
+        r"""Append the masked rows of ``points (B, M, 3)`` (and of the
+        optional per-row ``normals``, ``colors``, ``features``) into the free
+        region of the buffers: the destinations are ``num_points +
+        cumsum(mask) - 1``, rows past the capacity are dropped and counted in
+        ``num_dropped`` when the buffer tracks it. A buffer that this cloud
+        does not carry, or a rows argument left None, is passed through.
+        Differentiable in the buffers and the rows.
+
+        Functional, as in the JAX package: the result holds new buffers
+        (one copy of each, made by the scatter itself), so an earlier map and
+        any view of it stay as they were.
+        """
+        cap = self.capacity
+        dest = self.num_points[:, None] + torch.cumsum(mask.to(torch.int64), dim=-1) - 1
+        dest = torch.where(mask, dest, torch.full_like(dest, -1))  # dest >= cap drops too
+
+        def scat(buf, new):
+            if buf is None or new is None:
+                return buf
+            return scatter_rows_into(buf, dest, new)
+
+        appended = ((dest >= 0) & (dest < cap)).sum(dim=-1)
+        requested = mask.sum(dim=-1)
+        return Pointclouds(
+            points=scat(self.points, points),
+            num_points=self.num_points + appended,
+            normals=scat(self.normals, normals),
+            colors=scat(self.colors, colors),
+            features=scat(self.features, features),
+            num_dropped=(None if self.num_dropped is None
+                         else self.num_dropped + (requested - appended)),
+        )
+
+    def append_points(self, other: "Pointclouds") -> "Pointclouds":
+        """Append another cloud's live points (the reference's
+        ``append_points``)."""
+        return self.append_masked(
+            other.points, other.nonpad_mask, normals=other.normals,
+            colors=other.colors, features=other.features,
         )

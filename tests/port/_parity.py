@@ -43,7 +43,7 @@ def both_frames(rgb, depth, K, poses=None, normal_pitch=1):
         None if poses is None else jnp.asarray(poses),
         normal_pitch=normal_pitch,
     )
-    tf = rgbdimages_from_numpy(rgb, depth, K, poses, normal_pitch=normal_pitch)
+    tf = rgbdimages_from_numpy(rgb, depth, K, poses, normal_pitch=normal_pitch, device="cpu")
     return jf, tf
 
 
@@ -56,5 +56,5 @@ def jax_map_to_torch(pc):
     return pointclouds_from_numpy(
         arr(pc.points), arr(pc.num_points), normals=arr(pc.normals),
         colors=arr(pc.colors), features=arr(pc.features),
-        num_dropped=arr(pc.num_dropped),
+        num_dropped=arr(pc.num_dropped), device="cpu",
     )

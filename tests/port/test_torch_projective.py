@@ -1,6 +1,6 @@
-"""The port's projective odometry held against the JAX package on the CPU:
-a map window from frame 0 of the reference test clip, associated with
-frame 1 seen from a nudged pose.
+"""The port's projective odometry (gradLM and classic LM solvers) held
+against the JAX package on the CPU: a map window from frame 0 of the
+reference test clip, associated with frame 1 seen from a nudged pose.
 
 Tolerances: associated points and normals within 1e-5 with equal validity
 masks; solver corrections within |dT| <= 1e-5 (the bar ``PARITY.md`` sets
@@ -103,6 +103,36 @@ def test_projective_gradicp_matches_jax(scene, sym_normals, lookahead, loss, gat
     assert float((ours - torch.from_numpy(init)).abs().max()) > 1e-4
 
 
+@pytest.mark.parametrize("lookahead, loss, gate, sym_normals", [
+    ("fresh", None, None, False),
+    ("reuse", "tukey", 0.7071, True),
+    ("fresh", "huber", None, True),
+])
+def test_projective_lm_icp_matches_jax(scene, lookahead, loss, gate, sym_normals):
+    """The classic LM solver (``solver='icp'``): accept/reject steps."""
+    win, live_j, live_t = scene
+    twin = jax_map_to_torch(win)
+    _, _, H, W = live_t.shape
+    rng = np.random.RandomState(9)
+    init = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    init[:, :3, 3] = 0.003 * rng.randn(2, 3)
+    kw = dict(numiters=5, dist_thresh=0.01, dot_gate=gate, lookahead_assoc=lookahead,
+              robust_loss=loss, robust_scale=0.03, sym_normals=sym_normals)
+    ours = P.point_to_plane_ICP_projective(
+        twin.points, twin.normals, twin.nonpad_mask, P.pack_frame_geom(live_t),
+        live_t.intrinsics[:, 0], live_t.poses[:, 0], H, W,
+        initial_transform=torch.from_numpy(init), **kw)
+    fg = _frame_geom_jax(live_j)
+    for b in range(2):
+        theirs = JP.point_to_plane_ICP_projective(
+            win.points[b], win.normals[b], win.nonpad_mask[b], fg[b],
+            live_j.intrinsics[b, 0], live_j.poses[b, 0], H, W,
+            initial_transform=jnp.asarray(init[b]), **kw)
+        np.testing.assert_allclose(ours[b].numpy(), np.asarray(theirs), atol=ATOL_T, rtol=0)
+    assert torch.isfinite(ours).all()
+    assert float((ours - torch.from_numpy(init)).abs().max()) > 1e-4
+
+
 def test_provider_matches_jax(scene):
     win, live_j, live_t = scene
     kw = dict(numiters=4, dist_thresh=0.01, dot_gate=0.7071, lookahead_assoc="reuse",
@@ -113,8 +143,19 @@ def test_provider_matches_jax(scene):
     np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=ATOL_T, rtol=0)
 
 
+def test_lm_provider_matches_jax(scene):
+    win, live_j, live_t = scene
+    kw = dict(solver="icp", numiters=4, dist_thresh=0.01, dot_gate=0.7071,
+              lookahead_assoc="reuse", robust_loss="tukey", robust_scale=0.03, sym_normals=True)
+    theirs = JP.ProjectiveOdometryProvider(**kw).provide(win, live_j)
+    ours = ProjectiveOdometryProvider(**kw).provide(jax_map_to_torch(win), live_t)
+    assert ours.shape == (2, 1, 4, 4)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=ATOL_T, rtol=0)
+    with pytest.raises(ValueError, match="solver"):
+        ProjectiveOdometryProvider(solver="bogus")
+
+
 @pytest.mark.parametrize("kw, item", [
-    ({"solver": "icp"}, "item 2"),
     ({"point_weight": 0.25}, "item 6"),
     ({"subpixel": True}, "item 6"),
 ])

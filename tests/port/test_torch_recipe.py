@@ -70,7 +70,7 @@ def test_recipe_each_frame_matches_jax(clip):
         tmap = jax_map_to_torch(jmap)
         pred = orthonormalize_rotations(torch.from_numpy(delta) @ torch.from_numpy(prev))
         tlive = rgbdimages_from_numpy(rgb[:, f:f + 1], depth[:, f:f + 1], K,
-                                      pred[:, None].numpy())
+                                      pred[:, None].numpy(), device="cpu")
         tpose = ts._localize(tmap, tlive, tlive)
         np.testing.assert_allclose(tpose.numpy(), jpose, atol=1e-4, rtol=0, err_msg=f"frame {f}")
         # fuse at the JAX pose on both sides
@@ -92,7 +92,7 @@ def test_recipe_whole_run_matches_jax(clip):
     rgb, depth, K, P = clip
     frames = G.RGBDImages(*(jnp.asarray(a) for a in clip))
     jpc, jposes = G.PointFusion(**RECIPE)(frames)
-    tpc, tposes = PointFusion(**RECIPE)(rgbdimages_from_numpy(rgb, depth, K, P))
+    tpc, tposes = PointFusion(**RECIPE)(rgbdimages_from_numpy(rgb, depth, K, P, device="cpu"))
     jposes, tposes = np.asarray(jposes), tposes.numpy()
     assert tposes.shape == (1, L, 4, 4) and np.isfinite(tposes).all()
     gap = np.abs(tposes - jposes).reshape(L, 16).max(-1)

@@ -1,8 +1,8 @@
 """The port's pipelines end to end: tracked ``PointFusion(odom='gradicp')``
 and ``odom='gt'`` held against the JAX package on the same synthetic clip,
 each ported pipeline option on a 3-frame clip, the reference goldens met
-without JAX, the unported options refused, and the package importable with
-JAX absent.
+without JAX, the unported options refused, and the package importable and
+running (PointFusion and ICPSLAM) with JAX absent.
 
 Tolerances: poses within 1e-5 of JAX and map counts within 0.2% (float32
 solves in another order); against the reference goldens the bars of the JAX
@@ -139,8 +139,6 @@ UNPORTED = [
     {"relocalize_below": 0.5},
     {"anchor_every": 5},
     {"feature_channels": 2},
-    {"icp_window_frames": 3},
-    {"odom": "icp"},
     {"remat": True},
 ]
 
@@ -162,8 +160,6 @@ def test_unported_options_raise_naming_their_roadmap_item(option):
     ({"anchor_below": 0.9}, 7),
     ({"anchor_dsratio": 2}, 7),
     ({"feature_channels": 1}, 8),
-    ({"icp_window_frames": 2}, 3),
-    ({"odom": "icp"}, 2),
     ({"remat": True}, 10),
 ], ids=lambda o: next(iter(o)) if isinstance(o, dict) else str(o))
 def test_constructor_refuses_unported_options(option, item):
@@ -214,8 +210,10 @@ def test_ported_option_matches_jax(option):
 
 
 def test_bad_arguments_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ICPSLAM(odom="gt")  # the aggregate map is not ported
+    with pytest.raises(ValueError, match="confidence"):
+        ICPSLAM(odom="icp", prune_every=2)  # the aggregate map has no confidences
+    with pytest.raises(ValueError, match="icp_window_frames"):
+        ICPSLAM(odom="icp", icp_window_frames=0)
     with pytest.raises(ValueError):
         PointFusion(odom="bogus")
     with pytest.raises(TypeError):
@@ -249,6 +247,7 @@ import importlib, pkgutil, subprocess, sys
 
 sys.modules["jax"] = None
 sys.modules["gradslam_tpu"] = None
+sys.modules["scripts"] = None
 
 
 def refuse(*args, **kwargs):
@@ -258,17 +257,21 @@ def refuse(*args, **kwargs):
 subprocess.run = subprocess.Popen = refuse
 
 import gradslam_torch
-from gradslam_torch import PointFusion, synthetic_sequence
+from gradslam_torch import ICPSLAM, PointFusion, synthetic_sequence
 from gradslam_torch.interop import rgbdimages_from_numpy
 from gradslam_torch.ops import _build
 
 for mod in pkgutil.walk_packages(gradslam_torch.__path__, "gradslam_torch."):
     importlib.import_module(mod.name)
-frames = rgbdimages_from_numpy(*synthetic_sequence(1, 2, 16, 24))
+import chip_smoke  # noqa: F401  (the card's smoke test needs no JAX either)
+frames = rgbdimages_from_numpy(*synthetic_sequence(1, 2, 16, 24), device="cpu")
 pc, poses = PointFusion(odom="gradicp", numiters=2)(frames)
+agg, _ = ICPSLAM(odom="icp", numiters=2, icp_window_frames=1)(frames)
+assert int(agg.num_points[0]) == 2 * 16 * 24
 assert _build.load_library.cache_info().currsize == 0
 loaded = [n for n, m in sys.modules.items() if m is not None]
-assert not [n for n in loaded if n.split(".")[0] in ("jax", "jaxlib", "gradslam_tpu")]
+blocked = ("jax", "jaxlib", "gradslam_tpu", "scripts")
+assert not [n for n in loaded if n.split(".")[0] in blocked]
 print("ok", int(pc.num_points[0]), tuple(poses.shape))
 """
 

@@ -1,7 +1,7 @@
 """``Pointclouds`` buffers of the port held against the JAX package on the
 CPU: compaction with overflow, capacity growth, the ICP window's
 ``num_dropped`` accounting and the numpy interop. Writes that JAX parks
-past the end of an array go to trash rows here; every test runs under
+past the end of an array are dropped by the scatter here; every test runs under
 ``torch.use_deterministic_algorithms(True)``, which holds only if each
 destination is written once."""
 
@@ -72,6 +72,7 @@ def test_with_capacity_grows_and_keeps_contents():
     pc = pointclouds_from_numpy(
         np.ones((2, 5, 3)), [5, 2], normals=np.ones((2, 5, 3)),
         colors=np.ones((2, 5, 3)), features=np.ones((2, 5, 1)), num_dropped=[0, 3],
+        device="cpu",
     )
     grown = pc.with_capacity(9)
     assert grown.capacity == 9
@@ -94,7 +95,7 @@ def test_quantized_layout_empty_and_grown_match_jax():
     assert pc.colors is None and jpc.colors is None
     feats = np.arange(20, dtype=np.float32).reshape(2, 5, 2)
     pc = pointclouds_from_numpy(np.ones((2, 5, 3)), [5, 3], normals=np.ones((2, 5, 3)),
-                                features=feats, num_dropped=[0, 0])
+                                features=feats, num_dropped=[0, 0], device="cpu")
     jpc = G.Pointclouds(points=jnp.ones((2, 5, 3)), num_points=jnp.asarray([5, 3]),
                         normals=jnp.ones((2, 5, 3)), features=jnp.asarray(feats),
                         num_dropped=jnp.zeros(2, jnp.int32))
@@ -117,7 +118,7 @@ def test_empty_nonpad_mask_and_lists():
     pc = Pointclouds.empty(2, 4, device="cpu", dtype=torch.float64, feature_dim=2)
     assert pc.points.dtype == torch.float64 and pc.features.shape == (2, 4, 2)
     assert pc.num_points.dtype == torch.int64 and pc.num_dropped.tolist() == [0, 0]
-    pc = pointclouds_from_numpy(np.arange(24).reshape(2, 4, 3), [1, 3])
+    pc = pointclouds_from_numpy(np.arange(24).reshape(2, 4, 3), [1, 3], device="cpu")
     assert pc.nonpad_mask.tolist() == [[True, False, False, False], [True, True, True, False]]
     lists = pc.points_list
     assert [len(p) for p in lists] == [1, 3]
@@ -159,17 +160,35 @@ def test_interop_round_trip():
     rng = np.random.RandomState(3)
     pc = pointclouds_from_numpy(
         rng.randn(1, 6, 3), [4], normals=rng.randn(1, 6, 3),
-        colors=rng.rand(1, 6, 3), features=rng.rand(1, 6, 1), num_dropped=[2],
+        colors=rng.rand(1, 6, 3), features=rng.rand(1, 6, 1), num_dropped=[2], device="cpu",
     )
     assert pc.points.dtype == torch.float32 and pc.num_points.dtype == torch.int64
-    back = pointclouds_from_numpy(**to_numpy(pc))
+    back = pointclouds_from_numpy(**to_numpy(pc), device="cpu")
     for name in ("points", "num_points", "normals", "colors", "features", "num_dropped"):
         np.testing.assert_array_equal(getattr(back, name).numpy(), getattr(pc, name).numpy())
 
     rgb, depth = rng.rand(1, 2, 4, 5, 3), rng.rand(1, 2, 4, 5, 1)
     K, P = np.tile(np.eye(4), (1, 1, 1, 1)), np.tile(np.eye(4), (1, 2, 1, 1))
-    frames = rgbdimages_from_numpy(rgb, depth, K, P, normal_pitch=2)
+    frames = rgbdimages_from_numpy(rgb, depth, K, P, normal_pitch=2, device="cpu")
     assert isinstance(frames, RGBDImages) and frames.normal_pitch == 2
-    again = rgbdimages_from_numpy(**to_numpy(frames))
+    again = rgbdimages_from_numpy(**to_numpy(frames), device="cpu")
     np.testing.assert_array_equal(again.depth_image.numpy(), depth.astype(np.float32))
     assert again.normal_pitch == 2
+
+
+def test_interop_defaults_to_the_card():
+    """A caller who forgets ``device=`` gets the card, not a silent run on
+    the CPU: the default is ``"cuda"``, and on a machine without a card the
+    call raises instead of building CPU tensors."""
+    import inspect
+
+    from gradslam_torch import interop
+
+    for fn in (interop.pointclouds_from_numpy, interop.rgbdimages_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            pointclouds_from_numpy(np.zeros((1, 2, 3)), [1])
+        with pytest.raises((AssertionError, RuntimeError)):
+            rgbdimages_from_numpy(np.zeros((1, 1, 2, 2, 3)), np.ones((1, 1, 2, 2, 1)),
+                                  np.tile(np.eye(4), (1, 1, 1, 1)))
