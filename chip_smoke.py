@@ -12,10 +12,17 @@ Phases (each raises on failure; nothing is caught):
 2. build the CUDA kernels (``gradslam_torch/ops/csrc/knn.cu``, the 1-NN
    search, and ``scatter.cu``, the unique-row scatter; one ``nvcc`` each, in
    parallel) from the checkout's sources and print the build time;
-3. hold the 1-NN kernel against its plain PyTorch version on the card (the
-   tracked slice's shapes, the production recipe's 1-NN level shapes, a
-   ragged masked case with NaN padding, B=2, exact ties) and time both with
-   CUDA events at the two pipeline shapes;
+3. hold the 1-NN kernel against its plain PyTorch version on the card at
+   the paths' three shapes (the tracked slice's N=19,200/M=38,400, the
+   production recipe's 1-NN level N=4,800/M=9,600, ICPSLAM window+pyramid's
+   ds-8 level N=1,200/M=2,400) and on cases that stress the target splits
+   (a ragged masked case with NaN padding, B=2, exact ties with the copies
+   of a target in different splits, B=2 with one row all masked, M=0, fewer
+   targets than splits, N=1, N not a multiple of a block's 512 sources);
+   every case must give the same bits with 1, the plan's and forced split
+   counts; time kernel and plain version as device time behind a spin
+   kernel, the kernel also as one call with its launch and at other split
+   counts, beside its bound and issue floor;
 3b. hold the scatter kernel against its plain version on the card, bit for
    bit (the TPU microbenchmark's shape, fusion's int64 winner table, a C=3
    append into a 2.3M-row buffer, B=2, every row dropped), its gradient
@@ -88,7 +95,7 @@ from gradslam_torch.geometry import (
 from gradslam_torch.interop import rgbdimages_from_numpy
 from gradslam_torch.metrics import ate_rmse
 from gradslam_torch.odometry.icputils import downsample_rgbdimages
-from gradslam_torch.ops import knn_cuda, nn_points, scatter_cuda
+from gradslam_torch.ops import _build, knn_cuda, nn_points, scatter_cuda
 from gradslam_torch.ops._build import load_library
 from gradslam_torch.ops.scatter import scatter_rows_into_plain, scatter_rows_plain
 from gradslam_torch.structures.pointclouds import scatter_rows, scatter_rows_into
@@ -227,8 +234,21 @@ def check_knn_result(name, src, tgt, mask, d_k, i_k) -> float:
     must name a valid target whose distance, worked out from the inputs, is
     the one the kernel reports. Indices may differ from the plain version's
     only at proven ties: the targets both name lie at distances equal within
-    1e-6 * max(1, d)."""
+    1e-6 * max(1, d). A source with no valid target must get (1e30, 0), as
+    from the plain version."""
     d_p, i_p = nn_points(src, tgt, mask)
+    none = d_p == 1e30  # finite sources: only where no target is valid
+    if not (torch.equal(none, d_k == 1e30) and bool((i_k[none] == 0).all())
+            and bool((i_p[none] == 0).all())):
+        raise AssertionError(f"knn {name}: a source with no valid target is not (1e30, 0)")
+    if bool(none.all()):
+        log(f"knn {name}: src {tuple(src.shape)} tgt {tuple(tgt.shape)}: no valid target, "
+            f"(1e30, 0) everywhere as from the plain version")
+        return 0.0
+    if bool(none.any()):  # check the other rows
+        keep = ~none.all(dim=1)
+        src, tgt, d_p, i_p, d_k, i_k = (t[keep] for t in (src, tgt, d_p, i_p, d_k, i_k))
+        mask = None if mask is None else mask[keep]
     M = tgt.shape[1]
     if not bool(((i_k >= 0) & (i_k < M)).all()):
         raise AssertionError(f"knn {name}: index outside [0, {M})")
@@ -255,31 +275,52 @@ def check_knn_result(name, src, tgt, mask, d_k, i_k) -> float:
     return max_err
 
 
-def check_knn_case(name, src, tgt, mask) -> float:
+def check_knn_case(name, src, tgt, mask, splits=(7, 64)) -> float:
+    """One case: the kernel against the plain version, and the kernel's
+    result bit for bit the same with the targets in one split, in the plan's
+    splits and in each of ``splits``."""
     d_k, i_k = knn_cuda.nn_points_cuda(src, tgt, mask)
-    return check_knn_result(name, src, tgt, mask, d_k, i_k)
+    err = check_knn_result(name, src, tgt, mask, d_k, i_k)
+    for s in (1, None, *splits):
+        d_s, i_s = knn_cuda.nn_points_cuda(src, tgt, mask, splits=s)
+        if not (torch.equal(d_s, d_k) and torch.equal(i_s, i_k)):
+            raise AssertionError(f"knn {name}: splits={s} differs from the default call")
+    return err
 
 
-def time_pair(src, tgt, mask) -> tuple:
-    """Median CUDA-event ms of the kernel and of the plain version at one
-    shape, timed in turns."""
-
-    def kernel():
-        knn_cuda.nn_points_cuda(src, tgt, mask)
-
-    def plain():
-        nn_points(src, tgt, mask)
-
-    for fn in (kernel, plain):
+def time_knn(src, tgt, mask, sms: int, clock_hz: float) -> dict:
+    """Device time a call (``device_ms``: medians of 6 rounds of 20 calls,
+    kernel and plain version in turns) of the kernel and of the plain
+    version; the kernel's time a single call with its launch (``cuda_ms``,
+    median of 20); its device time at other split counts (one round each);
+    the bound and the issue floor."""
+    B, N, M = src.shape[0], src.shape[1], tgt.shape[1]
+    plan = knn_cuda.split_plan_for(B, N, M, src.device)
+    fns = {"kernel": lambda: knn_cuda.nn_points_cuda(src, tgt, mask),
+           "plain": lambda: nn_points(src, tgt, mask)}
+    for fn in fns.values():
         fn()
-    torch.cuda.synchronize()
-    t_plain, t_kernel = [], []
-    for fn, acc in ((plain, t_plain), (kernel, t_kernel), (kernel, t_kernel), (plain, t_plain)):
-        acc.extend(cuda_ms(fn, 10))
-    ms, plain_ms = float(np.median(t_kernel)), float(np.median(t_plain))
-    log(f"knn timing at N={src.shape[1]} M={tgt.shape[1]}: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20, CUDA events)")
-    return ms, plain_ms
+    acc = {k: [] for k in fns}
+    for _ in range(3):
+        for key in ("plain", "kernel", "kernel", "plain"):
+            acc[key].append(device_ms(fns[key], 20))
+    row = {"N": N, "M": M, "splits": plan[0], "per_split": plan[1],
+           "ms": float(np.median(acc["kernel"])), "plain_ms": float(np.median(acc["plain"])),
+           "call_ms": float(np.median(cuda_ms(fns["kernel"], 20)))}
+    row["bound_ms"], row["bound_by"] = knn_bound(N, M, B)
+    row["issue_floor_ms"] = knn_issue_floor(N, M, B, sms, clock_hz)
+    row["share"] = row["bound_ms"] / row["ms"]
+    sweep = sorted({1, 2, 4, 8, 16, 24, 32, 48, 64, max(1, plan[0] // 2), plan[0], 2 * plan[0]})
+    row["splits_ms"] = {
+        s: device_ms(lambda s=s: knn_cuda.nn_points_cuda(src, tgt, mask, splits=s), 20)
+        for s in sweep}
+    log(f"knn timing at N={N} M={M}: device time a call: kernel {row['ms']:.4f} ms "
+        f"(S={plan[0]} splits of {plan[1]}), plain {row['plain_ms']:.4f} ms; bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), share {100 * row['share']:.1f}%, "
+        f"issue floor {row['issue_floor_ms']:.4f} ms; a single kernel call with its launch "
+        f"{row['call_ms']:.4f} ms; by split count: "
+        + ", ".join(f"S={s} {t:.4f}" for s, t in row["splits_ms"].items()))
+    return row
 
 
 def padded_window(pc):
@@ -291,21 +332,27 @@ def padded_window(pc):
     return tgt, mask
 
 
-def knn_phase(frames, hard) -> dict:
+def level_pair(frames, ds: int) -> tuple:
+    """A 1-NN level's inputs: frame 1's stride-``ds`` cloud (at frame 0's
+    pose) against frame 0's as a map window of twice its rows, half NaN
+    padding."""
+    pc0 = downsample_rgbdimages(frames[:, 0], ds)
+    pc1 = downsample_rgbdimages(frames[:, 1].with_poses(frames.poses[:, 0:1]), ds)
+    tgt, mask = padded_window(pc0)
+    return pc1.points.contiguous(), tgt, mask
+
+
+def knn_phase(frames, hard, icp_frames) -> dict:
     dev = frames.device
-    # The tracked slice's shapes: the ds-4 frame cloud (N = 19,200) against
-    # a map window of capacity 2 * 120 * 160 = 38,400, half of it NaN padding.
-    pc0 = downsample_rgbdimages(frames[:, 0], DSRATIO)
-    pc1 = downsample_rgbdimages(frames[:, 1].with_poses(frames.poses[:, 0:1]), DSRATIO)
-    slice_tgt, slice_mask = padded_window(pc0)
-    slice_src = pc1.points.contiguous()
-    # The production recipe's 1-NN level: the ds-8 hard-clip frame cloud
-    # (N = 4,800) against a window of capacity 2 * 60 * 80 = 9,600.
-    ds_prod = PRODUCTION["pyramid"][1][0]
-    h0 = downsample_rgbdimages(hard[:, 0], ds_prod)
-    h1 = downsample_rgbdimages(hard[:, 1].with_poses(hard.poses[:, 0:1]), ds_prod)
-    level_tgt, level_mask = padded_window(h0)
-    level_src = h1.points.contiguous()
+    # The three shapes of the paths: the tracked slice (the ds-4 frame cloud,
+    # N = 19,200, against a map window of capacity 2 * 120 * 160 = 38,400);
+    # the production recipe's 1-NN level, which is also ICPSLAM
+    # window+pyramid's ds-4 level (N = 4,800, M = 9,600); ICPSLAM
+    # window+pyramid's ds-8 level on the 320x240 clip (N = 1,200, M = 2,400).
+    levels = {"tracked": level_pair(frames, DSRATIO),
+              "production_level": level_pair(hard, PRODUCTION["pyramid"][1][0]),
+              "window_pyramid_ds8": level_pair(icp_frames, ICPSLAM_CONFIGS["window_pyramid"]
+                                               ["pyramid"][0][0])}
 
     g = torch.Generator(device="cpu").manual_seed(0)
 
@@ -316,38 +363,69 @@ def knn_phase(frames, hard) -> dict:
     ragged_mask = (torch.rand(1, 3001, generator=g) < 0.5).to(dev)
     ragged_tgt[~ragged_mask] = float("nan")
     base = randn(2, 500, 3)
-    tie_tgt = base.repeat(1, 4, 1)  # every target appears 4 times
+    tie_tgt = base.repeat(1, 4, 1).contiguous()  # every target appears 4 times
     tie_src = torch.cat([randn(2, 300, 3), base[:, :200]], dim=1)  # some exact hits
-    cases = [
-        ("slice", slice_src, slice_tgt, slice_mask),
-        ("production_knn_level", level_src, level_tgt, level_mask),
-        ("ragged_masked_nan", randn(1, 1001, 3), ragged_tgt, ragged_mask),
-        ("batched_B2", randn(2, 777, 3), randn(2, 2049, 3), None),
-        ("exact_ties", tie_src, tie_tgt.contiguous(), None),
-    ]
-    max_err = max(check_knn_case(*c) for c in cases)
-    _, tie_idx = knn_cuda.nn_points_cuda(tie_src, tie_tgt.contiguous())
-    if not bool((tie_idx < 500).all()):
-        raise AssertionError("knn exact_ties: a duplicate target won over its first copy")
+    # B=2 with different masks; batch row 1 has no valid target at all
+    two_mask = torch.stack([torch.rand(700, generator=g) < 0.3, torch.zeros(700, dtype=torch.bool)])
+    two_tgt = randn(2, 700, 3)
+    two_tgt[~two_mask.to(dev)] = float("nan")
+    # N = 513 and 777 are not multiples of the 512 sources of a search
+    # block; M = 100 is 4 chunks, fewer than the 7 and 64 splits forced
+    cases = {
+        **levels,
+        "ragged_masked_nan": (randn(1, 1001, 3), ragged_tgt, ragged_mask),
+        "batched_B2": (randn(2, 777, 3), randn(2, 2049, 3), None),
+        "exact_ties": (tie_src, tie_tgt, None),
+        # each source on a target with three twins within 1e-7 in later
+        # splits: the partial minima round near 0, some below it
+        "near_duplicates": (base[:1, :300], torch.cat(
+            [base[:1] + 3e-8 * k * randn(1, 500, 3) for k in range(4)], dim=1), None),
+        "B2_masks_one_all_masked": (randn(2, 513, 3), two_tgt, two_mask.to(dev)),
+        "M0": (randn(1, 300, 3), randn(1, 0, 3), None),
+        "M_below_S": (randn(1, 1030, 3), randn(1, 100, 3), None),
+        "N1": (randn(1, 1, 3), randn(1, 4000, 3), None),
+    }
+    max_err = max(check_knn_case(name, *c) for name, c in cases.items())
+    # the four copies of a target lie in different splits (7 splits of 288
+    # rows, and the plan's); every split count gave these bits: the first
+    # copy wins
+    _, tie_idx = knn_cuda.nn_points_cuda(tie_src, tie_tgt)
+    if not bool((tie_idx < 500).all()) or not torch.equal(
+            tie_idx[:, 300:].long(), torch.arange(200, device=dev).expand(2, -1)):
+        raise AssertionError("knn exact_ties: a duplicate won over its first copy")
+    log("knn split checks: ties across split boundaries go to the first copy; sources with no "
+        "valid target get (1e30, 0); every case bit-identical across split counts")
 
-    shapes = []
-    for src, tgt, mask in ((slice_src, slice_tgt, slice_mask),
-                           (level_src, level_tgt, level_mask)):
-        ms, plain_ms = time_pair(src, tgt, mask)
-        shapes.append({"N": src.shape[1], "M": tgt.shape[1], "ms": ms, "plain_ms": plain_ms})
-    return {"max_abs_err": max_err, "ms": shapes[0]["ms"], "plain_ms": shapes[0]["plain_ms"],
-            "shapes": shapes}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_hz = max_sm_clock_hz()
+    shapes = [time_knn(*pair, sms, clock_hz) for pair in levels.values()]
+    return {"max_abs_err": max_err, "shapes": shapes, "sm_clock_hz": clock_hz}
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    )
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
 
 
 def knn_bound(N: int, M: int, nb: int = 1) -> tuple:
     """Least time (ms) of a masked 1-NN at one shape, and what sets it:
-    about 8 float32 operations a (source, target) pair (three FMAs for the
-    cross term, one for the distance, the compare, two selects), against
-    reading the clouds and the mask once and writing distances and indices
-    once."""
+    8 float32 flops a (source, target) pair (the cross term's multiply and
+    two FMAs, 1 + 2 * 2; the distance's add and FMA, 1 + 2) at the card's
+    67 TFLOP/s, which counts an FMA as two flops, against reading the
+    clouds and the mask once and writing distances and indices once."""
     t_ops = 8.0 * nb * N * M / FP32_FLOPS_PER_S
     t_bytes = nb * (12.0 * N + 13.0 * M + 8.0 * N) / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def knn_issue_floor(N: int, M: int, nb: int, sms: int, clock_hz: float) -> float:
+    """Least time (ms) an exact version of the arithmetic can issue in: 6
+    lane instructions a pair (FMUL, FFMA, FFMA, FADD, FFMA and one min),
+    each SM issuing 128 lanes a clock (4 schedulers of 32)."""
+    return 1e3 * 6.0 * nb * N * M / (sms * 128 * clock_hz)
 
 
 # The TPU kernel's shape (scripts/microbench_scatter.py:41-42).
@@ -748,7 +826,7 @@ def profile_run(slam, frames, tag: str, unprofiled_s: float) -> None:
     for e in top:
         log(f"  {e.self_device_time_total / 1e3:10.3f} ms  {e.count:6d}x  {e.key[:90]}")
     ours = [e for e in device if any(k in e.key for k in (
-        "::knn1_kernel(", "::scatter_kernel<", "::fill_kernel<"))]
+        "::knn1_", "::scatter_kernel<", "::fill_kernel<"))]
     log(f"profile {tag}: the port's kernels: " + "; ".join(
         f"{e.key.split('::')[1].split('(')[0]} {e.self_device_time_total / 1e3:.3f} ms "
         f"{e.count}x" for e in sorted(ours, key=lambda e: e.key)))
@@ -769,12 +847,17 @@ def main() -> int:
     t0 = time.perf_counter()
     load_library()
     log(f"kernel build + load: {time.perf_counter() - t0:.2f} s")
+    log("ptxas report:\n" + (_build.build_log.strip() or "(library already built)"))
 
     rgb, depth, K, P = synthetic_sequence(B, L, H, W, seed=0)
     frames = rgbdimages_from_numpy(rgb, depth, K, P, device="cuda")
     hard = rgbdimages_from_numpy(*hard_sequence(1, 2, H, W), device="cuda",
                                  normal_pitch=PRODUCTION["normal_pitch"])
-    knn = knn_phase(frames, hard)
+    icp_clip = rgbdimages_from_numpy(*synthetic_sequence(B, L, ICP_H, ICP_W, seed=0),
+                                     device="cuda")
+    t0 = time.perf_counter()
+    knn = knn_phase(frames, hard, icp_clip)
+    log(f"knn phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     scatter = scatter_phase()
     log(f"scatter phase: {time.perf_counter() - t0:.2f} s")
@@ -815,8 +898,7 @@ def main() -> int:
     # launches a run on each path, as counted in its last timed run
     knn_per_path = {path: n["knn"] for path, n in LAUNCHES.items()}
     scatter_per_path = {path: n["scatter"] for path, n in LAUNCHES.items()}
-    for shape in knn["shapes"]:
-        shape["bound_ms"], shape["bound_by"] = knn_bound(shape["N"], shape["M"])
+    tracked_shape = knn["shapes"][0]
     script = scatter["shapes"][0]
     print(json.dumps({"kernels": [{
         "name": "knn1_cuda",
@@ -826,11 +908,12 @@ def main() -> int:
         "launches": sum(knn_per_path.values()),
         "launches_per_path": knn_per_path,
         "max_abs_err": knn["max_abs_err"],
-        "ms": knn["ms"],
-        "plain_ms": knn["plain_ms"],
-        "bound_ms": knn["shapes"][0]["bound_ms"],
-        "bound_by": knn["shapes"][0]["bound_by"],
+        "ms": tracked_shape["ms"],
+        "plain_ms": tracked_shape["plain_ms"],
+        "bound_ms": tracked_shape["bound_ms"],
+        "bound_by": tracked_shape["bound_by"],
         "library_ms": None,  # no single PyTorch call computes a masked 1-NN
+        "sm_clock_hz": knn["sm_clock_hz"],
         "shapes": knn["shapes"],
     }, {
         "name": "scatter_rows_cuda",

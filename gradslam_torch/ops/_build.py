@@ -21,7 +21,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load_library", "NVCC_FLAGS"]
+__all__ = ["load_library", "NVCC_FLAGS", "build_log"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -30,7 +30,11 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",  # each kernel's registers, shared memory and spills
 ]
+# The compilers' messages of the last build in this process (the
+# ``-Xptxas=-v`` report); empty when the library was already built.
+build_log = ""
 
 
 def _nvcc() -> str:
@@ -76,6 +80,8 @@ def load_library() -> ctypes.CDLL:
             outputs = [proc.communicate() for proc in procs]  # wait for all
             for cmd, proc, (out, err) in zip(compiles, procs, outputs):
                 _check(cmd, proc.returncode, out, err)
+            global build_log
+            build_log = "".join(out + err for out, err in outputs)
             tmp = os.path.join(work, "lib.so")
             link = [nvcc, "-shared", "-o", tmp, *objs]
             proc = subprocess.run(link, capture_output=True, text=True)
@@ -83,8 +89,10 @@ def load_library() -> ctypes.CDLL:
             os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gradslam_knn1.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.gradslam_knn1.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
     lib.gradslam_knn1.restype = ci
+    lib.gradslam_knn1_resident_blocks.argtypes = []
+    lib.gradslam_knn1_resident_blocks.restype = ci
     lib.gradslam_scatter_rows.argtypes = [
         vp, vp, ctypes.c_ulonglong, vp, ci, vp, ci, cll, cll, cll, cll, vp]
     lib.gradslam_scatter_rows.restype = ci

@@ -1,32 +1,52 @@
-"""Time the port's PointFusion paths on one GPU, to compare two trees of the
-port inside one machine call.
+"""Time the port's paths and its 1-NN kernel on one GPU, to compare two trees
+of the port inside one machine call.
 
     python3 tests/port/time_paths_on_card.py [--root DIR]
 
 imports ``gradslam_torch`` and ``chip_smoke`` from ``DIR`` (default: the
-checkout this file is in) and runs the four PointFusion paths of that tree's
-``chip_smoke.py`` at their full size, with the clip size, capacity schedule
-and production recipe it defines: tracked ``odom='gradicp'`` and
-``odom='gt'`` on the 640x480 synthetic clip with the six-segment schedule,
-the production recipe on the 640x480 hard clip, and ``odom='gt'`` with
-quantized colors. For each path it makes
-one warm-up run and three timed runs (host clock, each ending in a
-synchronize), then one run under ``torch.profiler``, and prints one JSON
-line with the seconds of every timed run, each run's final map count, the
-profiled run's device events and device busy seconds (the sum of the
-device-side events' own times; they do not overlap on one stream), and the
-card's name and power limit. Host-clock times spread by up to 2x between
-machine calls, so compare two trees only inside one call, in turns (parent,
-change, change, parent); the device events and busy time repeat within
-about 1% from call to call.
+checkout this file is in) and, with the clip sizes, capacity schedules,
+production recipe and ICPSLAM configurations that tree's ``chip_smoke.py``
+defines:
+
+- reads the device time of that tree's 1-NN kernel at the paths' three
+  shapes (the tracked slice's ds-4 level, N=19,200/M=38,400; the production
+  recipe's 1-NN level, N=4,800/M=9,600; ICPSLAM window+pyramid's ds-8 level
+  on the 320x240 clip, N=1,200/M=2,400): CUDA events around 20 back-to-back
+  calls queued behind a ~10 ms spin kernel, median of 5 rounds, and a
+  SHA-256 of the kernel's distances and indices;
+- runs the four PointFusion paths at their full size (tracked
+  ``odom='gradicp'`` and ``odom='gt'`` on the 640x480 synthetic clip with
+  the six-segment schedule, the production recipe on the 640x480 hard clip,
+  ``odom='gt'`` with quantized colors) and the tree's ICPSLAM
+  configurations on the 320x240 clip: for each one warm-up run and three
+  timed runs (host clock, each ending in a synchronize), then one run under
+  ``torch.profiler``.
+
+It prints one JSON line with the seconds of every timed run, each run's
+final map count, a SHA-256 of the last run's poses and of its map points,
+the profiled run's device events and device busy seconds (the sum of the
+device-side events' own times; they do not overlap on one stream), the
+kernel's figures, and the card's name and power limit. Host-clock times
+spread by up to 2x between machine calls, so compare two trees only inside
+one call, in turns (parent, change, change, parent); the device events,
+busy time and kernel device times repeat within about 1% from call to
+call.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
 import sys
 import time
+
+
+def sha256(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def main() -> int:
@@ -36,13 +56,16 @@ def main() -> int:
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
+    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs  # the paths as that tree defines them
-    from gradslam_torch import PointFusion, hard_sequence, synthetic_sequence
+    from gradslam_torch import ICPSLAM, PointFusion, hard_sequence, synthetic_sequence
     from gradslam_torch.interop import rgbdimages_from_numpy
+    from gradslam_torch.odometry.icputils import downsample_rgbdimages
+    from gradslam_torch.ops import knn_cuda
 
     if not torch.cuda.is_available():
         print("time_paths_on_card: no CUDA device available", file=sys.stderr)
@@ -50,6 +73,44 @@ def main() -> int:
     size = (cs.B, cs.L, cs.H, cs.W)
     easy = rgbdimages_from_numpy(*synthetic_sequence(*size, seed=0), device="cuda")
     hard = rgbdimages_from_numpy(*hard_sequence(*size), device="cuda")
+    icp = rgbdimages_from_numpy(*synthetic_sequence(cs.B, cs.L, cs.ICP_H, cs.ICP_W, seed=0),
+                                device="cuda")
+    out = {"root": os.path.abspath(args.root), "knn": {}, "paths": {}}
+
+    def level(frames, ds):
+        # frame 1's cloud against frame 0's as a window of twice its rows,
+        # the second half NaN padding behind the mask
+        pc0 = downsample_rgbdimages(frames[:, 0], ds)
+        pc1 = downsample_rgbdimages(frames[:, 1].with_poses(frames.poses[:, 0:1]), ds)
+        n = pc0.points.shape[1]
+        tgt = torch.cat([pc0.points, torch.full_like(pc0.points, float("nan"))], dim=1)
+        mask = torch.arange(2 * n, device=tgt.device)[None] < pc0.num_points[:, None]
+        return pc1.points.contiguous(), tgt.contiguous(), mask
+
+    def device_ms(fn, iters=20):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    for name, (frames, ds) in {
+        "tracked": (easy, cs.DSRATIO),
+        "production_level": (hard, cs.PRODUCTION["pyramid"][1][0]),
+        "window_pyramid_ds8": (icp, cs.ICPSLAM_CONFIGS["window_pyramid"]["pyramid"][0][0]),
+    }.items():
+        src, tgt, mask = level(frames, ds)
+        d, i = knn_cuda.nn_points_cuda(src, tgt, mask)
+        times = [device_ms(lambda: knn_cuda.nn_points_cuda(src, tgt, mask)) for _ in range(5)]
+        out["knn"][name] = {"N": src.shape[1], "M": tgt.shape[1],
+                            "device_ms": float(np.median(times)), "device_ms_rounds": times,
+                            "sha256": sha256(d, i)}
+
     paths = {
         "tracked_easy": (PointFusion(odom="gradicp", dsratio=cs.DSRATIO, numiters=cs.NUMITERS,
                                      map_capacity=cs.SCHEDULE), easy),
@@ -58,14 +119,15 @@ def main() -> int:
         "gt_quantized_easy": (PointFusion(odom="gt", quantize_colors=True,
                                           map_capacity=cs.SCHEDULE), easy),
     }
-    out = {"root": os.path.abspath(args.root), "paths": {}}
+    for name, kw in cs.ICPSLAM_CONFIGS.items():
+        paths[f"icpslam_{name}"] = (ICPSLAM(map_capacity=cs.ICP_SCHEDULE, **kw), icp)
     for name, (slam, frames) in paths.items():
         slam(frames)
         torch.cuda.synchronize()
         secs, counts = [], []
         for _ in range(3):
             t0 = time.perf_counter()
-            pc, _ = slam(frames)
+            pc, poses = slam(frames)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             counts.append(int(pc.num_points[0]))
@@ -75,6 +137,9 @@ def main() -> int:
         device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         out["paths"][name] = {
             "seconds": secs, "num_points": counts,
+            "poses_sha256": sha256(poses),
+            "points_sha256": sha256(*(pc.points[b, :int(pc.num_points[b])]
+                                      for b in range(pc.points.shape[0]))),
             "device_events": sum(e.count for e in device),
             "device_busy_s": sum(e.self_device_time_total for e in device) / 1e6,
         }
