@@ -24,11 +24,17 @@ Phases (each raises on failure; nothing is caught):
    kernel, the kernel also as one call with its launch and at other split
    counts, beside its bound and issue floor;
 3b. hold the scatter kernel against its plain version on the card, bit for
-   bit (the TPU microbenchmark's shape, fusion's int64 winner table, a C=3
-   append into a 2.3M-row buffer, B=2, every row dropped), its gradient
-   against the plain version's, and time kernel, plain version and the
-   library call (``torch.full`` + ``index_put_``) at the microbenchmark's and
-   the paths' shapes;
+   bit as integer views (the TPU microbenchmark's shape, fusion's int64
+   winner table, a C=3 append into a 2.3M-row buffer, B=2, ICPSLAM flat's
+   map window over the 2.3M-row map, fusion's row inversion into 1,228,800
+   rows, every row dropped; and edge cases: 4-, 8- and 12-byte tails after
+   the fill's 16-byte words, NaN, -0.0 and infinite fills, NaN payloads
+   copied, B=3 with M=0, size=0, C=8 and C=10 float32 rows, an int32 dest,
+   buffers and values that are not 16-byte aligned), its gradient against
+   the plain version's, one call captured in a CUDA graph and replayed; time
+   kernel, plain version, the library call (``torch.full`` + ``index_put_``)
+   and an empty kernel (the launch floor) at the microbenchmark's and the
+   paths' five shapes, with the kernel's host time a call;
 4. run tracked ``PointFusion(odom='gradicp', dsratio=4, numiters=10)`` on the
    30-frame 640x480 synthetic clip with the six-segment capacity schedule:
    one warm-up run, then timed runs that must launch the 1-NN kernel exactly
@@ -78,6 +84,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -459,6 +466,17 @@ def scatter_cases(dev) -> list:
     # B=2 compaction with overflow (the map window: 153,600 rows into 9,600)
     cmask = rng.rand(2, 2 * hw) < 0.3
     c_dest = np.where(cmask, np.cumsum(cmask, axis=1) - 1, -1).astype(np.int64)
+    # ICPSLAM flat's map-window compaction (odometry/icputils.py:411-414):
+    # the whole 2,304,000-row map, the rows on the ds-4 pixel grid (about
+    # one in 16) ranked into the 2 * 60 * 80 = 9,600-row window
+    wmask = rng.rand(1, ICP_MAP_COUNT) < 1 / 16
+    w_dest = np.where(wmask, np.cumsum(wmask, axis=1) - 1, -1).astype(np.int64)
+    # fusion's row inversion at the production capacity
+    # (slam/fusionutils.py:340): each of the 640x480 pixels names a unique
+    # map row of 1,228,800 (a tenth of them none); the table holds int64
+    # pixel ids and "no pixel" = HW
+    inv_dest = rng.permutation(PRODUCTION["map_capacity"])[:H * W].astype(np.int64)
+    inv_dest[rng.rand(H * W) < 0.1] = -1
     return [
         ("microbench_f32", SCRIPT_HW, t(idx[None]), t(val[None]), 0.0),
         ("winner_table_i64", H * W, t(win_dest), t(np.arange(cap, dtype=np.int64)[None]), cap),
@@ -466,9 +484,73 @@ def scatter_cases(dev) -> list:
          t(rng.randn(1, hw, 3).astype(np.float32)), None),
         ("compact_B2_C3", 2 * 60 * 80, t(c_dest), t(rng.randn(2, 2 * hw, 3).astype(np.float32)),
          0.0),
+        ("map_window_2.3M_C3", 2 * 60 * 80, t(w_dest),
+         t(rng.randn(1, ICP_MAP_COUNT, 3).astype(np.float32)), 0.0),
+        ("row_inversion_1.2M_i64", PRODUCTION["map_capacity"], t(inv_dest[None]),
+         t(np.arange(H * W, dtype=np.int64)[None]), H * W),
         ("all_dropped_i32", 1000, t(np.full((1, 5000), -1, np.int64)),
          t(rng.randint(0, 9, (1, 5000, 2)).astype(np.int32)), 7),
     ]
+
+
+SCATTER_TIMED = 6  # the first six cases are the timed shapes
+
+
+def scatter_edge_cases(dev) -> list:
+    """Cases, in the form of :func:`scatter_cases`, that stress the word
+    widths and the partition of the fill or copy: tables whose bytes leave
+    a 4-, 8- and 12-byte tail after the 16-byte words, NaN and -0.0 fills,
+    B=3 with M=0, size=0, C=8 and C=10 float32 rows (16- and 8-byte words),
+    an int32 dest with negative and past-the-end entries, and a buffer and
+    values that are not 16-byte aligned (element words only). Inputs are
+    made from a numpy seed."""
+    rng = np.random.RandomState(1)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def dest(B, M, size, drop=0.2, dtype=np.int64):
+        d = np.stack([rng.permutation(size + M)[:M] for _ in range(B)])
+        d[rng.rand(B, M) < drop] = -1
+        return t(d.astype(dtype))
+
+    def f32(*shape):
+        return t(rng.randn(*shape).astype(np.float32))
+
+    # a buffer with NaN payloads and -0.0, copied bit for bit
+    nan_buf = rng.randn(1, 1001, 3).astype(np.float32)
+    nan_buf.view(np.uint32)[0, :50, 0] = 0x7FC00000 + np.arange(50)  # distinct NaNs
+    nan_buf[0, 50:60] = -0.0
+    # 4-byte-aligned but not 16-byte-aligned views (a contiguous tail)
+    odd_buf = torch.cat([f32(1), f32(1001 * 3)])[1:].view(1, 1001, 3)
+    odd_vals = torch.cat([f32(1), f32(700 * 4)])[1:].view(1, 700, 4)
+    i32_dest = rng.randint(-400, 1300, (2, 3000)).astype(np.int32)
+    for b in range(2):  # unique inside the table: keep a value's first copy
+        _, first = np.unique(i32_dest[b], return_index=True)
+        dup = np.ones(3000, bool)
+        dup[first] = False
+        i32_dest[b, dup] = -1
+    return [
+        ("tail_4B_nan_fill", 1001, dest(1, 1500, 1001), f32(1, 1500), float("nan")),
+        ("tail_8B_neg0_fill", 1001, dest(1, 900, 1001), f32(1, 900, 2), -0.0),
+        ("tail_12B_C3", 1001, dest(1, 2000, 1001), f32(1, 2000, 3), 1.5),
+        ("tail_8B_i64", 1001, dest(1, 1200, 1001), t(rng.randint(-9, 9, (1, 1200), np.int64)),
+         -1),
+        ("copy_nan_buffer", t(nan_buf), dest(1, 800, 1001), f32(1, 800, 3), None),
+        ("B3_M0", 100, t(np.zeros((3, 0), np.int64)), f32(3, 0, 3), 2.0),
+        ("size0", 0, dest(2, 50, 0), f32(2, 50, 3), 0.0),
+        ("C8_f32", 9_600, dest(1, 20_000, 9_600, 0.5), f32(1, 20_000, 8), 0.0),
+        ("C10_f32", 9_600, dest(1, 20_000, 9_600, 0.5), f32(1, 20_000, 10), float("-inf")),
+        ("i32_dest_B2", 1000, t(i32_dest), f32(2, 3000, 3), float("nan")),
+        ("unaligned_copy", odd_buf, dest(1, 700, 1001), f32(1, 700, 3), None),
+        ("unaligned_values", 1001, dest(1, 700, 1001), odd_vals, float("inf")),
+    ]
+
+
+def int_view(x: torch.Tensor) -> torch.Tensor:
+    """The bits of a float32/int32/int64 tensor as integers: NaN and -0.0
+    compare bit for bit."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
 def scatter_kernel(table, dest, values, fill):
@@ -519,23 +601,132 @@ def scatter_bound(table, dest, values) -> float:
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
+def host_us(fn, calls: int = 100) -> float:
+    """Host time (us) a call of ``fn``: ``time.perf_counter()`` around
+    ``calls`` calls enqueued behind a spin kernel of 200M cycles (at least
+    0.1 s at the H100's 1,980 MHz), over ``calls``. The calls must take
+    under 50 ms (checked): then the device was still spinning and the launch
+    queue never filled, so this is the caller's own cost (validation,
+    allocation, the launches) without the device's."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if secs >= 0.050:
+        raise AssertionError(f"host_us: {calls} calls took {secs:.4f} s, as long as the spin")
+    return 1e6 * secs / calls
+
+
+def kernel_split_ms(fn, calls: int = 10) -> dict:
+    """Device time a call of each device kernel ``fn`` launches, from
+    ``torch.profiler`` over ``calls`` back-to-back calls; kernels that
+    overlap (a dependent launch) count in full each."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {kernel_name(e.key): e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key without its return type, namespace and arguments:
+    ``scatter_rows<unsigned int, int>``, ``Memcpy DtoD``."""
+    found = re.search(r"(\w+(?:<[^()]*>)?)\(", key)
+    return found.group(1) if found else key.split("(")[0].strip()
+
+
+def time_scatter(name, table, dest, values, fill) -> dict:
+    """One timed shape: device time a call (``device_ms``, medians of 2
+    rounds of 10 calls of kernel, plain version, library call and an empty
+    kernel, ``torch.cuda._sleep(0)``, the launch floor, taken in turns); the
+    kernel's device kernels one by one (``kernel_split_ms``); its host time a
+    call (``host_us``, median and least of 7 rounds) and its time as a
+    single call with its launch (``cuda_ms``, median of 20); the bound."""
+    fns = {"kernel": lambda: scatter_kernel(table, dest, values, fill),
+           "plain": lambda: scatter_plain(table, dest, values, fill),
+           "library": scatter_library(table, dest, values, fill),
+           "floor": lambda: torch.cuda._sleep(0)}
+    for fn in fns.values():
+        fn()
+    acc = {k: [] for k in fns}
+    for _ in range(2):
+        for key in ("plain", "kernel", "library", "floor", "floor", "library", "kernel", "plain"):
+            acc[key].append(device_ms(fns[key], 10))
+    row = {"case": name, "ms": float(np.median(acc["kernel"])),
+           "plain_ms": float(np.median(acc["plain"])),
+           "library_ms": float(np.median(acc["library"])),
+           "floor_ms": float(np.median(acc["floor"])),
+           "bound_ms": scatter_bound(table, dest, values),
+           "kernels_ms": kernel_split_ms(fns["kernel"]),
+           "call_ms": float(np.median(cuda_ms(fns["kernel"], 20)))}
+    host = [host_us(fns["kernel"]) for _ in range(7)]
+    row["host_us"], row["host_us_min"] = float(np.median(host)), float(min(host))
+    row["share"] = row["bound_ms"] / row["ms"]
+    log(f"scatter timing {name}: device time a call: kernel {row['ms']:.4f} ms ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in row["kernels_ms"].items())
+        + f"), plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, empty "
+        f"kernel {row['floor_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms (bytes), share "
+        f"{100 * row['share']:.1f}%; host {row['host_us']:.2f} us a call (least "
+        f"{row['host_us_min']:.2f}); a single kernel call with its launch "
+        f"{row['call_ms']:.4f} ms")
+    return row
+
+
+def scatter_graph_check(name, table, dest, values, fill) -> None:
+    """One call captured in a CUDA graph and replayed: the replay rewrites
+    the whole output (set to all-ones bits first) with the eager call's
+    bits, and a replay after new values are copied into the captured input
+    gives the eager result of the new values."""
+    dest, values = dest.clone(), values.clone()
+    table = table if isinstance(table, int) else table.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as for capture
+        scatter_kernel(table, dest, values, fill)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = scatter_kernel(table, dest, values, fill)
+    for step in ("capture", "new values"):
+        if step == "new values":
+            values.copy_(torch.flip(values, dims=[1]))
+        int_view(out).fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(int_view(out), int_view(scatter_kernel(table, dest, values, fill))):
+            raise AssertionError(f"scatter graph {name}: replay ({step}) differs from the eager call")
+    log(f"scatter graph {name}: one captured call, replayed twice (the second on new values), "
+        "gives the eager call's bits")
+
+
 def scatter_phase() -> dict:
     dev = torch.device("cuda")
     cases = scatter_cases(dev)
     max_err = 0.0
-    for name, table, dest, values, fill in cases:
+    for name, table, dest, values, fill in cases + scatter_edge_cases(dev):
         k = scatter_kernel(table, dest, values, fill)
         torch.cuda.synchronize()
         pl = scatter_plain(table, dest, values, fill)
-        if k.shape != pl.shape or k.dtype != pl.dtype or not torch.equal(k, pl):
+        if (k.shape != pl.shape or k.dtype != pl.dtype or not k.is_contiguous()
+                or not torch.equal(int_view(k), int_view(pl))):
             raise AssertionError(f"scatter {name}: kernel differs from the plain version")
-        err = float((k.double() - pl.double()).abs().max()) if k.numel() else 0.0
-        max_err = max(max_err, err)
+        if k.numel():
+            max_err = max(max_err, float((k.double() - pl.double()).nan_to_num(0.0).abs().max()))
         log(f"scatter {name}: table {tuple(k.shape)} {k.dtype}, dest {tuple(dest.shape)} "
-            f"{dest.dtype}, bit-equal to the plain version")
+            f"{dest.dtype}, bit-equal to the plain version (integer views)")
     # all-dropped: the table is the fill and nothing else
     if not bool((scatter_kernel(*cases[-1][1:]) == cases[-1][4]).all()):
         raise AssertionError("scatter all_dropped: a dropped row was written")
+    for case in (cases[0], cases[2]):  # the fill form and the copy form
+        scatter_graph_check(*case)
 
     # gradients of the float scatters, through the dispatchers' autograd
     # Function (kernel forward, gather backward) against the plain version's
@@ -559,30 +750,7 @@ def scatter_phase() -> dict:
             raise AssertionError(f"scatter {name}: gradient differs from the plain version's")
         log(f"scatter {name}: gradients bit-equal to the plain version's")
 
-    # Device time a call (device_ms, medians of 6 rounds of 10 calls, taken
-    # in turns), and the kernel's time a single call with the host's launch
-    # overhead included (cuda_ms, median of 20).
-    shapes = []
-    for name, table, dest, values, fill in cases[:4]:
-        fns = {"kernel": lambda: scatter_kernel(table, dest, values, fill),
-               "plain": lambda: scatter_plain(table, dest, values, fill),
-               "library": scatter_library(table, dest, values, fill)}
-        for fn in fns.values():
-            fn()
-        acc = {k: [] for k in fns}
-        for _ in range(2):
-            for key in ("plain", "kernel", "library", "library", "kernel", "plain"):
-                acc[key].append(device_ms(fns[key], 10))
-        row = {"case": name, "ms": float(np.median(acc["kernel"])),
-               "plain_ms": float(np.median(acc["plain"])),
-               "library_ms": float(np.median(acc["library"])),
-               "bound_ms": scatter_bound(table, dest, values),
-               "call_ms": float(np.median(cuda_ms(fns["kernel"], 20)))}
-        shapes.append(row)
-        log(f"scatter timing {name}: device time a call: kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms; bound "
-            f"{row['bound_ms']:.4f} ms (bytes); a single kernel call with its launch "
-            f"{row['call_ms']:.4f} ms")
+    shapes = [time_scatter(*case) for case in cases[:SCATTER_TIMED]]
     return {"max_abs_err": max_err, "shapes": shapes}
 
 
@@ -798,6 +966,24 @@ def quantized_headline(frames, pc_gt) -> float:
     return secs
 
 
+def device_busy_s(prof) -> float:
+    """Seconds of a ``torch.profiler`` run in which the device ran at least
+    one kernel, copy or memset: the union of the device events' spans. A
+    dependent launch (the scatter's row kernel) runs beside the kernel it
+    follows, so the sum of the events' times would count that overlap
+    twice."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return busy_us / 1e6
+
+
 def profile_run(slam, frames, tag: str, unprofiled_s: float) -> None:
     """One run under ``torch.profiler``: prints the wall time, the device's
     busy time, its share of this run's wall time and of ``unprofiled_s``
@@ -812,23 +998,22 @@ def profile_run(slam, frames, tag: str, unprofiled_s: float) -> None:
         slam(frames)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    # Device-side events only (kernels, copies, memsets): on one stream they
-    # do not overlap, so their sum is the time the device was busy.
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in device)
-    busy = busy_us / 1e6
+    # Device-side events only (kernels, copies, memsets)
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    summed = sum(e.self_device_time_total for e in device) / 1e6
+    busy = device_busy_s(prof)
     log(f"profile {tag}: wall {wall:.4f} s, device busy {busy:.4f} s "
         f"({100 * busy / wall:.1f}% of this profiled run; "
         f"{100 * busy / unprofiled_s:.1f}% of the unprofiled mean {unprofiled_s:.4f} s "
-        f"in this process), {sum(e.count for e in device)} device events")
+        f"in this process; the events' summed time {summed:.4f} s counts dependent "
+        f"launches' overlap twice), {sum(e.count for e in device)} device events")
     top = sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:15]
     for e in top:
         log(f"  {e.self_device_time_total / 1e3:10.3f} ms  {e.count:6d}x  {e.key[:90]}")
     ours = [e for e in device if any(k in e.key for k in (
-        "::knn1_", "::scatter_kernel<", "::fill_kernel<"))]
+        "::knn1_", "::scatter_rows<", "::scatter_fill_copy<"))]
     log(f"profile {tag}: the port's kernels: " + "; ".join(
-        f"{e.key.split('::')[1].split('(')[0]} {e.self_device_time_total / 1e3:.3f} ms "
+        f"{kernel_name(e.key)} {e.self_device_time_total / 1e3:.3f} ms "
         f"{e.count}x" for e in sorted(ours, key=lambda e: e.key)))
 
 

@@ -94,7 +94,7 @@ def load_library() -> ctypes.CDLL:
     lib.gradslam_knn1_resident_blocks.argtypes = []
     lib.gradslam_knn1_resident_blocks.restype = ci
     lib.gradslam_scatter_rows.argtypes = [
-        vp, vp, ctypes.c_ulonglong, vp, ci, vp, ci, cll, cll, cll, cll, vp]
+        vp, vp, ctypes.c_ulonglong, ci, cll, cll, vp, ci, vp, ci, ci, ci, ci, cll, vp]
     lib.gradslam_scatter_rows.restype = ci
     return lib
 

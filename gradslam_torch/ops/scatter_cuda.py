@@ -7,75 +7,114 @@ write ``values (B, M, *C)`` to the rows ``dest (B, M)`` names and drop every
 destination outside ``[0, size)``. Destinations inside the table must be
 unique in each batch row.
 
-The wrapper validates its inputs (CUDA tensors on one device, contiguous,
-float32/int32/int64 values, int32/int64 destinations), allocates the output
-with ``torch.empty``, launches on PyTorch's current stream and raises if the
-launch is refused. A CPU tensor raises here: the dispatchers
-:func:`gradslam_torch.structures.pointclouds.scatter_rows` and
+The wrapper makes one validation pass (CUDA tensors on one device,
+contiguous, float32/int32/int64 values, int32/int64 destinations, ``B * M``
+rows under ``MAX_ROWS``; the message is built only on failure), allocates
+the output with ``torch.empty``, picks the word widths (:func:`word_bytes`),
+takes the fill's bits from numpy (:func:`fill_bits`) and makes one call into
+the C entry point, bound once, on PyTorch's current stream of the tensors'
+device; it raises if a launch is refused. A CPU tensor raises here: the
+dispatchers :func:`gradslam_torch.structures.pointclouds.scatter_rows` and
 ``scatter_rows_into`` send those to the plain version, and carry the
 gradient.
 
-``launches`` counts the launches of ``scatter_kernel``: one a wrapper call
-that has any element to scatter (the call's fill or copy of the table goes
-with it), and nowhere else.
+``launches`` counts wrapper calls that launch the row scatter
+(``scatter_rows`` in ``scatter.cu``): one a call that has rows, columns and
+a table to scatter into (the call's fill or copy of the table goes with it),
+and nowhere else.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-__all__ = ["scatter_rows_cuda", "scatter_rows_into_cuda", "launches"]
+__all__ = [
+    "scatter_rows_cuda", "scatter_rows_into_cuda", "fill_bits", "word_bytes", "MAX_ROWS",
+    "launches",
+]
 
 launches = 0
 
+MAX_ROWS = 2**31 - 1  # the kernel indexes the flattened B * M rows in int32
 _ELEM = {torch.float32: 4, torch.int32: 4, torch.int64: 8}
-_BITS = {4: (torch.int32, 0xFFFFFFFF), 8: (torch.int64, 0xFFFFFFFFFFFFFFFF)}
+_NUMPY = {torch.float32: np.float32, torch.int32: np.int32, torch.int64: np.int64}
+_BITS = {4: np.uint32, 8: np.uint64}
+_INDEX = (torch.int32, torch.int64)
+_entry = None  # the C entry point, bound at the first launch
 
 
-def _check(dest: torch.Tensor, values: torch.Tensor, others) -> int:
-    for name, t in (("dest", dest), ("values", values), *others):
-        if not t.is_cuda:
-            raise ValueError(f"the scatter kernel takes CUDA tensors; {name} is on {t.device}.")
-        if t.device != values.device:
-            raise ValueError(f"{name} is on {t.device} but values is on {values.device}.")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous.")
-    if dest.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"dest must be int32 or int64. Got {dest.dtype}.")
-    if values.dtype not in _ELEM:
-        raise ValueError(f"values must be float32, int32 or int64. Got {values.dtype}.")
-    if dest.ndim != 2 or values.ndim < 2 or tuple(values.shape[:2]) != tuple(dest.shape):
-        raise ValueError(
-            f"dest must be (B, M) and values (B, M, *C). Got {tuple(dest.shape)} and "
-            f"{tuple(values.shape)}."
-        )
-    if dest.shape[0] > 65535 or math.prod(values.shape[1:]) >= 2**31:
-        raise ValueError(
-            f"values {tuple(values.shape)} too large: the kernel takes B <= 65535 and "
-            "M * C < 2**31."
-        )
-    return _ELEM[values.dtype]
+def fill_bits(fill, dtype: torch.dtype) -> int:
+    r"""The bit pattern of ``fill`` as one element of ``dtype`` (float32,
+    int32 or int64), as an unsigned integer: what ``torch.tensor(fill,
+    dtype=dtype).view(int)`` holds, without a tensor."""
+    return int(np.asarray(fill, dtype=_NUMPY[dtype]).view(_BITS[_ELEM[dtype]]))
 
 
-def _launch(out, src, fill_bits: int, dest, values, size: int) -> torch.Tensor:
-    global launches
-    from ._build import load_library
+def word_bytes(*sizes: int) -> int:
+    r"""The widest word, 16, 8 or 4 bytes, that divides every one of
+    ``sizes`` (a row's byte width and the addresses it is read from and
+    written to). Every size the scatter passes is a multiple of 4."""
+    g = 0
+    for s in sizes:
+        g |= s
+    return 16 if g % 16 == 0 else 8 if g % 8 == 0 else 4
 
-    lib = load_library()
+
+def _on_card(*tensors) -> None:
+    dev = tensors[0].device
+    if not all(t.device == dev for t in tensors) or dev.type != "cuda":
+        where = ", ".join(str(t.device) for t in tensors)
+        raise ValueError(f"the scatter kernel takes CUDA tensors on one device. Got {where}.")
+
+
+def _check(dest: torch.Tensor, values: torch.Tensor, buf=None) -> None:
+    shape = values.shape
+    if (dest.dtype in _INDEX and values.dtype in _ELEM and dest.ndim == 2 and values.ndim >= 2
+            and shape[:2] == dest.shape and dest.is_contiguous() and values.is_contiguous()
+            and dest.numel() <= MAX_ROWS
+            and (buf is None or (buf.dtype == values.dtype and buf.is_contiguous()
+                                 and buf.ndim == values.ndim and buf.shape[0] == shape[0]
+                                 and buf.shape[2:] == shape[2:]))):
+        return
+    raise ValueError(
+        "the scatter kernel takes contiguous dest (B, M) int32/int64 and values (B, M, *C) "
+        f"float32/int32/int64 with B * M <= {MAX_ROWS}"
+        + ("" if buf is None else ", and buf (B, S, *C) of the values' dtype")
+        + f". Got dest {dest.dtype} {tuple(dest.shape)}, values {values.dtype} {tuple(shape)}"
+        + ("" if buf is None else f", buf {buf.dtype} {tuple(buf.shape)}") + "."
+    )
+
+
+def _launch(out: torch.Tensor, src, bits: int, dest: torch.Tensor, values: torch.Tensor,
+            size: int) -> torch.Tensor:
+    global launches, _entry
+    if _entry is None:
+        from ._build import load_library
+
+        _entry = load_library().gradslam_scatter_rows
+    elem = _ELEM[values.dtype]
     B, M = dest.shape
-    C = math.prod(values.shape[2:])
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gradslam_scatter_rows(
-            out.data_ptr(), None if src is None else src.data_ptr(), fill_bits,
-            dest.data_ptr(), dest.element_size(), values.data_ptr(), values.element_size(),
-            B, M, C, size, stream,
-        )
+    row_bytes = elem * math.prod(values.shape[2:])
+    out_ptr, values_ptr = out.data_ptr(), values.data_ptr()
+    src_ptr = 0 if src is None else src.data_ptr()
+    table_elems = out.numel()
+    vec_words = table_elems * elem // 16 if word_bytes(out_ptr, src_ptr) == 16 else 0
+    word = word_bytes(row_bytes, out_ptr, values_ptr)
+    device = values.device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    args = (out_ptr, src_ptr or None, bits, elem, table_elems, vec_words, dest.data_ptr(),
+            dest.element_size(), values_ptr, word, B * M, M, row_bytes // word, size, stream)
+    if device.index == torch.cuda.current_device():
+        err = _entry(*args)
+    else:
+        with torch.cuda.device(device):
+            err = _entry(*args)
     if err != 0:
         raise RuntimeError(f"gradslam_scatter_rows launch failed: cudaError {err}.")
-    if B and M * C and size:  # the C entry point launched scatter_kernel
+    if B and M and row_bytes and size:  # the entry point launched scatter_rows
         launches += 1
     return out
 
@@ -83,14 +122,13 @@ def _launch(out, src, fill_bits: int, dest, values, size: int) -> torch.Tensor:
 def scatter_rows_cuda(size: int, dest: torch.Tensor, values: torch.Tensor, fill=0) -> torch.Tensor:
     r"""A new ``(B, size, *C)`` table filled with ``fill``, with ``values
     (B, M, *C)`` written to rows ``dest (B, M)``, on the card."""
-    elem = _check(dest, values, ())
+    _on_card(dest, values)
+    _check(dest, values)
     if size < 0:
         raise ValueError(f"size must be >= 0. Got {size}.")
-    view, mask = _BITS[elem]
-    fill_bits = int(torch.tensor(fill, dtype=values.dtype).view(view).item()) & mask
-    out = torch.empty((dest.shape[0], size) + tuple(values.shape[2:]),
-                      dtype=values.dtype, device=values.device)
-    return _launch(out, None, fill_bits, dest, values, size)
+    out = torch.empty((dest.shape[0], size) + values.shape[2:], dtype=values.dtype,
+                      device=values.device)
+    return _launch(out, None, fill_bits(fill, values.dtype), dest, values, size)
 
 
 def scatter_rows_into_cuda(
@@ -98,12 +136,6 @@ def scatter_rows_into_cuda(
 ) -> torch.Tensor:
     r"""A copy of ``buf (B, S, *C)`` with ``values (B, M, *C)`` written to
     rows ``dest (B, M)``, on the card. ``buf`` itself is not written."""
-    _check(dest, values, (("buf", buf),))
-    if buf.dtype != values.dtype:
-        raise ValueError(f"buf is {buf.dtype} but values are {values.dtype}.")
-    if (buf.ndim != values.ndim or buf.shape[0] != dest.shape[0]
-            or buf.shape[2:] != values.shape[2:]):
-        raise ValueError(
-            f"buf must be (B, S, *C) for values {tuple(values.shape)}. Got {tuple(buf.shape)}."
-        )
+    _on_card(dest, values, buf)
+    _check(dest, values, buf)
     return _launch(torch.empty_like(buf), buf, 0, dest, values, buf.shape[1])

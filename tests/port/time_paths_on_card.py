@@ -1,4 +1,4 @@
-"""Time the port's paths and its 1-NN kernel on one GPU, to compare two trees
+"""Time the port's paths and its two kernels on one GPU, to compare two trees
 of the port inside one machine call.
 
     python3 tests/port/time_paths_on_card.py [--root DIR]
@@ -14,6 +14,16 @@ defines:
   on the 320x240 clip, N=1,200/M=2,400): CUDA events around 20 back-to-back
   calls queued behind a ~10 ms spin kernel, median of 5 rounds, and a
   SHA-256 of the kernel's distances and indices;
+- reads that tree's scatter kernel at the six timed shapes of the
+  ``chip_smoke.py`` beside this file (``scatter_cases``: the TPU
+  microbenchmark's, fusion's winner table and row inversion, ICPSLAM's
+  append, the B=2 compaction and ICPSLAM flat's map window), with the same
+  inputs for both trees: device time a call (10 calls behind the spin
+  kernel, median of 5 rounds), the same for an empty kernel
+  (``torch.cuda._sleep(0)``, the launch floor), each device kernel's time
+  from the profiler (``kernel_split_ms``), the host time a call
+  (``host_us``: 100 calls enqueued behind a spin kernel, median and least
+  of 7 rounds) and a SHA-256 of the output;
 - runs the four PointFusion paths at their full size (tracked
   ``odom='gradicp'`` and ``odom='gt'`` on the 640x480 synthetic clip with
   the six-segment schedule, the production recipe on the 640x480 hard clip,
@@ -25,8 +35,11 @@ defines:
 It prints one JSON line with the seconds of every timed run, each run's
 final map count, a SHA-256 of the last run's poses and of its map points,
 the profiled run's device events and device busy seconds (the sum of the
-device-side events' own times; they do not overlap on one stream), the
-kernel's figures, and the card's name and power limit. Host-clock times
+device-side events' own times, and the union of their spans, which does not
+count the scatter's dependent launch twice where it overlaps its fill or
+copy), the device seconds of the port's scatter kernels (by their names in
+either tree) and of device-to-device memcpys in that run, the kernels'
+figures, and the card's name and power limit. Host-clock times
 spread by up to 2x between machine calls, so compare two trees only inside
 one call, in turns (parent, change, change, parent); the device events,
 busy time and kernel device times repeat within about 1% from call to
@@ -34,12 +47,20 @@ call.
 """
 
 import argparse
+import functools
 import hashlib
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 import time
+
+# The scatter's device kernels as the profiler names them, in the first
+# version (fill_kernel, scatter_kernel; its copy was a runtime memcpy) and in
+# the current one (scatter_fill_copy, scatter_rows).
+SCATTER_KERNELS = ("::fill_kernel<", "::scatter_kernel<", "::scatter_fill_copy<",
+                   "::scatter_rows<")
 
 
 def sha256(*tensors) -> str:
@@ -111,6 +132,29 @@ def main() -> int:
                             "device_ms": float(np.median(times)), "device_ms_rounds": times,
                             "sha256": sha256(d, i)}
 
+    # the scatter's timed shapes as this file's tree defines them, so both
+    # trees get the same inputs
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  os.path.join(here, "chip_smoke.py"))
+    here_cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here_cs)
+    out["scatter"] = {}
+    for name, table, dest, values, fill in here_cs.scatter_cases(torch.device("cuda"))[
+            :here_cs.SCATTER_TIMED]:
+        fn = functools.partial(here_cs.scatter_kernel, table, dest, values, fill)
+        result = fn()
+        times, floor = [], []
+        for _ in range(5):
+            times.append(device_ms(fn, 10))
+            floor.append(device_ms(lambda: torch.cuda._sleep(0), 10))
+        host = [here_cs.host_us(fn) for _ in range(7)]
+        out["scatter"][name] = {
+            "device_ms": float(np.median(times)), "device_ms_rounds": times,
+            "floor_ms": float(np.median(floor)),
+            "host_us": float(np.median(host)), "host_us_min": float(min(host)),
+            "kernels_ms": here_cs.kernel_split_ms(fn),
+            "bound_ms": here_cs.scatter_bound(table, dest, values), "sha256": sha256(result)}
+
     paths = {
         "tracked_easy": (PointFusion(odom="gradicp", dsratio=cs.DSRATIO, numiters=cs.NUMITERS,
                                      map_capacity=cs.SCHEDULE), easy),
@@ -135,13 +179,21 @@ def main() -> int:
             slam(frames)
             torch.cuda.synchronize()
         device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+        def device_s(*keys):
+            return sum(e.self_device_time_total for e in device
+                       if any(k in e.key for k in keys)) / 1e6
+
         out["paths"][name] = {
+            "scatter_device_s": device_s(*SCATTER_KERNELS),
+            "memcpy_dtod_s": device_s("Memcpy DtoD"),
             "seconds": secs, "num_points": counts,
             "poses_sha256": sha256(poses),
             "points_sha256": sha256(*(pc.points[b, :int(pc.num_points[b])]
                                       for b in range(pc.points.shape[0]))),
             "device_events": sum(e.count for e in device),
             "device_busy_s": sum(e.self_device_time_total for e in device) / 1e6,
+            "device_busy_union_s": here_cs.device_busy_s(prof),
         }
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
