@@ -69,12 +69,33 @@ Phases (each raises on failure; nothing is caught):
     twice the JAX package's CPU run of the same configuration
     (``tests/port/data/icpslam_320x240_jax_cpu.npz``); then profile one flat
     run;
-12. print the kernels' JSON line, the card's line, and the result line.
+12. the differentiability slice: gradients of ``sum(points^2)`` of the map
+    to the depth images and the intrinsics (``scripts/bench_all.py:682-840``).
+    (a) On a B=2 64x48x4 clip, gt sort_full, gt windowed + scatter, gradICP
+    1-NN and gradICP projective with symmetric normals: the card's
+    gradients within 1e-4 (gt) or 1e-3 (tracked) of the largest of the CPU
+    run's, and ``remat=True`` against ``remat=False`` on the card: equal
+    SHA-256 digests of poses and map points, gradients within the same bars;
+    ``chamfer_distance`` card against CPU, and the gradient example's
+    ``refine()`` on the card at its CPU test's settings and bars.
+    (b) The bench_all rows at full width (``GRAD_ROWS``), one warm-up and one
+    timed step each: frames/s, peak memory, finite nonzero max |g|, both
+    kernels' launches in the forward and in the backward phase (recompute
+    and backward) against ``grad_launches``; the scatter kernel against its
+    plain version on the warm-up's own scatter inputs (forward tables, the
+    scatter merge and its buffer gradient in the backward) and on
+    batch-distinct payloads at the same shapes; the B=8 rows' gradients and
+    map counts against the CPU run of the same code; remat must lower gt
+    640x480x30's peak. (c) gt 640x480x30 and gradICP 320x240x30 with remat
+    against the JAX package's CPU gradients (``tests/port/data/
+    grad_jax_cpu.npz``, bars ``GRAD_GOLDEN_BARS``). (d) A profile of one gt
+    640x480x30 remat step;
+13. print the kernels' JSON line, the card's line, and the result line.
 
 Every timed run counts both kernels' launches from 0 and must hit the
 counts derived from the code (``KNN_LAUNCHES_PER_RUN``,
-``PROD_LAUNCHES_PER_RUN``, ``ICP_KNN_LAUNCHES``, ``SCATTER_LAUNCHES``); the
-kernels' line prints the counts read in the runs.
+``PROD_LAUNCHES_PER_RUN``, ``ICP_KNN_LAUNCHES``, ``SCATTER_LAUNCHES``,
+``grad_launches``); the kernels' line prints the counts read in the runs.
 
 Exits non-zero, printing no result, when no CUDA device is available.
 """
@@ -82,6 +103,8 @@ Exits non-zero, printing no result, when no CUDA device is available.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import hashlib
 import json
 import math
 import re
@@ -94,17 +117,20 @@ import numpy as np
 import torch
 
 from gradslam_torch import ICPSLAM, PointFusion, RGBDImages, hard_sequence, synthetic_sequence
+from gradslam_torch.examples import gradient_refinement
 from gradslam_torch.geometry import (
     compose_transformations,
     inverse_transformation,
     orthonormalize_rotations,
 )
 from gradslam_torch.interop import rgbdimages_from_numpy
-from gradslam_torch.metrics import ate_rmse
+from gradslam_torch.metrics import ate_rmse, chamfer_distance
 from gradslam_torch.odometry.icputils import downsample_rgbdimages
 from gradslam_torch.ops import _build, knn_cuda, nn_points, scatter_cuda
 from gradslam_torch.ops._build import load_library
 from gradslam_torch.ops.scatter import scatter_rows_into_plain, scatter_rows_plain
+from gradslam_torch.slam.fusionutils import _resolve_modes
+from gradslam_torch.structures import pointclouds as pointclouds_module
 from gradslam_torch.structures.pointclouds import scatter_rows, scatter_rows_into
 from gradslam_torch.utils.precision import disable_tf32, tf32_disabled
 
@@ -157,6 +183,109 @@ ICP_ATE_FACTOR = 2.0  # bar: aligned ATE <= 2x the JAX CPU golden's
 # 1-NN launches: two searches an LM iteration ('fresh' lookahead).
 ICP_KNN_LAUNCHES = {"flat": 2 * 10 * (L - 1), "window": 2 * 10 * (L - 1),
                     "window_pyramid": 2 * (8 + 3) * (L - 1), "gt": 0}
+
+# The differentiability slice: gradients of sum(points^2) of the final map
+# with respect to the depth images and the intrinsics, through PointFusion
+# on synthetic_sequence(B, L, H, W, seed=0) (scripts/bench_all.py:682-840).
+# (a) a small clip, card against CPU and remat on against off, with the bars
+# of the CPU tests against jax.grad (tests/port/test_torch_grad*.py):
+GRAD_SMALL = (2, 4, 48, 64)
+GRAD_SMALL_CONFIGS = {
+    "gt_sort_full": (dict(odom="gt", association="sort_full", merge="gather"), 1e-4),
+    "gt_windowed_scatter": (dict(odom="gt", association="windowed", merge="scatter",
+                                 map_capacity=4 * 4 * 48 * 64), 1e-4),
+    "gradicp_knn": (dict(odom="gradicp", dsratio=4, numiters=10), 1e-3),
+    "gradicp_projective_sym": (dict(odom="gradicp", dsratio=4, numiters=10,
+                                    odom_assoc="projective", odom_sym_normals=True), 1e-3),
+}
+# chamfer_distance card against CPU, and the gradient example on the card at
+# its CPU test's settings (tests/port/test_torch_grad.py:
+# test_example_chamfer_recovers_calibration). The chamfer's expanded form
+# |a|^2 + |b|^2 - 2a.b rounds at the scale of |a|^2 (metres squared), not
+# of a pair's squared distance (centimetres squared here, the clouds parting
+# by 8% in depth): a.b summed in another order on the card moves a pair by
+# more than the 1e-5 that the CPU test holds against JAX's same sums.
+EXAMPLE_CHAMFER_BAR = 1e-4
+EXAMPLE_REFINE = dict(H=24, W=32, L=3, steps=25, lr=0.08)
+# (b) the bench_all rows at full width, nothing cut: name -> ((B, L, H, W),
+# capacity, options, remat settings). 'auto' resolves the fusion modes as in
+# JAX: gt 120x160 windowed + gather, gt 320x240 B=8 windowed + scatter, every
+# other row sort_full + gather.
+GRADICP = dict(odom="gradicp", dsratio=4, numiters=10)
+GRAD_ROWS = {
+    "gt_B8_160x120x4": ((8, 4, 120, 160), 76_800, dict(odom="gt"), (False,)),
+    "gt_B8_320x240x8": ((8, 8, 240, 320), 614_400, dict(odom="gt"), (True,)),
+    "gt_640x480x30": ((1, 30, 480, 640), 540_672, dict(odom="gt"), (False, True)),
+    "knn_320x240x30": ((1, 30, 240, 320), 147_456, GRADICP, (False, True)),
+    "knn_640x480x30": ((1, 30, 480, 640), 540_672, GRADICP, (True,)),
+    "projective_640x480x30": ((1, 30, 480, 640), 540_672,
+                              dict(GRADICP, odom_assoc="projective", odom_sym_normals=True),
+                              (False, True)),
+}
+
+
+def fusion_modes(name: str) -> tuple:
+    """A row's fusion ``(association, merge)``, as fusion resolves
+    ``'auto'`` (``fusionutils._resolve_modes``; the window defaults to
+    ``2 * H * W`` rows)."""
+    (_, _, H, W), cap, kw, _ = GRAD_ROWS[name]
+    window = min(kw.get("active_capacity") or 2 * H * W, cap)
+    return _resolve_modes(kw.get("association", "auto"), kw.get("merge", "auto"),
+                          cap, H * W, window)
+
+
+def grad_launches(name: str) -> dict:
+    """Launches of one gradient step of a row, derived from the code:
+    ``{kernel: (forward, backward, recompute)}``. Fusion launches 2 scatters
+    a frame with sort_full + gather (winner table, row inversion) and 3
+    with windowed (the window first); a 1-NN frame adds its downsample (3)
+    and map window (2), a projective frame the map window (2); the 1-NN
+    runs twice an iteration. The backward launches the scatter once for
+    each scatter merge whose old map needs a gradient (every frame but the
+    first, whose map is the empty buffer); the 1-NN has no backward. With
+    remat, the recompute runs each checkpointed frame body again: every
+    gt frame, every tracked frame but the bootstrap."""
+    (_, L, H, W), cap, kw, _ = GRAD_ROWS[name]
+    association, merge = fusion_modes(name)
+    scatter_merge = merge == "scatter"
+    fusion = 3 if association == "windowed" else 2
+    if kw["odom"] == "gt":
+        return {"knn": (0, 0, 0),
+                "scatter": (L * fusion, (L - 1) if scatter_merge else 0, L * fusion)}
+    knn_frame = 0 if kw.get("odom_assoc") == "projective" else 2 * kw["numiters"]
+    odo = 2 if knn_frame == 0 else 3 + 2
+    return {"knn": (knn_frame * (L - 1), 0, knn_frame * (L - 1)),
+            "scatter": (fusion + (L - 1) * (fusion + odo), 0, (L - 1) * (fusion + odo))}
+
+
+# (c) the JAX package's CPU gradients of two rows with remat
+# (tests/port/make_grad_golden.py): golden name -> row.
+GRAD_GOLDEN = Path(__file__).resolve().parent / "tests/port/data/grad_jax_cpu.npz"
+GRAD_GOLDEN_ROWS = {"gt": "gt_640x480x30", "knn": "knn_320x240x30"}
+GRAD_LAUNCHES = {}  # "<row> remat=<on|off>" -> {"forward"|"backward": {kernel: n}}
+# Bars of (c), relative (see gradient_gaps and PERF.md §2). The port's map
+# parts from the JAX CPU run's at near-tie merges on either device (gt
+# 640x480x30: JAX 516,221, the port's CPU run 516,216, the card 516,230;
+# tests/port/grad_golden_witness.py), and a flipped merge moves the gradient
+# of the pixels fused into that point: a few pixels may be far off, so the
+# pixel bars are the 99th percentile, at the CPU tests' bars against
+# jax.grad (1e-4 gt, 1e-3 tracked), at most 1% of the pixels off by more
+# than 1e-3, and none of the golden's pixels off by more than 0.3 (the
+# readings there: 0.115 gt, 0.030 tracked, the same on the CPU); the
+# whole-gradient sums stay within 1e-3.
+_GOLDEN_BARS = {"intrinsics": 1e-3, "sum": 1e-3, "abssum": 1e-3, "maxabs": 1e-3,
+                "pixels_over_1e-3": 0.01, "pixels_worst": 0.3}
+GRAD_GOLDEN_BARS = {"gt": dict(_GOLDEN_BARS, pixels_p99=1e-4),
+                    "knn": dict(_GOLDEN_BARS, pixels_p99=1e-3)}
+# The B=8 rows against the CPU run of the same code at every pixel: the gt
+# bars, but the worst pixel is only reported. Among millions of pixels a
+# merge that the card decides the other way moves a few pixels' gradients
+# by as much as the largest (gt 640x480x30: 0.884 of max |g|, at 2,099 of
+# 9,216,000 pixels, tests/port/grad_golden_witness.py); the share and the
+# 99th percentile hold the rest.
+GRAD_CPU_ROWS = ("gt_B8_160x120x4", "gt_B8_320x240x8")
+GRAD_CPU_BARS = dict(GRAD_GOLDEN_BARS["gt"], pixels_worst=None)
+GRAD_CPU_COUNT_REL = 0.002  # each clip's map count within 0.2% of the CPU's (§2)
 
 # Scatter launches a run, counted from the code. One count is one wrapper
 # call that launches scatter_kernel (behind its fill or copy of the table):
@@ -984,18 +1113,18 @@ def device_busy_s(prof) -> float:
     return busy_us / 1e6
 
 
-def profile_run(slam, frames, tag: str, unprofiled_s: float) -> None:
-    """One run under ``torch.profiler``: prints the wall time, the device's
-    busy time, its share of this run's wall time and of ``unprofiled_s``
-    (the mean wall time of this process's unprofiled runs of the same
-    pipeline), and the kernels that take the most device time."""
+def profile_run(run, tag: str, unprofiled_s: float) -> None:
+    """One call of ``run`` under ``torch.profiler``: prints the wall time,
+    the device's busy time, its share of this run's wall time and of
+    ``unprofiled_s`` (the mean wall time of this process's unprofiled runs
+    of the same work), and the kernels that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        slam(frames)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Device-side events only (kernels, copies, memsets)
@@ -1015,6 +1144,394 @@ def profile_run(slam, frames, tag: str, unprofiled_s: float) -> None:
     log(f"profile {tag}: the port's kernels: " + "; ".join(
         f"{kernel_name(e.key)} {e.self_device_time_total / 1e3:.3f} ms "
         f"{e.count}x" for e in sorted(ours, key=lambda e: e.key)))
+
+
+def sha256_of(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@functools.lru_cache(maxsize=None)
+def grad_arrays(shape) -> tuple:
+    """``synthetic_sequence(*shape, seed=0)``, made once for each shape (a
+    640x480x30 clip takes seconds to render on the host)."""
+    return synthetic_sequence(*shape, seed=0)
+
+
+def grad_inputs(shape, device):
+    """``synthetic_sequence(*shape, seed=0)`` as ``(rgb, depth, K, poses)``
+    tensors on ``device``."""
+    return tuple(torch.from_numpy(a).to(device) for a in grad_arrays(shape))
+
+
+def grad_step(slam, inputs, spy=None):
+    """One gradient step: the forward, ``sum(points^2)`` of the final map,
+    its backward to the depth images and the intrinsics. Both kernels'
+    counts are set to 0 just before the forward and read just after it,
+    then set to 0 just before the backward and read just after it (the
+    backward phase: the remat recompute and the backward's own launches).
+    A :class:`ScatterSpy` is told where the backward starts. Returns
+    ``(pointclouds, poses, g_depth, g_K, launches)``."""
+    rgb, depth, K, P = inputs
+    d = depth.clone().requires_grad_()
+    k = K.clone().requires_grad_()
+    knn_cuda.launches = scatter_cuda.launches = 0
+    pc, poses = slam(RGBDImages(rgb, d, k, P))
+    loss = (pc.points ** 2).sum()
+    fwd = {"knn": knn_cuda.launches, "scatter": scatter_cuda.launches}
+    knn_cuda.launches = scatter_cuda.launches = 0
+    if spy is not None:
+        spy.forward_done = True
+    loss.backward()
+    bwd = {"knn": knn_cuda.launches, "scatter": scatter_cuda.launches}
+    return pc, poses, d.grad, k.grad, {"forward": fwd, "backward": bwd}
+
+
+class ScatterSpy:
+    """Keeps the real inputs the scatter's dispatchers
+    (``structures/pointclouds.py:_scatter_rows``, ``_scatter_rows_into``)
+    get in one gradient step: in the forward, the last call of each kind (a
+    fresh table by its size; a write into a buffer, which on a fusion path
+    is the scatter merge), and in the backward the first buffer gradient of
+    ``_ScatterRowsInto`` (the copy form on the output's gradient with zero
+    values). The recompute's calls are not kept. ``check`` then holds the
+    kernel against its plain version on those tensors, bit for bit."""
+
+    def __init__(self):
+        self.calls = {}
+        self.forward_done = False
+        self._in_backward = False
+
+    def __enter__(self):
+        pcm = pointclouds_module
+        self._real = (pcm._scatter_rows, pcm._scatter_rows_into,
+                      pcm._ScatterRowsInto.__dict__["backward"])
+        rows, into, backward = self._real
+
+        def spy_rows(size, dest, values, fill):
+            if not self.forward_done:
+                self.calls[f"forward table {size}"] = (size, dest, values, fill)
+            return rows(size, dest, values, fill)
+
+        def spy_into(buf, dest, values):
+            if not self.forward_done:
+                self.calls["forward into buffer"] = (buf, dest, values, None)
+            elif self._in_backward and not (buf.requires_grad or values.requires_grad):
+                # the buffer gradient; inside _ScatterRowsInto.backward the
+                # saved dest's unpack runs the frame's recompute first, whose
+                # merge writes values that need a gradient
+                self.calls.setdefault("backward buffer gradient", (buf, dest, values, None))
+            return into(buf, dest, values)
+
+        def spy_backward(ctx, grad):
+            self._in_backward = True
+            try:
+                return backward.__func__(ctx, grad)
+            finally:
+                self._in_backward = False
+
+        pcm._scatter_rows, pcm._scatter_rows_into = spy_rows, spy_into
+        pcm._ScatterRowsInto.backward = staticmethod(spy_backward)
+        return self
+
+    def __exit__(self, *exc):
+        pcm = pointclouds_module
+        pcm._scatter_rows, pcm._scatter_rows_into, pcm._ScatterRowsInto.backward = self._real
+
+    @staticmethod
+    def batch_distinct(table, dest, values):
+        """The call with each batch row's ``dest`` rolled by its batch index
+        and seeded random payloads of the same shapes and dtypes: the clips
+        of ``synthetic_sequence`` share their depths and poses, so the real
+        tensors repeat across the batch and would hide a batch offset."""
+        gen = torch.Generator(device=dest.device).manual_seed(0)
+
+        def rand_like(x):
+            if x.dtype.is_floating_point:
+                return torch.randn(x.shape, dtype=x.dtype, device=x.device, generator=gen)
+            return torch.randint(0, 2 ** 31 - 1, x.shape, dtype=x.dtype, device=x.device,
+                                 generator=gen)
+
+        rolled = torch.stack([torch.roll(dest[b], b) for b in range(dest.shape[0])])
+        return (table if isinstance(table, int) else rand_like(table)), rolled, rand_like(values)
+
+    def check(self, tag: str) -> list:
+        """Each kept call through the kernel and the plain version, compared
+        as integer views, on the real tensors and on :meth:`batch_distinct`
+        ones. Returns the kinds checked."""
+        for kind, (table, dest, values, fill) in self.calls.items():
+            for real in (True, False):
+                t, d, v = (table, dest, values) if real else self.batch_distinct(table, dest, values)
+                args = (t if isinstance(t, int) else t.contiguous(), d.contiguous(),
+                        v.contiguous(), fill)
+                k, p = scatter_kernel(*args), scatter_plain(t, d, v, fill)
+                if not (k.dtype == p.dtype and torch.equal(int_view(k), int_view(p))):
+                    raise AssertionError(f"grad {tag}: the scatter kernel differs from its plain "
+                                         f"version on the step's {kind} "
+                                         f"({'real' if real else 'batch-distinct'} tensors)")
+        log(f"grad {tag}: the scatter kernel bit-equal to its plain version on the step's "
+            "real and batch-distinct tensors: " + "; ".join(
+                f"{kind} (dest {tuple(d.shape)} {d.dtype}, values {tuple(v.shape)} {v.dtype})"
+                for kind, (_, d, v, _) in self.calls.items()))
+        kinds = sorted(self.calls)
+        self.calls = {}
+        return kinds
+
+
+def grad_small_phase() -> None:
+    """(a) The four configurations on a small clip: the card's gradients
+    against the CPU run of the same code within the CPU tests' bars, and
+    remat on against off on the card: equal SHA-256 digests of the poses
+    and map points, gradients within the same bars (``gather``'s backward
+    adds with atomics on the card, so not bit for bit)."""
+    for name, (kw, bar) in GRAD_SMALL_CONFIGS.items():
+        out = {}
+        for dev, remat in (("cpu", False), ("cuda", False), ("cuda", True)):
+            slam = PointFusion(remat=remat, **kw)
+            pc, poses, gd, gk, _ = grad_step(slam, grad_inputs(GRAD_SMALL, dev))
+            out[dev, remat] = (sha256_of(poses, pc.points, pc.num_points),
+                               gd.cpu().double(), gk.cpu().double())
+        ref_d, ref_k = out["cpu", False][1:]
+        gaps = {}
+        for key in (("cuda", False), ("cuda", True)):
+            gaps[key] = (float((out[key][1] - ref_d).abs().max() / ref_d.abs().max()),
+                         float((out[key][2] - ref_k).abs().max() / ref_k.abs().max()))
+        remat_gap = (float((out["cuda", True][1] - out["cuda", False][1]).abs().max()
+                           / ref_d.abs().max()),
+                     float((out["cuda", True][2] - out["cuda", False][2]).abs().max()
+                           / ref_k.abs().max()))
+        if out["cuda", True][0] != out["cuda", False][0]:
+            raise AssertionError(f"grad small {name}: remat changed the forward on the card")
+        if not (max(gaps["cuda", False]) <= bar and max(remat_gap) <= bar):
+            raise AssertionError(f"grad small {name}: card vs CPU {gaps['cuda', False]}, "
+                                 f"remat on vs off {remat_gap}, bar {bar}")
+        log(f"grad small {name} {GRAD_SMALL}: card vs CPU max |dg| / max |g|: depth "
+            f"{gaps['cuda', False][0]:.3e}, intrinsics {gaps['cuda', False][1]:.3e} (remat on: "
+            f"{gaps['cuda', True][0]:.3e}, {gaps['cuda', True][1]:.3e}); remat on vs off: "
+            f"forward digests equal ({out['cuda', True][0][:16]}), gradients {remat_gap[0]:.3e}, "
+            f"{remat_gap[1]:.3e}; bar {bar:g}")
+
+
+def grad_row(name: str, remat: bool):
+    """One warm-up and one timed gradient step of a row: frames/s (B * L
+    over the host-clock seconds of forward plus backward, ending in a
+    synchronize), peak memory, max |g| to depth and intrinsics (finite and
+    nonzero), and both kernels' launches in the forward and the backward
+    phase against :func:`grad_launches`. The warm-up's scatter inputs go
+    through the kernel and the plain version (:class:`ScatterSpy`); on the
+    B=8 rows (``GRAD_CPU_ROWS``) the timed step's gradients and map counts
+    are held against the CPU run of the same code. Returns the gradients
+    and the timed step's seconds and peak."""
+    shape, cap, kw, _ = GRAD_ROWS[name]
+    tag = f"{name} remat={'on' if remat else 'off'}"
+    inputs = grad_inputs(shape, "cuda")
+    slam = PointFusion(map_capacity=cap, remat=remat, **kw)
+    with ScatterSpy() as spy:
+        grad_step(slam, inputs, spy)
+    kinds = spy.check(tag)
+    merge_kinds = {"forward into buffer", "backward buffer gradient"}
+    if fusion_modes(name)[1] == "scatter" and not merge_kinds <= set(kinds):
+        raise AssertionError(f"grad {tag}: the scatter merge's calls were not seen: {kinds}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pc, poses, gd, gk, launches = grad_step(slam, inputs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not tf32_disabled():
+        raise AssertionError(f"grad {name}: TF32 was turned on during the step")
+    fwd, bwd, rec = zip(*grad_launches(name).values())
+    expect = {"forward": dict(zip(("knn", "scatter"), fwd)),
+              "backward": {k: b + (r if remat else 0)
+                           for k, b, r in zip(("knn", "scatter"), bwd, rec)}}
+    if launches != expect:
+        raise AssertionError(f"grad {tag}: launches {launches}, expected {expect}")
+    GRAD_LAUNCHES[tag] = launches
+    LAUNCHES[f"grad_{name}_remat_{'on' if remat else 'off'}"] = {
+        k: launches["forward"][k] + launches["backward"][k] for k in ("knn", "scatter")}
+    gmax = (float(gd.abs().max()), float(gk.abs().max()))
+    if not all(math.isfinite(g) and g > 0 for g in gmax):
+        raise AssertionError(f"grad {tag}: max |g| depth, intrinsics {gmax}")
+    B, L = shape[:2]
+    log(f"grad {tag} {shape} capacity {cap}: {B * L / secs:.4f} frames/s ({secs:.4f} s a "
+        f"step), peak memory {peak} B, map {int(pc.num_points.sum())} points, max |g| depth "
+        f"{gmax[0]:.6e}, intrinsics {gmax[1]:.6e}; launches: forward {launches['forward']}, "
+        f"backward phase {launches['backward']} (recompute "
+        f"{dict(zip(('knn', 'scatter'), rec)) if remat else 'none'}, backward's own "
+        f"{dict(zip(('knn', 'scatter'), bwd))})")
+    if name in GRAD_CPU_ROWS:
+        check_row_against_cpu(name, tag, pc.num_points, gd, gk)
+    return gd, gk, secs, peak
+
+
+def gradient_gaps(gd, gk, ref: dict) -> dict:
+    """Card gradients against a reference's: the intrinsics gradient
+    relative to its largest magnitude; the depth gradient's sum (relative
+    to its absolute sum), absolute sum and largest magnitude; at the
+    reference's pixels (flat indices ``pix``, values ``at``), the 99th
+    percentile of the gap, the share of pixels more than 1e-3 of the
+    largest magnitude off, and the worst pixel, all relative to that
+    magnitude. ``ref`` holds ``grad_K``, ``sum``, ``abssum``, ``maxabs``,
+    ``pix`` and ``at``."""
+    g = gd.detach().double().cpu().numpy()
+    gk_ref = np.asarray(ref["grad_K"], dtype=np.float64)
+    gap_at = np.abs(g.reshape(-1)[ref["pix"]] - np.asarray(ref["at"], dtype=np.float64))
+    scale, abssum = float(ref["maxabs"]), float(ref["abssum"])
+    return {
+        "intrinsics": float(np.abs(gk.detach().double().cpu().numpy() - gk_ref).max()
+                            / np.abs(gk_ref).max()),
+        "sum": abs(float(g.sum()) - float(ref["sum"])) / abssum,
+        "abssum": abs(float(np.abs(g).sum()) / abssum - 1.0),
+        "maxabs": abs(float(np.abs(g).max()) / scale - 1.0),
+        "pixels_p99": float(np.quantile(gap_at, 0.99) / scale),
+        "pixels_over_1e-3": float(np.mean(gap_at > 1e-3 * scale)),
+        "pixels_worst": float(gap_at.max() / scale),
+    }
+
+
+def golden_ref(golden, key: str) -> dict:
+    """A golden row of ``GRAD_GOLDEN`` as a :func:`gradient_gaps` reference."""
+    return {k: golden[f"{key}_{n}"] for k, n in (
+        ("grad_K", "grad_K"), ("sum", "grad_depth_sum"), ("abssum", "grad_depth_abssum"),
+        ("maxabs", "grad_depth_maxabs"), ("pix", "pix"), ("at", "grad_depth_at"))}
+
+
+def full_ref(gd, gk) -> dict:
+    """Whole gradients as a :func:`gradient_gaps` reference at every pixel."""
+    g = gd.detach().double().cpu().numpy()
+    return {"grad_K": gk.detach().cpu().numpy(), "sum": g.sum(), "abssum": np.abs(g).sum(),
+            "maxabs": np.abs(g).max(), "pix": np.arange(g.size), "at": g.reshape(-1)}
+
+
+def hold_gaps(what: str, gaps: dict, bars: dict) -> None:
+    """Raises if a gap is above its bar; a bar of None only reports."""
+    bad = {k: v for k, v in gaps.items() if bars[k] is not None and not v <= bars[k]}
+    log(f"grad {what}: " + ", ".join(
+        f"{k} {v:.3e} ({'reported' if bars[k] is None else f'bar {bars[k]:g}'})"
+        for k, v in gaps.items()))
+    if bad:
+        raise AssertionError(f"grad {what}: above the bars: {bad}")
+
+
+def check_row_against_cpu(name: str, tag: str, counts, gd, gk) -> None:
+    """A row's card gradients against the CPU run of the same code (remat
+    off) at every pixel (bars ``GRAD_CPU_BARS``), and each clip's map count
+    within ``GRAD_CPU_COUNT_REL`` of the CPU's."""
+    shape, cap, kw, _ = GRAD_ROWS[name]
+    t0 = time.perf_counter()
+    pc, _, cd, ck, _ = grad_step(PointFusion(map_capacity=cap, **kw), grad_inputs(shape, "cpu"))
+    ref = full_ref(cd, ck)
+    card_n, cpu_n = counts.cpu().numpy(), pc.num_points.numpy()
+    rel = np.abs(card_n - cpu_n) / cpu_n
+    if not rel.max() <= GRAD_CPU_COUNT_REL:
+        raise AssertionError(f"grad {tag}: map counts {card_n} on the card, {cpu_n} on the CPU")
+    log(f"grad {tag}: map counts card {card_n.tolist()}, CPU {cpu_n.tolist()} "
+        f"(CPU step {time.perf_counter() - t0:.2f} s)")
+    hold_gaps(f"{tag} against the CPU run of the same code, every pixel",
+              gradient_gaps(gd, gk, ref), GRAD_CPU_BARS)
+
+
+def check_grad_golden(key: str, gd, gk) -> None:
+    """(c) A row's card gradients against the JAX package's CPU run
+    (``tests/port/make_grad_golden.py``) at its 4,096 pixels
+    (:func:`gradient_gaps`). Bars ``GRAD_GOLDEN_BARS``."""
+    hold_gaps(f"golden {key} ({GRAD_GOLDEN_ROWS[key]} remat=on) against the JAX CPU run",
+              gradient_gaps(gd, gk, golden_ref(np.load(GRAD_GOLDEN), key)),
+              GRAD_GOLDEN_BARS[key])
+
+
+def chamfer_agrees_with_cpu(device: str = "cuda") -> None:
+    """``chamfer_distance`` (squared, as the example's loss) on the card
+    against the CPU on the same clouds, made on the CPU: the small clip's
+    gt map against the gt map of its depths scaled by the example's 1.08
+    (B=2). Value and gradients to both clouds within ``EXAMPLE_CHAMFER_BAR``
+    of the CPU's largest, with both directions' 1-NN searches on the
+    kernel."""
+    rgb, depth, K, P = grad_inputs(GRAD_SMALL, "cpu")
+    with torch.no_grad():
+        maps = [PointFusion(odom="gt")(RGBDImages(rgb, depth * s, K, P))[0] for s in (1.0, 1.08)]
+    out = {}
+    for dev in ("cpu", device):
+        a, b = (m.points.detach().to(dev).requires_grad_() for m in maps)
+        knn_cuda.launches = 0
+        value = chamfer_distance(a, b, maps[0].nonpad_mask.to(dev), maps[1].nonpad_mask.to(dev),
+                                 squared=True)
+        launches = knn_cuda.launches
+        value.sum().backward()
+        out[dev] = (value.detach().double().cpu(), a.grad.double().cpu(), b.grad.double().cpu())
+    if launches != 2:
+        raise AssertionError(f"chamfer on the card launched the 1-NN {launches} times, not 2")
+    gaps = [float((c - r).abs().max() / r.abs().max()) for c, r in zip(out[device], out["cpu"])]
+    if not max(gaps) <= EXAMPLE_CHAMFER_BAR:
+        raise AssertionError(f"chamfer card vs CPU {gaps}, bar {EXAMPLE_CHAMFER_BAR}")
+    log(f"chamfer_distance {tuple(maps[0].points.shape)} against {tuple(maps[1].points.shape)}, "
+        f"card vs CPU (max |d| / max |CPU|): value {gaps[0]:.3e} ({out['cpu'][0].tolist()}), "
+        f"gradients {gaps[1]:.3e}, {gaps[2]:.3e}; bar {EXAMPLE_CHAMFER_BAR:g}; 1-NN launches 2")
+
+
+def example_refines_on_the_card(device: str = "cuda") -> None:
+    """``gradslam_torch.examples.gradient_refinement.refine`` on the card at
+    the CPU test's settings (``EXAMPLE_REFINE``) and bars: the chamfer loss
+    below 2% of its start, depth scale within 0.02 and focal within 0.03 of
+    1. Launches, from the code: the 1-NN twice a step (the chamfer's two
+    directions), the scatter twice a frame (sort_full + gather fusion) in
+    the reference run and in every step's forward, none in a backward."""
+    s = EXAMPLE_REFINE
+    knn_cuda.launches = scatter_cuda.launches = 0
+    t0 = time.perf_counter()
+    losses, rec_depth, rec_focal = gradient_refinement.refine(**s, verbose=False, device=device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"knn": knn_cuda.launches, "scatter": scatter_cuda.launches}
+    expect = {"knn": 2 * s["steps"], "scatter": 2 * s["L"] * (s["steps"] + 1)}
+    if launches != expect:
+        raise AssertionError(f"example refine: launches {launches}, expected {expect}")
+    LAUNCHES["grad_example_refine"] = launches
+    if not (losses[-1] < 0.02 * losses[0] and abs(rec_depth - 1.0) < 0.02
+            and abs(rec_focal - 1.0) < 0.03):
+        raise AssertionError(f"example refine: loss {losses[0]} -> {losses[-1]}, "
+                             f"depth scale {rec_depth}, focal {rec_focal}")
+    log(f"example refine on the card {s}: loss {losses[0]:.6e} -> {losses[-1]:.6e}, recovered "
+        f"depth scale {rec_depth:.6f}, focal {rec_focal:.6f} (bars 0.02, 0.03); "
+        f"{secs:.2f} s; launches {launches}")
+
+
+def grad_phase() -> None:
+    """The differentiability slice: (a) card against CPU and remat on
+    against off on a small clip, ``chamfer_distance`` card against CPU and
+    the gradient example on the card; (b) the bench_all rows at full width;
+    (c) two rows against the JAX package's CPU gradients; (d) a profile of
+    one gradient step (gt 640x480x30, remat on)."""
+    disable_tf32()
+    if not tf32_disabled():
+        raise AssertionError("TF32 is enabled before the gradient phase")
+    t0 = time.perf_counter()
+    grad_small_phase()
+    chamfer_agrees_with_cpu()
+    example_refines_on_the_card()
+    log(f"grad small phase: {time.perf_counter() - t0:.2f} s")
+    peaks = {}
+    for name, (_, _, _, remats) in GRAD_ROWS.items():
+        for remat in remats:
+            gd, gk, secs, peaks[name, remat] = grad_row(name, remat)
+            for key, row in GRAD_GOLDEN_ROWS.items():
+                if row == name and remat:
+                    check_grad_golden(key, gd, gk)
+            if name == "gt_640x480x30" and remat:
+                gt_remat_secs = secs
+            del gd, gk
+            torch.cuda.empty_cache()
+    off, on = peaks["gt_640x480x30", False], peaks["gt_640x480x30", True]
+    if not on < off:
+        raise AssertionError(f"grad gt_640x480x30: remat peak {on} B not below {off} B")
+    log(f"grad gt_640x480x30: peak memory remat on {on} B, off {off} B ({on / off:.3f}x)")
+    shape, cap, kw, _ = GRAD_ROWS["gt_640x480x30"]
+    slam = PointFusion(map_capacity=cap, remat=True, **kw)
+    inputs = grad_inputs(shape, "cuda")
+    profile_run(lambda: grad_step(slam, inputs), "grad gt 640x480x30 remat", gt_remat_secs)
 
 
 def main() -> int:
@@ -1068,21 +1585,30 @@ def main() -> int:
         f"({secs_gt:.4f} s/run), map {count_gt} points, 0 dropped, "
         f"peak memory {peak_gt} B")
 
-    profile_run(tracked, frames, "gradicp", secs)
-    profile_run(gt, frames, "gt", secs_gt)
+    profile_run(lambda: tracked(frames), "gradicp", secs)
+    profile_run(lambda: gt(frames), "gt", secs_gt)
 
     prod, hard_frames, secs_prod = production_phase()
     small_recipe_agrees_with_cpu()
     quantized_headline(frames, pc_gt)
-    profile_run(prod, hard_frames, "production", secs_prod)
+    profile_run(lambda: prod(hard_frames), "production", secs_prod)
 
     icp_frames, icp_runs = icpslam_phase()
     flat_slam, flat_secs = icp_runs["flat"]
-    profile_run(flat_slam, icp_frames, "icpslam flat", flat_secs)
+    profile_run(lambda: flat_slam(icp_frames), "icpslam flat", flat_secs)
+
+    t0 = time.perf_counter()
+    grad_phase()
+    log(f"grad phase: {time.perf_counter() - t0:.2f} s")
 
     # launches a run on each path, as counted in its last timed run
     knn_per_path = {path: n["knn"] for path, n in LAUNCHES.items()}
     scatter_per_path = {path: n["scatter"] for path, n in LAUNCHES.items()}
+
+    def grad_split(kernel):  # each gradient step: forward, backward phase
+        return {tag: [n["forward"][kernel], n["backward"][kernel]]
+                for tag, n in GRAD_LAUNCHES.items()}
+
     tracked_shape = knn["shapes"][0]
     script = scatter["shapes"][0]
     print(json.dumps({"kernels": [{
@@ -1092,6 +1618,7 @@ def main() -> int:
         "replaces": "gradslam_tpu/ops/knn_pallas.py:41",
         "launches": sum(knn_per_path.values()),
         "launches_per_path": knn_per_path,
+        "grad_launches_forward_backward": grad_split("knn"),
         "max_abs_err": knn["max_abs_err"],
         "ms": tracked_shape["ms"],
         "plain_ms": tracked_shape["plain_ms"],
@@ -1107,6 +1634,7 @@ def main() -> int:
         "replaces": "scripts/microbench_scatter.py:60",
         "launches": sum(scatter_per_path.values()),
         "launches_per_path": scatter_per_path,
+        "grad_launches_forward_backward": grad_split("scatter"),
         "max_abs_err": scatter["max_abs_err"],
         "ms": script["ms"],
         "plain_ms": script["plain_ms"],

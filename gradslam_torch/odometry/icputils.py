@@ -194,11 +194,16 @@ def _guard_robust_step(xi, A, robust_scale, src_pc, src_mask, wmass=None):
       mass ``sum(A[:, :3]^2)`` (or ``wmass``) the step fades linearly to 0.
       ``N`` is the PADDED row count ``src_pc.shape[1]``, as in the JAX
       package; the valid count would change trajectories.
+
+    Both bounds are ``torch.minimum``/``torch.maximum``, not ``clamp``: at
+    a tie they split the gradient between the two sides, as JAX's
+    ``jnp.minimum``/``jnp.maximum`` do, where ``clamp`` passes all of it.
+    The bounds are 0-d CPU tensors, which a CUDA op takes as scalars.
     """
     mass_floor = min(_MIN_INLIER_MASS, 0.5 * src_pc.shape[1])
     if wmass is None:
         wmass = torch.sum(A[..., :3] ** 2, dim=(1, 2))
-    fade = torch.clamp(wmass / mass_floor, max=1.0)
+    fade = torch.minimum(wmass / mass_floor, torch.ones((), dtype=wmass.dtype))
     radius = _TRUST_RADIUS_SCALES * robust_scale
     v, omega = xi[:, :3], xi[:, 3:]
     if src_mask is None:
@@ -211,7 +216,7 @@ def _guard_robust_step(xi, A, robust_scale, src_pc, src_mask, wmass=None):
         r2 = torch.amax(torch.sum(((src_pc - c[:, None]) * m) ** 2, dim=-1), dim=1)
     disp = (_safe_sqrt(torch.sum((v + torch.linalg.cross(omega, c, dim=-1)) ** 2, dim=-1))
             + _safe_sqrt(torch.sum(omega * omega, dim=-1)) * _safe_sqrt(r2))
-    trust = radius / torch.clamp(disp, min=radius)
+    trust = radius / torch.maximum(disp, torch.full((), radius, dtype=disp.dtype))
     return xi * (fade * trust)[:, None]
 
 

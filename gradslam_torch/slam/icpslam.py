@@ -12,7 +12,10 @@ without the relocalization and keyframe-anchor paths.
 
 The JAX ``lax.scan`` over frames is a Python loop here. The capacity
 schedule is static and host-side; nothing inside the frame or solver loops
-reads a value back from the device.
+reads a value back from the device. ``remat=True`` runs each frame's body
+(the one ``jax.checkpoint`` wraps in JAX) under non-reentrant
+``torch.utils.checkpoint``: its activations are dropped after the forward
+and recomputed in the backward.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..geometry.geometryutils import (
     compose_transformations,
@@ -57,7 +61,6 @@ _UNPORTED = {
     "anchor_every": (0, "queue 1, item 7 (recovery)"),
     "anchor_below": (0.98, "queue 1, item 7 (recovery)"),
     "anchor_dsratio": (None, "queue 1, item 7 (recovery)"),
-    "remat": (False, "queue 1, item 10 (differentiability)"),
 }
 
 
@@ -133,6 +136,14 @@ class ICPSLAM(nn.Module):
             (PointFusion only: the aggregate map has no confidences).
         normal_pitch: finite-difference baseline of the frames' normal maps
             (None keeps the frames' own).
+        use_jit: accepted for the JAX constructor's signature; eager
+            PyTorch has nothing to compile, so it has no effect.
+        remat: recompute each frame's activations in the backward instead
+            of keeping them (per-frame checkpointing, as ``jax.checkpoint``
+            of the JAX scan body): the gt body is one frame's map update,
+            the tracked body the prediction, localization, map update and
+            constant-velocity step of one frame (frame 0's bootstrap stays
+            outside). The forward's results are the same bits either way.
 
     The JAX pipeline's other options raise ``NotImplementedError`` unless
     left at their defaults.
@@ -166,6 +177,8 @@ class ICPSLAM(nn.Module):
         prune_every: int = 0,
         prune_min_confidence: float = 1.0,
         normal_pitch: Optional[int] = None,
+        use_jit: bool = True,
+        remat: bool = False,
         **unported,
     ):
         super().__init__()
@@ -234,6 +247,7 @@ class ICPSLAM(nn.Module):
         self.prune_every = int(prune_every)
         self.prune_min_confidence = prune_min_confidence
         self.normal_pitch = normal_pitch
+        self.remat = bool(remat)
         self.pyramid = validate_pyramid(pyramid)
         validate_robust(robust_loss, robust_scale)
         dot_gate = None if odom_angle_gate is None else math.cos(math.radians(odom_angle_gate))
@@ -300,9 +314,10 @@ class ICPSLAM(nn.Module):
         return 2 * math.ceil(H / ds) * math.ceil(W / ds)
 
     def empty_map(
-        self, batch_size: int, capacity: int, *, device, dtype=torch.float32
+        self, batch_size: int, capacity: int, *, device="cuda", dtype=torch.float32
     ) -> Pointclouds:
-        r"""An empty map buffer for this pipeline on ``device``: the
+        r"""An empty map buffer for this pipeline on ``device`` (the card
+        by default): the
         aggregate map carries normals and float colors, no features."""
         return Pointclouds.empty(
             batch_size, capacity, device=device, dtype=dtype,
@@ -420,6 +435,15 @@ class ICPSLAM(nn.Module):
     # ------------------------------------------------------------------ #
     # Forward
     # ------------------------------------------------------------------ #
+    def _frame(self, body, *args):
+        """One frame's ``body(*args)``, under per-frame checkpointing when
+        ``remat`` is set. Non-reentrant: the body takes and returns
+        dataclasses of tensors, whose gradients the reentrant form would
+        drop. The body draws no random numbers, so no RNG state is kept."""
+        if not self.remat:
+            return body(*args)
+        return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
+
     def forward(self, frames: RGBDImages) -> Tuple[Pointclouds, torch.Tensor]:
         r"""Run SLAM over a batch of sequences. Returns ``(pointclouds,
         poses (B, L, 4, 4))``."""
@@ -438,7 +462,7 @@ class ICPSLAM(nn.Module):
                 map_pc = map_pc.with_capacity(cap_seg)
                 for sub_n, prune_after in split_prune_segments(start, n, self.prune_every):
                     for i in range(start, start + sub_n):
-                        map_pc = self._map(map_pc, frames[:, i])
+                        map_pc = self._frame(self._map, map_pc, frames[:, i])
                     if prune_after:
                         map_pc = self._prune(map_pc)
                     start += sub_n
@@ -455,6 +479,20 @@ class ICPSLAM(nn.Module):
         if self.prune_every == 1:  # (0 + 1) % prune_every == 0 only then
             map_pc = self._prune(map_pc)
         cv = self.motion_model == "constant_velocity"
+
+        def track(map_pc, prev_pose, prev_delta, rgb, depth):
+            # the constant-velocity chain pose @ inv(prev) @ pose doubles the
+            # rotation's orthonormality error each frame: re-project
+            pred = (orthonormalize_rotations(compose_transformations(prev_delta, prev_pose))
+                    if cv else prev_pose)
+            live = RGBDImages(rgb, depth, frames.intrinsics, pred[:, None],
+                              normal_pitch=frames.normal_pitch)
+            pose = self._localize(map_pc, live, live)[:, 0]
+            map_pc = self._map(map_pc, live.with_poses(pose[:, None]))
+            if cv:  # world-frame motion of this frame, the next prediction
+                prev_delta = compose_transformations(pose, inverse_transformation(prev_pose))
+            return map_pc, pose, prev_delta
+
         prev_delta = torch.eye(4, dtype=frames.dtype, device=frames.device).expand(B, 4, 4)
         start = 0  # tracked frames done; global frame = start + 1
         for i, (n, cap_seg) in enumerate(schedule):
@@ -462,20 +500,10 @@ class ICPSLAM(nn.Module):
             map_pc = map_pc.with_capacity(cap_seg)
             for sub_n, prune_after in split_prune_segments(start + 1, n_track, self.prune_every):
                 for f in range(start + 1, start + 1 + sub_n):
-                    # the constant-velocity chain pose @ inv(prev) @ pose doubles
-                    # the rotation's orthonormality error each frame: re-project
-                    pred = (orthonormalize_rotations(compose_transformations(prev_delta, prev_pose))
-                            if cv else prev_pose)
-                    live = RGBDImages(
-                        frames.rgb_image[:, f:f + 1], frames.depth_image[:, f:f + 1],
-                        frames.intrinsics, pred[:, None], normal_pitch=frames.normal_pitch,
-                    )
-                    pose = self._localize(map_pc, live, live)[:, 0]
-                    map_pc = self._map(map_pc, live.with_poses(pose[:, None]))
-                    if cv:  # world-frame motion of this frame, the next prediction
-                        prev_delta = compose_transformations(pose, inverse_transformation(prev_pose))
-                    prev_pose = pose
-                    poses.append(pose)
+                    map_pc, prev_pose, prev_delta = self._frame(
+                        track, map_pc, prev_pose, prev_delta,
+                        frames.rgb_image[:, f:f + 1], frames.depth_image[:, f:f + 1])
+                    poses.append(prev_pose)
                 if prune_after:
                     map_pc = self._prune(map_pc)
                 start += sub_n

@@ -69,10 +69,11 @@ class PointFusion(ICPSLAM):
         self.quantize_colors = bool(quantize_colors)
 
     def empty_map(
-        self, batch_size: int, capacity: int, *, device, dtype=torch.float32
+        self, batch_size: int, capacity: int, *, device="cuda", dtype=torch.float32
     ) -> Pointclouds:
-        r"""An empty map buffer for this pipeline on ``device``: float colors
-        and ``[ccount]``, or no colors and ``[ccount, packed_color]``."""
+        r"""An empty map buffer for this pipeline on ``device`` (the card
+        by default): float colors and ``[ccount]``, or no colors and
+        ``[ccount, packed_color]``."""
         return Pointclouds.empty(
             batch_size, capacity, device=device, dtype=dtype,
             has_normals=True, has_colors=not self.quantize_colors,

@@ -139,7 +139,6 @@ UNPORTED = [
     {"relocalize_below": 0.5},
     {"anchor_every": 5},
     {"feature_channels": 2},
-    {"remat": True},
 ]
 
 
@@ -160,7 +159,6 @@ def test_unported_options_raise_naming_their_roadmap_item(option):
     ({"anchor_below": 0.9}, 7),
     ({"anchor_dsratio": 2}, 7),
     ({"feature_channels": 1}, 8),
-    ({"remat": True}, 10),
 ], ids=lambda o: next(iter(o)) if isinstance(o, dict) else str(o))
 def test_constructor_refuses_unported_options(option, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md queue 1, item {item}\b"):
@@ -182,6 +180,7 @@ PORTED = [
     {"association": "windowed"},
     {"merge": "scatter"},
     {"active_capacity": 1000, "association": "windowed"},
+    {"remat": True, "use_jit": False},
 ]
 
 
