@@ -1,8 +1,10 @@
 r"""gradslam_torch: the PyTorch / CUDA port of gradslam_tpu.
 
 ICPSLAM (aggregate map) and PointFusion SLAM with ground-truth, ICP or
-GradICP tracking (1-NN or projective association, pyramids, recency
-windows, robust kernels, constant velocity, map pruning, quantized colors),
+GradICP tracking (1-NN or projective association with sub-pixel lookup and
+point rows, pyramids, recency windows, robust kernels, constant velocity,
+map pruning, quantized colors, tracking health, relocalization and the
+keyframe drift anchor),
 written in PyTorch, with the nearest-neighbour search and the unique-row
 scatter as hand-written CUDA kernels for Hopper (``ops/csrc/knn.cu``,
 ``ops/csrc/scatter.cu``). The JAX package ``gradslam_tpu`` is the reference
@@ -11,7 +13,14 @@ it is tested against. This package imports neither JAX nor
 """
 
 from .datasets import hard_sequence, synthetic_sequence
-from .slam import ICPSLAM, PointFusion
+from .slam import (
+    ICPSLAM,
+    PointFusion,
+    keyframe_anchor,
+    perturbation_grid,
+    relocalize,
+    tracking_health,
+)
 from .structures import Pointclouds, RGBDImages
 
 __all__ = [
@@ -20,5 +29,9 @@ __all__ = [
     "Pointclouds",
     "RGBDImages",
     "hard_sequence",
+    "keyframe_anchor",
+    "perturbation_grid",
+    "relocalize",
     "synthetic_sequence",
+    "tracking_health",
 ]

@@ -8,11 +8,13 @@ modes), ``point_to_plane_ICP_projective`` (:373),
 live camera at the current pose estimate, and each map point reads the
 frame's vertex and normal at the pixel it lands on: per solver iteration one
 elementwise projection and one row gather of the packed ``(H*W, 8)`` frame
-image, instead of a nearest-neighbour search.
+image, instead of a nearest-neighbour search. ``subpixel`` blends the four
+pixels around the projection bilinearly (:137-167); ``point_weight`` adds
+three point-to-point rows an association, folded analytically into the 6x6
+normal equations (``_point_block_normal_eq``, :186).
 
 Every function takes an explicit leading batch dimension (the JAX package
-``vmap``-s single-pair functions). Not ported yet (ROADMAP.md queue 1,
-item 6): ``point_weight`` and ``subpixel``.
+``vmap``-s single-pair functions).
 """
 
 from __future__ import annotations
@@ -26,7 +28,14 @@ from ..geometry.se3utils import se3_exp
 from ..structures.pointclouds import Pointclouds, gather_rows
 from ..structures.rgbdimages import RGBDImages
 from .base import OdometryProvider
-from .icputils import _guard_robust_step, _normal_gate, _ptp_system, _rotate, validate_robust
+from .icputils import (
+    _guard_robust_step,
+    _normal_gate,
+    _ptp_system,
+    _rotate,
+    robust_weights,
+    validate_robust,
+)
 
 __all__ = [
     "projective_associate",
@@ -34,19 +43,6 @@ __all__ = [
     "point_to_plane_gradICP_projective",
     "ProjectiveOdometryProvider",
 ]
-
-
-def _reject_unported(point_weight: float, subpixel: bool) -> None:
-    if point_weight:
-        raise NotImplementedError(
-            "point_weight (odom_point_weight) is not ported to gradslam_torch yet "
-            "(ROADMAP.md queue 1, item 6)."
-        )
-    if subpixel:
-        raise NotImplementedError(
-            "subpixel (odom_subpixel) is not ported to gradslam_torch yet "
-            "(ROADMAP.md queue 1, item 6)."
-        )
 
 
 def projective_associate(
@@ -67,12 +63,21 @@ def projective_associate(
     fusion stage's bounds and round-half-to-even snap, and read the frame's
     packed row at the landed pixel.
 
+    ``subpixel=True`` reads a validity-weighted bilinear blend of the four
+    pixels around the continuous ``(u, v)`` instead: corners with invalid
+    depth get weight 0, the association needs at least half the weight
+    valid (``wsum > 0.5``), and the blended normal is renormalised with
+    ``max(norm, 1e-12)``. At the right and bottom borders the corners
+    collapse onto one column or row when ``W`` or ``H`` is 1. Where the
+    blend of normals is 0 (every corner's normal zero, as at the frame's
+    borders), the gradient through the renormalisation is 0 here and NaN
+    in the JAX package (its norm's VJP at 0); the values are the same.
+
     Returns ``(s, valid, n_frame)``: ``s (B, N, 3)``, the associated frame
     point in world coordinates; ``valid (B, N)``, in the frustum, on valid
     depth, within ``dist_thresh`` (squared metres) and within the normal gate
     (``dot_gate``, a minimum cosine); ``n_frame (B, N, 3)``, the frame normal
     at the landed pixel in world coordinates."""
-    _reject_unported(0.0, subpixel)
     tinv = inverse_transformation(pose)
     cam = _rotate(map_pts, tinv) + tinv[:, None, :3, 3]
     x, y, z = cam[..., 0], cam[..., 1], cam[..., 2]
@@ -84,17 +89,90 @@ def projective_associate(
     valid = (
         (u > -1e-3) & (u < W - 0.999) & (v > -1e-3) & (v < H - 0.999) & (z > 0) & map_mask
     )
-    pix_w = torch.clamp(torch.round(u), 0, W - 1).to(torch.int64)
-    pix_h = torch.clamp(torch.round(v), 0, H - 1).to(torch.int64)
-    g = gather_rows(frame_geom, pix_h * W + pix_w)
-    valid = valid & (g[..., 6] > 0.5)
-    s = _rotate(g[..., :3], pose) + pose[:, None, :3, 3]
+    if subpixel:
+        uc = torch.clamp(u, 0.0, W - 1.0)
+        vc = torch.clamp(v, 0.0, H - 1.0)
+        u0 = torch.clamp(torch.floor(uc), 0, max(W - 2, 0)).to(torch.int64)
+        v0 = torch.clamp(torch.floor(vc), 0, max(H - 2, 0)).to(torch.int64)
+        fu = uc - u0.to(uc.dtype)
+        fv = vc - v0.to(vc.dtype)
+        base = v0 * W + u0
+        du = 1 if W > 1 else 0
+        dv = W if H > 1 else 0
+        corners = (
+            (base, (1.0 - fu) * (1.0 - fv)),
+            (base + du, fu * (1.0 - fv)),
+            (base + dv, (1.0 - fu) * fv),
+            (base + du + dv, fu * fv),
+        )
+        acc = torch.zeros(map_pts.shape[:-1] + (6,), dtype=frame_geom.dtype,
+                          device=frame_geom.device)
+        wsum = torch.zeros(map_pts.shape[:-1], dtype=frame_geom.dtype, device=frame_geom.device)
+        for idx_c, w_c in corners:
+            gc = gather_rows(frame_geom, idx_c)
+            wv = w_c * gc[..., 6]  # validity-masked bilinear weight
+            acc = acc + wv[..., None] * gc[..., :6]
+            wsum = wsum + wv
+        g6 = acc / torch.clamp(wsum, min=1e-12)[..., None]
+        s_cam = g6[..., :3]
+        # a blend of unit normals is shorter than 1: renormalise
+        n_cam = g6[..., 3:6]
+        n_cam = n_cam / torch.clamp(torch.linalg.norm(n_cam, dim=-1, keepdim=True), min=1e-12)
+        valid = valid & (wsum > 0.5)
+    else:
+        pix_w = torch.clamp(torch.round(u), 0, W - 1).to(torch.int64)
+        pix_h = torch.clamp(torch.round(v), 0, H - 1).to(torch.int64)
+        g = gather_rows(frame_geom, pix_h * W + pix_w)
+        s_cam = g[..., :3]
+        n_cam = g[..., 3:6]
+        valid = valid & (g[..., 6] > 0.5)
+    s = _rotate(s_cam, pose) + pose[:, None, :3, 3]
     if dist_thresh is not None:
         valid = valid & (torch.sum((s - map_pts) ** 2, dim=-1) < dist_thresh)
-    n_world = _rotate(g[..., 3:6], pose)
+    n_world = _rotate(n_cam, pose)
     if dot_gate is not None:
         valid = valid & _normal_gate(n_world, map_normals, dot_gate)
     return s, valid, n_world
+
+
+def _point_block(s, map_pts, valid, point_weight, robust_loss, robust_scale):
+    """The point-to-point rows' weights ``sigma (B, N, 3)`` and weighted
+    residuals ``sigma * (d - s)``: three rows an association at
+    ``sqrt(point_weight)``, each robust-weighted on its own scaled
+    component."""
+    w = float(point_weight) ** 0.5
+    diff = map_pts - s
+    # one weight a row (three an association): the guard's mass counts rows
+    sigma = (valid.to(s.dtype)[..., None] * w).expand(diff.shape)
+    if robust_loss is not None:
+        # scaling the residual and the scale alike keeps the weight a
+        # function of the unscaled component, as in the row formulation
+        sigma = sigma * robust_weights(w * diff, robust_loss, robust_scale * w)
+    return sigma, sigma * diff
+
+
+def _point_block_normal_eq(s, map_pts, valid, point_weight, robust_loss, robust_scale):
+    r"""The point-to-point rows' share of the normal equations, folded
+    analytically (``gradslam_tpu/odometry/projective.py:186``): row ``k`` of
+    an association is ``sigma_k [e_k | s x e_k]`` with residual
+    ``sigma_k (d_k - s_k)``, so ``A^T A`` and ``A^T b`` are summed from the
+    ``(B, N, 3, 6)`` row blocks without stacking a ``(4N, 6)`` system onto
+    the plane rows. Returns ``(AtA (B, 6, 6), Atb (B, 6, 1), errsq (B,),
+    wmass (B,))``: the block's squared residual (the LM merit term) and its
+    share of the step guard's mass, ``sum sigma^2``."""
+    sigma, bw = _point_block(s, map_pts, valid, point_weight, robust_loss, robust_scale)
+    zer = torch.zeros_like(s[..., 0])
+    sx, sy, sz = s[..., 0], s[..., 1], s[..., 2]
+    cross = torch.stack([
+        torch.stack([zer, sz, -sy], dim=-1),  # s x e_0
+        torch.stack([-sz, zer, sx], dim=-1),  # s x e_1
+        torch.stack([sy, -sx, zer], dim=-1),  # s x e_2
+    ], dim=-2)  # (B, N, 3, 3)
+    eye = torch.eye(3, dtype=s.dtype, device=s.device).expand(cross.shape)
+    Jw = torch.cat([eye, cross], dim=-1) * sigma[..., None]  # (B, N, 3, 6)
+    AtA = torch.einsum("bnki,bnkj->bij", Jw, Jw)
+    Atb = torch.einsum("bnki,bnk->bi", Jw, bw)[..., None]
+    return AtA, Atb, torch.sum(bw * bw, dim=(1, 2)), torch.sum(sigma * sigma, dim=(1, 2))
 
 
 def _projective_icp_core(
@@ -107,6 +185,8 @@ def _projective_icp_core(
     lambda_max: float, B: float, B2: float, nu: float,
     lookahead_assoc: str, robust_loss: Optional[str], robust_scale: float,
     sym_normals: bool = False,
+    point_weight: float = 0.0,
+    subpixel: bool = False,
 ) -> torch.Tensor:
     """The LM or gradLM solve over world-space corrections ``X``: the
     camera pose is ``X @ init_pose``. Returns ``X (B, 4, 4)``."""
@@ -125,7 +205,7 @@ def _projective_icp_core(
     def associate(X):
         return projective_associate(
             map_pts, map_normals, map_mask, frame_geom, intrinsics,
-            torch.matmul(X, init_pose), H, W, dist_thresh, dot_gate,
+            torch.matmul(X, init_pose), H, W, dist_thresh, dot_gate, subpixel,
         )
 
     def rows(s, valid, n_frame):
@@ -135,21 +215,33 @@ def _projective_icp_core(
             n = nsum / torch.clamp(torch.linalg.norm(nsum, dim=-1, keepdim=True), min=1e-12)
         return _ptp_system(s, map_pts, n, valid, robust_loss, robust_scale)
 
-    def errsq(b):
-        return torch.sum(b * b, dim=(1, 2))
+    def errsq(s, valid, n_frame):
+        """The merit ``sum b^2`` of the plane rows, and of the point rows
+        when they are on (the lookahead needs no normal equations)."""
+        b = rows(s, valid, n_frame)[1]
+        err = torch.sum(b * b, dim=(1, 2))
+        if point_weight > 0.0:
+            bw = _point_block(s, map_pts, valid, point_weight, robust_loss, robust_scale)[1]
+            err = err + torch.sum(bw * bw, dim=(1, 2))
+        return err
 
     for _ in range(numiters):
         s, valid, n_frame = associate(X)
         A, b = rows(s, valid, n_frame)
         At = A.transpose(1, 2)
+        AtA, Atb = torch.matmul(At, A), torch.matmul(At, b)
+        err = torch.sum(b * b, dim=(1, 2))
+        wmass = torch.sum(A[..., :3] ** 2, dim=(1, 2))
+        if point_weight > 0.0:
+            pAtA, pAtb, perr, pmass = _point_block_normal_eq(
+                s, map_pts, valid, point_weight, robust_loss, robust_scale)
+            AtA, Atb, err, wmass = AtA + pAtA, Atb + pAtb, err + perr, wmass + pmass
         xi, _info = torch.linalg.solve_ex(
-            torch.matmul(At, A) + damp_t[:, None, None] * eye6, torch.matmul(At, b),
-            check_errors=False,
+            AtA + damp_t[:, None, None] * eye6, Atb, check_errors=False,
         )
         xi = xi[..., 0]  # (B, 6)
         if robust_loss is not None:
-            xi = _guard_robust_step(xi, None, robust_scale, s, valid,
-                                    wmass=torch.sum(A[..., :3] ** 2, dim=(1, 2)))
+            xi = _guard_robust_step(xi, None, robust_scale, s, valid, wmass=wmass)
         residual_transform = se3_exp(xi)
         if lookahead_assoc == "reuse":
             # keep the association, move the frame points with the step
@@ -157,15 +249,15 @@ def _projective_icp_core(
             valid1 = valid
             if dist_thresh is not None:
                 valid1 = valid1 & (torch.sum((s1 - map_pts) ** 2, dim=-1) < dist_thresh)
-            new_err = errsq(rows(s1, valid1, n_frame)[1])
+            new_err = errsq(s1, valid1, n_frame)
         else:
-            new_err = errsq(rows(*associate(torch.matmul(residual_transform, X)))[1])
+            new_err = errsq(*associate(torch.matmul(residual_transform, X)))
         if mode == "lm":
-            accept = new_err < errsq(b)
+            accept = new_err < err
             X = torch.where(accept[:, None, None], torch.matmul(residual_transform, X), X)
             damp_t = torch.where(accept, damp_t / 2.0, damp_t * 2.0)
         else:
-            errdiff = torch.clamp(new_err - errsq(b), -70.0, 70.0)
+            errdiff = torch.clamp(new_err - err, -70.0, 70.0)
             damp_new = lambda_min + (lambda_max - lambda_min) / (1.0 + torch.exp(-B * errdiff))
             sigmoid = 1.0 / (1.0 + torch.exp(-B2 * errdiff)) ** (1.0 / nu)
             X = torch.matmul(se3_exp(sigmoid[:, None] * xi), X)
@@ -194,11 +286,11 @@ def point_to_plane_ICP_projective(
     search), over a batch; inputs as
     :func:`point_to_plane_gradICP_projective`. Returns the world-space
     corrections ``X (B, 4, 4)``: the solved pose is ``X @ init_pose``."""
-    _reject_unported(point_weight, subpixel)
     return _projective_icp_core(
         "lm", map_pts, map_normals, map_mask, frame_geom, intrinsics, init_pose,
         initial_transform, H, W, numiters, damp, dist_thresh, dot_gate,
         2.0, 1.0, 1.0, 200.0, lookahead_assoc, robust_loss, robust_scale, sym_normals,
+        point_weight, subpixel,
     )
 
 
@@ -224,14 +316,18 @@ def point_to_plane_gradICP_projective(
     r"""Projective-association gradLM ICP over a batch: map window
     ``(B, N, 3)`` points, normals and mask, frame image ``(B, H*W, 8)``,
     intrinsics and predicted poses ``(B, 4, 4)``. ``sym_normals`` uses the
-    symmetric normal ``normalize(n_map + n_frame)`` in the rows. Returns the
+    symmetric normal ``normalize(n_map + n_frame)`` in the rows;
+    ``point_weight > 0`` adds three point-to-point rows an association at
+    ``sqrt(point_weight)`` relative to the plane rows (folded into the 6x6
+    system); ``subpixel`` associates with the bilinear blend of
+    :func:`projective_associate`. Returns the
     world-space corrections ``X (B, 4, 4)``: the solved pose is
     ``X @ init_pose``."""
-    _reject_unported(point_weight, subpixel)
     return _projective_icp_core(
         "gradlm", map_pts, map_normals, map_mask, frame_geom, intrinsics, init_pose,
         initial_transform, H, W, numiters, damp, dist_thresh, dot_gate,
         lambda_max, B, B2, nu, lookahead_assoc, robust_loss, robust_scale, sym_normals,
+        point_weight, subpixel,
     )
 
 
@@ -250,8 +346,9 @@ class ProjectiveOdometryProvider(OdometryProvider):
     gradLM solver (``solver='gradicp'``) or the classic LM solver
     (``solver='icp'``). ``dist_thresh`` is in squared metres; ``dot_gate``
     is a minimum cosine between the frame normal at the landed pixel and the
-    map normal; ``sym_normals`` uses the symmetric normal in the rows.
-    ``point_weight`` and ``subpixel`` are not ported yet."""
+    map normal; ``sym_normals`` uses the symmetric normal in the rows;
+    ``point_weight`` adds point-to-point rows at that weight and
+    ``subpixel`` associates bilinearly (:func:`projective_associate`)."""
 
     def __init__(
         self,
@@ -278,7 +375,6 @@ class ProjectiveOdometryProvider(OdometryProvider):
             raise ValueError(f"dot_gate must be a cosine in [-1, 1] or None. Got {dot_gate}.")
         if point_weight < 0:
             raise ValueError(f"point_weight must be >= 0. Got {point_weight}.")
-        _reject_unported(point_weight, subpixel)
         self.solver = solver
         self.numiters = numiters
         self.damp = damp
@@ -292,6 +388,8 @@ class ProjectiveOdometryProvider(OdometryProvider):
         self.robust_loss = robust_loss
         self.robust_scale = robust_scale
         self.sym_normals = bool(sym_normals)
+        self.point_weight = float(point_weight)
+        self.subpixel = bool(subpixel)
 
     def provide(
         self,
@@ -331,6 +429,8 @@ class ProjectiveOdometryProvider(OdometryProvider):
             robust_loss=self.robust_loss,
             robust_scale=self.robust_scale,
             sym_normals=self.sym_normals,
+            point_weight=self.point_weight,
+            subpixel=self.subpixel,
         )
         if self.solver == "gradicp":
             fn = point_to_plane_gradICP_projective

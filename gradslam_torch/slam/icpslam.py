@@ -6,16 +6,23 @@ Counterpart of ``gradslam_tpu/slam/icpslam.py``: ``split_prune_segments``
 ``empty_map`` and ``_map`` (:794-811, the aggregate map),
 ``_icp_target_window`` (:816, with the ``icp_window_frames`` recency
 window), ``_localize`` (:850, with the pyramid and its nested single
-compaction) and ``_forward_impl`` (:1217): the ground-truth branch and the
-tracked branch with the constant-velocity model and prune between segments,
-without the relocalization and keyframe-anchor paths.
+compaction, and the finest window it solved against), the in-scan recovery
+(``_health_gate`` :992, ``_maybe_relocalize`` :1023, ``_anchor_snapshot``
+:1087, ``_maybe_anchor_recover`` :1107) and ``_forward_impl`` (:1217): the
+ground-truth branch and the tracked branch with the constant-velocity
+model, prune between segments, relocalization and the keyframe anchor.
 
 The JAX ``lax.scan`` over frames is a Python loop here. The capacity
-schedule is static and host-side; nothing inside the frame or solver loops
-reads a value back from the device. ``remat=True`` runs each frame's body
-(the one ``jax.checkpoint`` wraps in JAX) under non-reentrant
-``torch.utils.checkpoint``: its activations are dropped after the forward
-and recomputed in the backward.
+schedule is static and host-side. An unarmed pipeline reads nothing back
+from the device inside the frame or solver loops. Armed
+(``relocalize_below > 0``), each tracked frame reads one value back to
+decide the JAX ``lax.cond`` as a Python ``if``: whether any sequence is
+unhealthy; with ``anchor_every`` also whether any is drifting, one more
+read. The branches run only on the frames that need them. ``remat=True``
+runs each frame's body (the one ``jax.checkpoint`` wraps in JAX) under
+non-reentrant ``torch.utils.checkpoint``: its activations are dropped after
+the forward and recomputed in the backward, which reads the same values and
+so takes the same branches.
 """
 
 from __future__ import annotations
@@ -40,27 +47,25 @@ from ..odometry.icputils import (
     validate_pyramid,
     validate_robust,
 )
-from ..odometry.projective import ProjectiveOdometryProvider
+from ..odometry.projective import ProjectiveOdometryProvider, pack_frame_geom
 from ..structures.pointclouds import Pointclouds, compact_masked, gather_rows
 from ..structures.rgbdimages import RGBDImages
 from ..utils.precision import disable_tf32
 from .fusionutils import find_active_map_points, prune_map, update_map_aggregate
+from .health import (
+    _association_health,
+    _projective_health,
+    _window_health_knn,
+    _window_health_projective,
+)
+from .relocalize import perturbation_grid, relocalize
 
 __all__ = ["ICPSLAM", "split_prune_segments"]
 
 # Options of the JAX pipelines that this port does not carry yet, with the
 # value that means "off" and the ROADMAP.md item that will port them.
 _UNPORTED = {
-    "odom_point_weight": (0.0, "queue 1, item 6 (projective odometry)"),
-    "odom_subpixel": (False, "queue 1, item 6 (projective odometry)"),
     "feature_channels": (0, "queue 1, item 8 (quantized colors, prune and features)"),
-    "relocalize_below": (0.0, "queue 1, item 7 (recovery)"),
-    "relocalize_grid": (None, "queue 1, item 7 (recovery)"),
-    "relocalize_dsratio": (8, "queue 1, item 7 (recovery)"),
-    "relocalize_numiters": (12, "queue 1, item 7 (recovery)"),
-    "anchor_every": (0, "queue 1, item 7 (recovery)"),
-    "anchor_below": (0.98, "queue 1, item 7 (recovery)"),
-    "anchor_dsratio": (None, "queue 1, item 7 (recovery)"),
 }
 
 
@@ -144,9 +149,35 @@ class ICPSLAM(nn.Module):
             the tracked body the prediction, localization, map update and
             constant-velocity step of one frame (frame 0's bootstrap stays
             outside). The forward's results are the same bits either way.
+        odom_point_weight: point-to-point rows at this weight beside the
+            projective solver's plane rows (0 disables).
+        odom_subpixel: bilinear projective association at the continuous
+            projected pixel instead of the nearest pixel.
+        relocalize_below: arm the tracking recovery (0 disables): after
+            each solve the inlier fraction of the solve's own finest window
+            at the solved pose is read, and where it is below this value a
+            multi-hypothesis :func:`~gradslam_torch.slam.relocalize.
+            relocalize` runs from a :func:`~gradslam_torch.slam.relocalize.
+            perturbation_grid` around the solved pose; its pose is taken
+            only where it scores strictly better. Tracked odometry only.
+        relocalize_grid: the grid's ``yaw_deg`` and ``translations``.
+        relocalize_dsratio, relocalize_numiters: the recovery solves'
+            stride and iterations.
+        anchor_every: with ``relocalize_below``, also carry a frozen
+            keyframe anchor (seeded from frame 0, refreshed every
+            ``anchor_every`` frames unless drifting) and score each solved
+            pose against it; where the conditional inlier fraction falls
+            below ``anchor_below`` while the anchor is in view, re-solve
+            against the anchor (Tukey 1-NN at twice ``robust_scale``) and
+            take that pose only where it scores better. 0 disables.
+        anchor_below: the drift gate's threshold.
+        anchor_dsratio: the anchor snapshot's stride (default ``dsratio``).
 
-    The JAX pipeline's other options raise ``NotImplementedError`` unless
-    left at their defaults.
+    ``feature_channels`` raises ``NotImplementedError`` unless left at 0.
+    After a tracked ``forward``, ``recovery_log`` holds the armed gate's
+    reading of each tracked frame (``'health'``, ``(B,)`` tensors) and the
+    global frame indices on which the relocalization (``'relocalize'``) or
+    the anchor re-solve (``'anchor'``) ran.
     """
 
     has_features = False
@@ -158,6 +189,8 @@ class ICPSLAM(nn.Module):
         odom_assoc="knn",
         odom_angle_gate: Optional[float] = None,
         odom_sym_normals: bool = False,
+        odom_point_weight: float = 0.0,
+        odom_subpixel: bool = False,
         dsratio: int = 4,
         numiters: int = 20,
         pyramid: Optional[list] = None,
@@ -177,6 +210,13 @@ class ICPSLAM(nn.Module):
         prune_every: int = 0,
         prune_min_confidence: float = 1.0,
         normal_pitch: Optional[int] = None,
+        relocalize_below: float = 0.0,
+        relocalize_grid: Optional[dict] = None,
+        relocalize_dsratio: int = 8,
+        relocalize_numiters: int = 12,
+        anchor_every: int = 0,
+        anchor_below: float = 0.98,
+        anchor_dsratio: Optional[int] = None,
         use_jit: bool = True,
         remat: bool = False,
         **unported,
@@ -186,9 +226,12 @@ class ICPSLAM(nn.Module):
         if unknown:
             raise TypeError(f"Unknown option(s): {sorted(unknown)}.")
         _reject_unported(unported)
+        # The checks and their messages follow the JAX constructor
+        # (gradslam_tpu/slam/icpslam.py:336-544), in its order.
         if odom not in ("gt", "icp", "gradicp"):
             raise ValueError(
-                f"Odometry method ({odom}) not supported. Supported: 'gt', 'icp', 'gradicp'."
+                f"Odometry method ({odom}) not supported for ICPSLAM. Currently supported "
+                "odometry modules for ICPSLAM are: 'gt', 'icp', 'gradicp'"
             )
         if isinstance(odom_assoc, (list, tuple)):
             if pyramid is None or len(odom_assoc) != len(pyramid):
@@ -198,11 +241,16 @@ class ICPSLAM(nn.Module):
                 )
             odom_assoc = tuple(odom_assoc)
             levels = odom_assoc
+            bad = [a for a in levels if a not in ("knn", "projective")]
+            if bad:
+                raise ValueError(
+                    f"Unknown odom_assoc level(s): {bad!r}. Expected 'knn' or 'projective'.")
         else:
             levels = (odom_assoc,)
-        bad = [a for a in levels if a not in ("knn", "projective")]
-        if bad:
-            raise ValueError(f"Unknown odom_assoc: {bad!r}. Expected 'knn' or 'projective'.")
+            if odom_assoc not in ("knn", "projective"):
+                raise ValueError(
+                    f"Unknown odom_assoc: {odom_assoc!r}. Expected 'knn' or 'projective'.")
+        any_projective = "projective" in levels
         if odom_angle_gate is not None:
             if odom == "gt":
                 raise ValueError(
@@ -213,19 +261,30 @@ class ICPSLAM(nn.Module):
                 raise ValueError(
                     f"odom_angle_gate must be in (0, 180] degrees or None. Got {odom_angle_gate}."
                 )
-        if odom_sym_normals and "projective" not in levels:
-            raise ValueError("odom_sym_normals requires odom_assoc='projective'.")
+        if (odom_sym_normals or odom_point_weight) and not any_projective:
+            raise ValueError(
+                "odom_sym_normals / odom_point_weight require odom_assoc='projective' "
+                "(they shape the projective solver's rows; the KNN mode has no "
+                "per-association frame normal)."
+            )
+        if odom_point_weight < 0:
+            raise ValueError(f"odom_point_weight must be >= 0. Got {odom_point_weight}.")
+        if odom_subpixel and not any_projective:
+            raise ValueError(
+                "odom_subpixel requires odom_assoc='projective' (it refines the projective "
+                "association's pixel lookup; the KNN mode has no pixel grid)."
+            )
         if not isinstance(dsratio, int) or dsratio < 1:
             raise ValueError(f"dsratio must be an int >= 1. Got {dsratio}.")
         if not isinstance(numiters, int) or numiters < 1:
             raise ValueError(f"numiters must be an int >= 1. Got {numiters}.")
+        if icp_window_frames is not None and icp_window_frames < 1:
+            raise ValueError(f"icp_window_frames must be >= 1. Got {icp_window_frames}.")
         if motion_model not in ("static", "constant_velocity"):
             raise ValueError(
                 f"Unknown motion_model: {motion_model!r}. "
                 "Expected 'static' or 'constant_velocity'."
             )
-        if icp_window_frames is not None and icp_window_frames < 1:
-            raise ValueError(f"icp_window_frames must be >= 1. Got {icp_window_frames}.")
         if prune_every < 0:
             raise ValueError(f"prune_every must be >= 0. Got {prune_every}.")
         if prune_every and not self.has_features:
@@ -237,9 +296,40 @@ class ICPSLAM(nn.Module):
             not isinstance(normal_pitch, int) or normal_pitch < 1
         ):
             raise ValueError(f"normal_pitch must be None or an int >= 1. Got {normal_pitch!r}.")
+        if relocalize_below < 0 or relocalize_below >= 1:
+            raise ValueError(
+                f"relocalize_below must be in [0, 1) (0 disables). Got {relocalize_below}."
+            )
+        if relocalize_below > 0 and odom == "gt":
+            raise ValueError(
+                "relocalize_below requires tracked odometry (odom='icp'/'gradicp'), not "
+                "odom='gt' — ground-truth poses cannot be lost."
+            )
+        if relocalize_dsratio < 1 or relocalize_numiters < 1:
+            raise ValueError(
+                "relocalize_dsratio and relocalize_numiters must be >= 1. "
+                f"Got {relocalize_dsratio}, {relocalize_numiters}."
+            )
+        if anchor_every < 0 or not isinstance(anchor_every, int):
+            raise ValueError(f"anchor_every must be a non-negative int. Got {anchor_every!r}.")
+        if anchor_every > 0 and not (relocalize_below > 0):
+            raise ValueError(
+                "anchor_every requires relocalize_below > 0 — the anchored drift gate "
+                "reuses the in-scan relocalization threshold and recovery machinery."
+            )
+        if not (0 < anchor_below <= 1):
+            raise ValueError(f"anchor_below must be in (0, 1]. Got {anchor_below}.")
+        if anchor_dsratio is not None and (
+            not isinstance(anchor_dsratio, int) or anchor_dsratio < 1
+        ):
+            raise ValueError(f"anchor_dsratio must be None or an int >= 1. Got {anchor_dsratio!r}.")
+        self.pyramid = validate_pyramid(pyramid)
+        validate_robust(robust_loss, robust_scale)
         disable_tf32()
         self.odom = odom
         self.dsratio = dsratio
+        self.dist_thresh = dist_thresh
+        self.robust_scale = robust_scale
         self.map_capacity = map_capacity
         self.icp_capacity = icp_capacity
         self.icp_window_frames = icp_window_frames
@@ -248,8 +338,16 @@ class ICPSLAM(nn.Module):
         self.prune_min_confidence = prune_min_confidence
         self.normal_pitch = normal_pitch
         self.remat = bool(remat)
-        self.pyramid = validate_pyramid(pyramid)
-        validate_robust(robust_loss, robust_scale)
+        # the finest level's association decides the health statistic's
+        self._finest_assoc = levels[-1]
+        self.relocalize_below = float(relocalize_below)
+        self.relocalize_grid = dict(relocalize_grid or {})
+        self.relocalize_dsratio = relocalize_dsratio
+        self.relocalize_numiters = relocalize_numiters
+        self.anchor_every = int(anchor_every)
+        self.anchor_below = float(anchor_below)
+        self.anchor_dsratio = anchor_dsratio
+        self.recovery_log = {"health": [], "relocalize": [], "anchor": []}
         dot_gate = None if odom_angle_gate is None else math.cos(math.radians(odom_angle_gate))
 
         def make_provider(n_iters, assoc):
@@ -261,6 +359,7 @@ class ICPSLAM(nn.Module):
                     dot_gate=dot_gate, lambda_max=lambda_max, B=B, B2=B2, nu=nu,
                     lookahead_assoc=lookahead_assoc, robust_loss=robust_loss,
                     robust_scale=robust_scale, sym_normals=odom_sym_normals,
+                    point_weight=odom_point_weight, subpixel=odom_subpixel,
                 )
             if odom == "icp":
                 return ICPOdometryProvider(
@@ -364,10 +463,13 @@ class ICPSLAM(nn.Module):
         )
 
     def _localize(
-        self, pointclouds: Pointclouds, live_frame: RGBDImages, prev_frame: RGBDImages
-    ) -> torch.Tensor:
+        self, pointclouds: Pointclouds, live_frame: RGBDImages, prev_frame: RGBDImages,
+        return_window: bool = False,
+    ):
         r"""Align the live frame against the downsampled active map, level by
-        level; returns poses ``(B, 1, 4, 4)``."""
+        level; returns poses ``(B, 1, 4, 4)``, and with ``return_window``
+        also the finest level's compacted map window (points and normals),
+        which the recovery gate scores the solved pose against."""
         _, _, H, W = live_frame.shape
         live_frame = live_frame.with_poses(prev_frame.poses)
         target = self._icp_target_window(pointclouds, H, W)
@@ -387,7 +489,8 @@ class ICPSLAM(nn.Module):
             )
 
         if self.pyramid is None:
-            transform = solve_with(self.odomprov, window(self.dsratio), self.dsratio, None)
+            maps_pc = window(self.dsratio)
+            transform = solve_with(self.odomprov, maps_pc, self.dsratio, None)
         else:
             ds_fine = self.pyramid[-1][0]
             nested = len(self.pyramid) > 1 and all(ds % ds_fine == 0 for ds, _ in self.pyramid)
@@ -429,8 +532,115 @@ class ICPSLAM(nn.Module):
             else:
                 for prov, (ds, _n) in zip(self._pyramid_provs, self.pyramid):
                     init_T = None if transform is None else transform[:, 0]
-                    transform = solve_with(prov, window(ds), ds, init_T)
-        return compose_transformations(transform[:, 0], prev_frame.poses[:, 0])[:, None]
+                    maps_pc = window(ds)
+                    transform = solve_with(prov, maps_pc, ds, init_T)
+        poses = compose_transformations(transform[:, 0], prev_frame.poses[:, 0])[:, None]
+        if return_window:  # the last level solved is the finest
+            return poses, Pointclouds(points=maps_pc.points, num_points=maps_pc.num_points,
+                                      normals=maps_pc.normals)
+        return poses
+
+    # ------------------------------------------------------------------ #
+    # Tracking recovery
+    # ------------------------------------------------------------------ #
+    def _health_gate(self, live: RGBDImages, poses: torch.Tensor,
+                     window: Pointclouds) -> torch.Tensor:
+        """The armed gate's inlier fraction ``(B,)``: the solved pose scored
+        against the solve's own finest window (no pass over the map): the
+        projective association, or one 1-NN launch."""
+        if self._finest_assoc == "projective":
+            _, _, H, W = live.shape
+            inlier, _assoc = _window_health_projective(
+                window, pack_frame_geom(live), live.intrinsics[:, 0], poses[:, 0], H, W,
+                robust_scale=self.robust_scale, dist_thresh=self.dist_thresh)
+            return inlier
+        ds = self.pyramid[-1][0] if self.pyramid else self.dsratio
+        frames_pc = downsample_rgbdimages(live.with_poses(poses), ds)
+        return _window_health_knn(frames_pc, window, robust_scale=self.robust_scale,
+                                  dist_thresh=self.dist_thresh)
+
+    def _maybe_relocalize(self, map_pc: Pointclouds, live: RGBDImages, poses: torch.Tensor,
+                          window: Pointclouds):
+        """The relocalization branch. Returns ``(poses, taken, inlier_frac)``:
+        ``taken`` is None where the branch did not run, else the sequences
+        ``(B,)`` that took the recovered pose.
+        Where any sequence's gate reads below ``relocalize_below`` (one read
+        back to the host), relocalize from a grid around the solved pose
+        (the hypotheses one after another, as the JAX in-scan branch does,
+        and without the tracking ``dist_thresh``, which would starve the
+        far-off starts) and take the recovered pose of each unhealthy
+        sequence where it scores strictly better than the failed solve,
+        both scored by the full health at the pipeline's ``dsratio``."""
+        inlier = self._health_gate(live, poses, window)
+        unhealthy = inlier < self.relocalize_below
+        if not bool(unhealthy.any()):
+            return poses, None, inlier
+        target = Pointclouds(points=map_pc.points, num_points=map_pc.num_points,
+                             normals=map_pc.normals)
+        health = (_projective_health if self._finest_assoc == "projective"
+                  else _association_health)
+        kw = dict(dsratio=self.dsratio, robust_scale=self.robust_scale,
+                  dist_thresh=self.dist_thresh, icp_capacity=None)
+        h1 = health(target, live.with_poses(poses), **kw)
+        anchors = perturbation_grid(poses[:, 0], **self.relocalize_grid)
+        rec, _info = relocalize(
+            target, live, anchors, odom=self.odom, dsratio=self.relocalize_dsratio,
+            numiters=self.relocalize_numiters, robust_scale=self.robust_scale,
+            hypothesis_mode="scan")
+        h2 = health(target, live.with_poses(rec), **kw)
+        take = unhealthy & (h2["inlier_frac"] > h1["inlier_frac"])
+        return torch.where(take[:, None, None, None], rec, poses), take, inlier
+
+    def _anchor_snapshot(self, live: RGBDImages) -> Tuple[torch.Tensor, ...]:
+        """The frozen keyframe ``(points, normals, counts)``: the frame's
+        stride-``anchor_dsratio`` world-frame cloud at its pose, zero-normal
+        rows dropped. A strided anchor is safe here: the drift gate
+        associates by projection, with no stride filter on the map side."""
+        pc = downsample_rgbdimages(live, self.anchor_dsratio or self.dsratio)
+        solid = pc.nonpad_mask & (torch.sum(pc.normals * pc.normals, dim=-1) > 0.0)
+        cap = pc.points.shape[1]
+        pts, cnt = compact_masked(pc.points, solid, cap)
+        nrm, _ = compact_masked(pc.normals, solid, cap)
+        return pts, nrm, cnt
+
+    def _maybe_anchor_recover(self, anchor: Tuple[torch.Tensor, ...], live: RGBDImages,
+                              poses: torch.Tensor):
+        """The drift branch. Returns ``(poses, drifting, drifting_on_host,
+        taken)``: ``taken`` is None where the branch did not run, else the
+        sequences ``(B,)`` that took the re-solved pose.
+        The solved pose is scored against the anchor by projection; a
+        sequence drifts where the anchor is in view (admissible fraction
+        above 0.2) and the conditional inlier fraction (inliers among
+        admissible rows, which the camera's own motion leaves alone) is
+        below ``anchor_below``. Where any drifts (one read back to the
+        host), one Tukey 1-NN solve against the anchor from the solved pose
+        at ``2 * robust_scale``; its pose is taken where its absolute inlier
+        fraction is higher."""
+        a_pts, a_nrm, a_cnt = anchor
+        anchor_pc = Pointclouds(points=a_pts, num_points=a_cnt, normals=a_nrm)
+        _, _, H, W = live.shape
+        frame_geom = pack_frame_geom(live)
+
+        def anchor_health(pose):
+            inl, assoc = _window_health_projective(
+                anchor_pc, frame_geom, live.intrinsics[:, 0], pose, H, W,
+                robust_scale=self.robust_scale, dist_thresh=self.dist_thresh)
+            return inl, inl / torch.clamp(assoc, min=1e-6), assoc
+
+        inl, cond, assoc = anchor_health(poses[:, 0])
+        drifting = (assoc > 0.2) & (cond < self.anchor_below)
+        on_host = drifting.cpu()
+        if not bool(on_host.any()):
+            return poses, drifting, on_host, None
+        frames_pc = downsample_rgbdimages(live.with_poses(poses), self.dsratio)
+        prov_cls = GradICPOdometryProvider if self.odom == "gradicp" else ICPOdometryProvider
+        prov = prov_cls(numiters=self.relocalize_numiters, robust_loss="tukey",
+                        robust_scale=2.0 * self.robust_scale)
+        X = prov.provide(anchor_pc, frames_pc)
+        rec = orthonormalize_rotations(compose_transformations(X[:, 0], poses[:, 0]))[:, None]
+        in2, _cond2, _assoc2 = anchor_health(rec[:, 0])
+        take = drifting & (in2 > inl)
+        return torch.where(take[:, None, None, None], rec, poses), drifting, on_host, take
 
     # ------------------------------------------------------------------ #
     # Forward
@@ -443,6 +653,53 @@ class ICPSLAM(nn.Module):
         if not self.remat:
             return body(*args)
         return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
+
+    def _track(self, map_pc: Pointclouds, prev_pose: torch.Tensor, prev_delta: torch.Tensor,
+               anchor, f: int, frame: RGBDImages):
+        r"""One tracked frame ``f`` (global index) of the forward: predict,
+        localize, run the armed recovery branches, fuse, and refresh the
+        keyframe anchor. ``frame`` is the sequence-length-1 frame (its poses
+        are not read). Returns ``(map, pose (B, 4, 4), motion (B, 4, 4),
+        anchor, events)``; ``events`` holds, when armed, the gate's reading
+        (``'health'``), whether the relocalization (``'relocalize'``) and
+        the anchor re-solve (``'anchor'``) ran, and where one ran, whether
+        its pose was taken (``'relocalize_taken'``, ``'anchor_taken'``: one
+        more read back on such a frame)."""
+        cv = self.motion_model == "constant_velocity"
+        # the constant-velocity chain pose @ inv(prev) @ pose doubles the
+        # rotation's orthonormality error each frame: re-project
+        pred = (orthonormalize_rotations(compose_transformations(prev_delta, prev_pose))
+                if cv else prev_pose)
+        live = frame.with_poses(pred[:, None])
+        events = {}
+        anchored = self.anchor_every > 0
+        if self.relocalize_below > 0:
+            pose, window = self._localize(map_pc, live, live, return_window=True)
+            pose, taken, events["health"] = self._maybe_relocalize(map_pc, live, pose, window)
+            events["relocalize"] = taken is not None
+            if taken is not None:
+                events["relocalize_taken"] = bool(taken.any())
+            if anchored:
+                # the self-consistent gate cannot see slow drift; the frozen
+                # keyframe can
+                pose, drifting, drifting_host, taken = self._maybe_anchor_recover(
+                    anchor, live, pose)
+                events["anchor"] = taken is not None
+                if taken is not None:
+                    events["anchor_taken"] = bool(taken.any())
+        else:
+            pose = self._localize(map_pc, live, live)
+        live = live.with_poses(pose)
+        map_pc = self._map(map_pc, live)
+        if cv:  # world-frame motion of this frame, the next prediction
+            prev_delta = compose_transformations(pose[:, 0], inverse_transformation(prev_pose))
+        if anchored and f % self.anchor_every == 0 and not bool(drifting_host.all()):
+            # refresh at the solved pose, but not where drifting: that would
+            # bake the drift into the reference
+            anchor = tuple(
+                torch.where(drifting.reshape((-1,) + (1,) * (new.ndim - 1)), old, new)
+                for new, old in zip(self._anchor_snapshot(live), anchor))
+        return map_pc, pose[:, 0], prev_delta, anchor, events
 
     def forward(self, frames: RGBDImages) -> Tuple[Pointclouds, torch.Tensor]:
         r"""Run SLAM over a batch of sequences. Returns ``(pointclouds,
@@ -475,35 +732,29 @@ class ICPSLAM(nn.Module):
         else:
             prev_pose = torch.eye(4, dtype=frames.dtype, device=frames.device).expand(B, 4, 4)
         poses = [prev_pose]
-        map_pc = self._map(map_pc, frames[:, 0].with_poses(prev_pose[:, None]))
+        live0 = frames[:, 0].with_poses(prev_pose[:, None])
+        map_pc = self._map(map_pc, live0)
         if self.prune_every == 1:  # (0 + 1) % prune_every == 0 only then
             map_pc = self._prune(map_pc)
-        cv = self.motion_model == "constant_velocity"
-
-        def track(map_pc, prev_pose, prev_delta, rgb, depth):
-            # the constant-velocity chain pose @ inv(prev) @ pose doubles the
-            # rotation's orthonormality error each frame: re-project
-            pred = (orthonormalize_rotations(compose_transformations(prev_delta, prev_pose))
-                    if cv else prev_pose)
-            live = RGBDImages(rgb, depth, frames.intrinsics, pred[:, None],
-                              normal_pitch=frames.normal_pitch)
-            pose = self._localize(map_pc, live, live)[:, 0]
-            map_pc = self._map(map_pc, live.with_poses(pose[:, None]))
-            if cv:  # world-frame motion of this frame, the next prediction
-                prev_delta = compose_transformations(pose, inverse_transformation(prev_pose))
-            return map_pc, pose, prev_delta
-
+        armed = self.relocalize_below > 0
+        log = self.recovery_log = {"health": [], "relocalize": [], "anchor": []}
         prev_delta = torch.eye(4, dtype=frames.dtype, device=frames.device).expand(B, 4, 4)
+        # the drift anchor starts from the (trusted) bootstrap frame
+        anchor = self._anchor_snapshot(live0) if self.anchor_every > 0 else None
         start = 0  # tracked frames done; global frame = start + 1
         for i, (n, cap_seg) in enumerate(schedule):
             n_track = n - 1 if i == 0 else n  # frame 0 was mapped above
             map_pc = map_pc.with_capacity(cap_seg)
             for sub_n, prune_after in split_prune_segments(start + 1, n_track, self.prune_every):
                 for f in range(start + 1, start + 1 + sub_n):
-                    map_pc, prev_pose, prev_delta = self._frame(
-                        track, map_pc, prev_pose, prev_delta,
-                        frames.rgb_image[:, f:f + 1], frames.depth_image[:, f:f + 1])
+                    map_pc, prev_pose, prev_delta, anchor, events = self._frame(
+                        self._track, map_pc, prev_pose, prev_delta, anchor, f, frames[:, f])
                     poses.append(prev_pose)
+                    if armed:
+                        log["health"].append(events["health"])
+                        for kind in ("relocalize", "anchor"):
+                            if events.get(kind):
+                                log[kind].append(f)
                 if prune_after:
                     map_pc = self._prune(map_pc)
                 start += sub_n

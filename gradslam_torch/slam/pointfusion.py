@@ -27,7 +27,10 @@ class PointFusion(ICPSLAM):
     confidence-weighted map merging, with ``odom='gt'``, ``'icp'`` or ``'gradicp'``
     tracking.
 
-    Args (besides :class:`ICPSLAM`'s):
+    Args (besides :class:`ICPSLAM`'s, which pass through, the recovery and
+    projective options included; ``icp_window_frames`` is refused, as in
+    the JAX package: the map merges in place, so buffer recency is not
+    spatial recency):
         dist_th, angle_th, sigma: fusion gates and confidence width.
         active_capacity, association, merge: see
             :func:`~gradslam_torch.slam.fusionutils.update_map_fusion`.
@@ -51,6 +54,12 @@ class PointFusion(ICPSLAM):
         quantize_colors: bool = False,
         **kwargs,
     ):
+        if kwargs.get("icp_window_frames") is not None:
+            raise ValueError(
+                "icp_window_frames is not supported by PointFusion: its map merges in place, "
+                "so buffer recency does not mean spatial recency. Use it with ICPSLAM's "
+                "append-ordered map, or rely on PointFusion's bounded map size instead."
+            )
         if association not in ("auto", "sort_full", "windowed"):
             raise ValueError(f"Unknown association mode: {association!r}")
         if merge not in ("auto", "gather", "scatter"):
