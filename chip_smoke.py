@@ -113,13 +113,39 @@ Phases (each raises on failure; nothing is caught):
     2x; then the 1-NN kernel at the relocalization's B=5 shape and the
     anchor re-solve's, and the scatter kernel at the large map's last-frame
     tables, each against its plain version and timed as in phases 3 and 3b;
-14. print the kernels' JSON line, the card's line, and the result line.
+14. the semantic, online and K-NN slice (after the recovery phase;
+    ``semantic_online_phase``): (1) the ``SEMANTIC_ROWS`` (gt with the
+    gather and, at ``SEM_SCATTER_CAP``, the scatter merge, each with float
+    and quantized colors; tracked gradICP; ICPSLAM's aggregate map at
+    320x240) with ``feature_channels=21`` and a one-hot plane of each
+    pixel's world-x stripe (``stripe_plane``), each beside the same run
+    with no features: map within 0.2% of the JAX package's CPU run
+    (``tests/port/data/semantic_jax_cpu.npz``), each channel's sum within
+    1e-3 of the golden's, each point's features summing to 1 within 1e-5,
+    the argmax class the stripe of the point's own x on 99% of points,
+    geometry, colors, confidences and poses SHA-256-equal to the
+    featureless run, the tracked row's aligned ATE within 2x of the
+    golden's and ``rpe`` on the golden's poses within 1e-3 of JAX's;
+    frames/s and peak memory beside the featureless run's; (2) the online
+    API at ``ONLINE_CAP``: ``forward``, the ``step`` loop and the
+    ``localize`` -> ``map_update`` loop with equal digests and launches;
+    (3) ``knn_points(K=17)`` and ``estimate_normals(k=16)`` on frame 0's
+    stride-4 cloud against the golden, ``knn_points(K=1)`` against
+    ``nn_points_auto``, and on the full 307,200-point cloud: sampled rows'
+    K sets against a brute-force row, normals within 5 degrees of the
+    frame's on 99% of interior pixels, and the time; (4) the 1-NN kernel at
+    the stride-4 cloud's shape and the scatter kernel at the F=21 features
+    write-backs (88- and 92-byte rows), the window compaction at
+    ``SEM_SCATTER_CAP`` and the F=21 aggregate append, each against its
+    plain version and timed as in phases 3 and 3b;
+15. print the kernels' JSON line, the card's line, and the result line.
 
 Every timed run counts both kernels' launches from 0 and must hit the
 counts derived from the code (``KNN_LAUNCHES_PER_RUN``,
 ``PROD_LAUNCHES_PER_RUN``, ``ICP_KNN_LAUNCHES``, ``SCATTER_LAUNCHES``,
 ``grad_launches``, ``recovery_launches`` from the frames on which a run's
-recovery branches ran); the kernels' line prints the counts read in the
+recovery branches ran, ``semantic_launches``; the online loops must launch
+what ``forward`` does); the kernels' line prints the counts read in the
 runs.
 
 Exits non-zero, printing no result, when no CUDA device is available.
@@ -144,10 +170,13 @@ import torch
 
 from gradslam_torch import (
     ICPSLAM,
+    Pointclouds,
     PointFusion,
     RGBDImages,
+    estimate_normals,
     hard_sequence,
     perturbation_grid,
+    pointclouds_from_rgbdimages,
     relocalize,
     synthetic_sequence,
 )
@@ -158,9 +187,9 @@ from gradslam_torch.geometry import (
     orthonormalize_rotations,
 )
 from gradslam_torch.interop import rgbdimages_from_numpy
-from gradslam_torch.metrics import ate_rmse, chamfer_distance
+from gradslam_torch.metrics import ate_rmse, chamfer_distance, rpe
 from gradslam_torch.odometry.icputils import downsample_rgbdimages
-from gradslam_torch.ops import _build, knn_cuda, nn_points, scatter_cuda
+from gradslam_torch.ops import _build, knn_cuda, knn_points, nn_points, nn_points_auto, scatter_cuda
 from gradslam_torch.ops._build import load_library
 from gradslam_torch.ops.scatter import scatter_rows_into_plain, scatter_rows_plain
 from gradslam_torch.slam.fusionutils import _resolve_modes
@@ -420,6 +449,101 @@ LARGE_ROWS = {
 }
 LARGE_COUNT_REL = 0.002  # map within 0.2% of the golden's
 LARGE_ATE_FACTOR = 2.0
+
+# The semantic / online / K-NN slice (semantic_online_phase), against the JAX
+# package's CPU runs of the same rows (tests/port/make_semantic_golden.py).
+# The user plane is ScanNet's label width (20 classes and "unlabeled",
+# examples/pointfusion_scannet.py:35) as a one-hot of each pixel's world x in
+# 10 cm stripes (stripe_plane): a class that stays with the surface point
+# from frame to frame, made from the clip's depths and poses.
+SEM_F = 21
+SEM_STRIPE_M = 0.1
+SEM_SCATTER_CAP = 7 * H * W  # above 6 * H * W 'auto' fuses windowed + scatter
+# name -> (pipeline, clip (B, L, H, W), options); each runs with feature_channels
+# 0 and SEM_F
+SEMANTIC_ROWS = {
+    "gt": ("PointFusion", (B, L, H, W), dict(odom="gt", map_capacity=SCHEDULE)),
+    "gt_scatter": ("PointFusion", (B, L, H, W), dict(odom="gt", map_capacity=SEM_SCATTER_CAP)),
+    "gt_quantized": ("PointFusion", (B, L, H, W),
+                     dict(odom="gt", quantize_colors=True, map_capacity=SCHEDULE)),
+    "gt_quantized_scatter": ("PointFusion", (B, L, H, W),
+                             dict(odom="gt", quantize_colors=True,
+                                  map_capacity=SEM_SCATTER_CAP)),
+    "tracked": ("PointFusion", (B, L, H, W),
+                dict(odom="gradicp", dsratio=DSRATIO, numiters=NUMITERS, map_capacity=SCHEDULE)),
+    "icpslam_gt": ("ICPSLAM", (B, L, ICP_H, ICP_W), dict(odom="gt", map_capacity=ICP_SCHEDULE)),
+}
+SEM_GOLDEN = Path(__file__).resolve().parent / "tests/port/data/semantic_jax_cpu.npz"
+SEM_COUNT_REL = 0.002  # map within 0.2% of the golden's
+# each channel's sum over the map within 1e-3 of the golden's; the tracked
+# row's map parts from the golden's at near-tie merges (516,112 against
+# 516,217 points, the same at F = 0), and its sums by up to 1.14e-3, so its
+# channels are held to the map count's own bar
+SEM_SUM_REL = {"gt": 1e-3, "tracked": SEM_COUNT_REL}
+SEM_ONE_ATOL = 1e-5  # each fused point's one-hot average sums to 1
+SEM_CLASS_MIN = 0.99  # argmax class = the stripe of the point's own x
+SEM_ATE_FACTOR = 2.0
+SEM_RPE_REL = 1e-3
+# rpe's rotation is arccos((trace - 1) / 2) in float32: below 3.45e-4 rad
+# (arccos(1 - 2**-24)) an angle rounds to 0, so two roundings of the same
+# poses can part by that much whatever their relative gap
+SEM_RPE_ROT_ATOL = 3.5e-4
+# The online API at a fixed capacity, against forward at the same capacity.
+ONLINE_CAP = SCHEDULE[-1][1]
+ONLINE_ROWS = {
+    "gt": dict(odom="gt", feature_channels=SEM_F),
+    "tracked": dict(odom="gradicp", dsratio=DSRATIO, numiters=NUMITERS,
+                    motion_model="constant_velocity"),
+}
+# K-NN and estimate_normals(k=16): K = 17 neighbours, on frame 0's stride-4
+# cloud (19,200 points, against the golden) and its full cloud (307,200).
+KNN_K = 17
+KNN_STRIDE = 4
+KNN_GOLDEN_NORMAL_ROWS = 4  # the golden keeps every 4th row's normal
+KNN_NORMAL_ATOL = 1e-4
+KNN_BRUTE_ROWS = 256
+KNN_NORMAL_DEG = 5.0
+KNN_NORMAL_MIN = 0.99
+KNN_BORDER = 8  # interior pixels: this far from the frame's edge
+
+
+def stripe_classes(depth: np.ndarray, K: np.ndarray, P: np.ndarray) -> np.ndarray:
+    """``(B, L, H, W)`` int64 class of each pixel: ``floor((x_w + 10) /
+    SEM_STRIPE_M) mod SEM_F`` of its world x (back-projected in float64 on
+    the host, so the JAX golden and the card read the same classes); class 0
+    where the depth is invalid."""
+    d = depth[..., 0].astype(np.float64)
+    _, _, h, w = d.shape
+    K = K[:, 0].astype(np.float64)[:, None, None, None]  # (B, 1, 1, 1, 4, 4)
+    u = np.arange(w, dtype=np.float64)[None, None, None, :]
+    v = np.arange(h, dtype=np.float64)[None, None, :, None]
+    xc = (u - K[..., 0, 2]) / K[..., 0, 0] * d
+    yc = (v - K[..., 1, 2]) / K[..., 1, 1] * d
+    R = P.astype(np.float64)[:, :, None, None]  # (B, L, 1, 1, 4, 4)
+    xw = R[..., 0, 0] * xc + R[..., 0, 1] * yc + R[..., 0, 2] * d + R[..., 0, 3]
+    cls = np.floor((xw + 10.0) / SEM_STRIPE_M).astype(np.int64) % SEM_F
+    return np.where(d > 0, cls, 0)
+
+
+def stripe_plane(depth: np.ndarray, K: np.ndarray, P: np.ndarray) -> np.ndarray:
+    """The ``(B, L, H, W, SEM_F)`` float32 one-hot plane of
+    :func:`stripe_classes`."""
+    return np.eye(SEM_F, dtype=np.float32)[stripe_classes(depth, K, P)]
+
+
+def stride_cloud(depth: np.ndarray, K: np.ndarray, P: np.ndarray) -> np.ndarray:
+    """Frame 0's world-frame points at stride ``KNN_STRIDE``, ``(1, N, 3)``
+    float32, back-projected in float64 on the host: the K-NN golden's input,
+    the same bits on both sides."""
+    d = depth[0, 0, ::KNN_STRIDE, ::KNN_STRIDE, 0].astype(np.float64)
+    h, w = d.shape
+    k = K[0, 0].astype(np.float64)
+    u = np.arange(0, w * KNN_STRIDE, KNN_STRIDE, dtype=np.float64)[None, :]
+    v = np.arange(0, h * KNN_STRIDE, KNN_STRIDE, dtype=np.float64)[:, None]
+    cam = np.stack([(u - k[0, 2]) / k[0, 0] * d, (v - k[1, 2]) / k[1, 1] * d, d], -1)
+    pose = P[0, 0].astype(np.float64)
+    world = cam.reshape(-1, 3) @ pose[:3, :3].T + pose[:3, 3]
+    return world[None].astype(np.float32)
 
 # Scatter launches a run, counted from the code. One count is one wrapper
 # call that launches scatter_kernel (behind its fill or copy of the table):
@@ -1680,13 +1804,17 @@ LOCKSTEP_BAR = 2e-4  # each frame's step from the CPU run's state (as phase 8)
 
 def fusion_scatters(cap: int, H: int, W: int, kw: dict) -> int:
     """Scatter launches of one PointFusion map update: the winner table and
-    the write-back (row inversion or scatter merge), and the window's
-    compaction when the association is windowed (``'auto'`` resolved by
+    the write-back (row inversion or scatter merge, with user feature
+    channels one more for the features buffer), and the window's compaction
+    when the association is windowed (``'auto'`` resolved by
     ``fusionutils._resolve_modes``)."""
     window = min(kw.get("active_capacity") or 2 * H * W, cap)
-    association, _ = _resolve_modes(kw.get("association", "auto"), kw.get("merge", "auto"),
-                                    cap, H * W, window)
-    return 3 if association == "windowed" else 2
+    association, merge = _resolve_modes(kw.get("association", "auto"), kw.get("merge", "auto"),
+                                        cap, H * W, window)
+    # a map with user channels writes its features buffer in one more scatter
+    # under the scatter merge
+    features = 1 if merge == "scatter" and kw.get("feature_channels") else 0
+    return (3 if association == "windowed" else 2) + features
 
 
 def recovery_launches(kw: dict, shape: tuple, log: dict) -> dict:
@@ -2231,6 +2359,351 @@ def recovery_phase(frames) -> tuple:
                                           fill))
     return knn_rows, max_err, scatter_rows_
 
+class ScatterIntoCapture:
+    """Keeps the last scatter call into a buffer of each row width made
+    while it is active (the kernel still runs)."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        self._real = pointclouds_module._scatter_rows_into
+
+        def spy(buf, dest, values):
+            self.calls[buf.shape[-1]] = (buf, dest, values, 0)
+            return self._real(buf, dest, values)
+
+        pointclouds_module._scatter_rows_into = spy
+        return self
+
+    def __exit__(self, *exc):
+        pointclouds_module._scatter_rows_into = self._real
+
+
+@functools.lru_cache(maxsize=None)
+def semantic_frames(shape: tuple) -> tuple:
+    """A clip of ``shape`` on the card without and with its stripe plane,
+    and its poses on the host; made once for each shape."""
+    rgb, depth, K, P = grad_arrays(shape)
+    plain = rgbdimages_from_numpy(rgb, depth, K, P, device="cuda")
+    plane = torch.from_numpy(stripe_plane(depth, K, P)).cuda()
+    return plain, dataclasses.replace(plain, feature_image=plane), P
+
+
+def semantic_launches(cls: str, kw: dict, shape: tuple, log: dict) -> dict:
+    """Both kernels' launches of one semantic row: ICPSLAM's aggregate map
+    appends points, normals and colors, and features with user channels, a
+    scatter each a frame; PointFusion as :func:`recovery_launches`."""
+    if cls == "ICPSLAM":
+        return {"knn": 0, "scatter": (4 if kw.get("feature_channels") else 3) * shape[1]}
+    return recovery_launches(kw, shape, log)
+
+
+def geometry_digest(pc, poses, base: int) -> str:
+    """Poses, counts, points, normals, colors and the first ``base`` feature
+    channels (the bookkeeping the featureless map carries)."""
+    parts = [poses, pc.num_points, pc.num_dropped, pc.points, pc.normals]
+    parts += [b for b in (pc.colors,) if b is not None]
+    if base:
+        parts.append(pc.features[..., :base])
+    return sha256_of(*parts)
+
+
+def semantic_row(name: str, golden) -> dict:
+    """One row of SEMANTIC_ROWS with feature_channels 0 and SEM_F: a warm-up
+    each, then two counted runs each in turns (frames/s from the median);
+    the F = SEM_F map against the golden and the F = 0 run. Returns the
+    F = SEM_F run's scatter calls (new tables by size, writes into a buffer
+    by row width)."""
+    cls, shape, kw = SEMANTIC_ROWS[name]
+    plain, sem, P = semantic_frames(shape)
+    frames = {0: plain, SEM_F: sem}
+    slams = {nf: globals()[cls](**kw, feature_channels=nf) for nf in frames}
+    for nf, slam in slams.items():
+        slam(frames[nf])
+    runs, secs, peaks = {}, {0: [], SEM_F: []}, {0: 0, SEM_F: 0}
+    for nf in (0, SEM_F, SEM_F, 0):  # two timed runs each, in turns
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        knn_cuda.launches = 0
+        scatter_cuda.launches = 0
+        with ScatterCapture() as cap, ScatterIntoCapture() as cap_into:
+            t0 = time.perf_counter()
+            pc, poses = slams[nf](frames[nf])
+            torch.cuda.synchronize()
+            secs[nf].append(time.perf_counter() - t0)
+        path = f"semantic_{name}_F{nf}"
+        LAUNCHES[path] = {"knn": knn_cuda.launches, "scatter": scatter_cuda.launches}
+        expect = semantic_launches(cls, dict(kw, feature_channels=nf), shape,
+                                   slams[nf].recovery_log)
+        if LAUNCHES[path] != expect:
+            raise AssertionError(f"{path}: launches {LAUNCHES[path]}, expected {expect}")
+        check_run(pc, poses, shape, path)
+        peaks[nf] = max(peaks[nf], torch.cuda.max_memory_allocated())
+        runs[nf] = (pc, poses, cap, cap_into)
+    (pc0, poses0, _, _), (pc, poses, cap, cap_into) = runs[0], runs[SEM_F]
+    secs0, secs = float(np.median(secs[0])), float(np.median(secs[SEM_F]))
+    peak0, peak = peaks[0], peaks[SEM_F]
+    base0 = 0 if pc0.features is None else pc0.features.shape[-1]
+    base = pc.features.shape[-1] - SEM_F
+    failed = []
+    same_geometry = geometry_digest(pc, poses, base0) == geometry_digest(pc0, poses0, base0)
+    if not same_geometry:
+        failed.append(f"the F={SEM_F} map's geometry or poses differ from the F=0 run's")
+    n = int(pc.num_points[0])
+    ref = int(golden[f"{name}_num_points"])
+    if abs(n - ref) > SEM_COUNT_REL * ref:
+        failed.append(f"map {n}, golden {ref}")
+    user = pc.features[0, :n, base:].double()
+    one = float((user.sum(-1) - 1.0).abs().max())
+    if not one <= SEM_ONE_ATOL:
+        failed.append(f"a point's features sum to 1 +- {one}")
+    x = pc.points[0, :n, 0].double()
+    quality = ""
+    if kw["odom"] != "gt":
+        gt = torch.from_numpy(P[0])
+        ate, ref_ate = float(ate_rmse(poses[0].cpu(), gt)), float(golden[f"{name}_ate_m"])
+        if not ate <= SEM_ATE_FACTOR * ref_ate:
+            failed.append(f"aligned ATE {ate} m, golden {ref_ate} m")
+        # rpe on the card against JAX's on the same poses (the golden's)
+        same = rpe(torch.from_numpy(golden[f"{name}_poses"]).cuda(), gt.cuda())
+        same, ref_rpe = np.array([float(v) for v in same]), golden[f"{name}_rpe"]
+        gap = np.abs(same - ref_rpe)
+        if not (gap[0] <= SEM_RPE_REL * ref_rpe[0]
+                and gap[1] <= max(SEM_RPE_REL * ref_rpe[1], SEM_RPE_ROT_ATOL)):
+            failed.append(f"rpe {same} on the golden's poses, JAX {ref_rpe}")
+        own = [float(v) for v in rpe(poses[0], gt.cuda())]
+        quality = (f", aligned ATE {ate:.4e} m (golden {ref_ate:.4e} m), rpe {own[0]:.4e} m "
+                   f"{own[1]:.4e} rad (golden {ref_rpe[0]:.4e} m {ref_rpe[1]:.4e} rad; the card's "
+                   f"rpe on the golden's poses {gap[0]:.2e} m and {gap[1]:.2e} rad from JAX's)")
+    sums, ref_sums = user.sum(0).cpu().numpy(), golden[f"{name}_feature_sums"]
+    rel = np.abs(sums - ref_sums) / np.maximum(np.abs(ref_sums), 1.0)
+    bar = SEM_SUM_REL["gt" if kw["odom"] == "gt" else "tracked"]
+    if not rel.max() <= bar:
+        failed.append(f"channel sums {sums.tolist()}, golden {ref_sums.tolist()}")
+    label = user.argmax(-1)
+    stripe = torch.remainder(torch.floor((x + 10.0) / SEM_STRIPE_M).long(), SEM_F)
+    agree = float((label == stripe).double().mean())
+    if not agree >= SEM_CLASS_MIN:
+        failed.append(f"argmax class is the point's stripe on {agree}")
+    hist = torch.bincount(label, minlength=SEM_F).cpu().numpy()
+    L_ = shape[1]
+    log(f"semantic {name} {shape[3]}x{shape[2]}x{L_}: F={SEM_F} map {n} (golden {ref}, "
+        f"{100 * (n - ref) / ref:+.4f}%), channel sums within {rel.max():.2e} of the golden's "
+        f"(bar {bar:g}), one-hot sums within {one:.2e} of 1, argmax = stripe on "
+        f"{100 * agree:.3f}% of points, class histogram {hist.tolist()} (golden "
+        f"{golden[f'{name}_class_hist'].tolist()}); geometry and poses SHA-256-"
+        f"{'equal to' if same_geometry else 'different from'} F=0{quality}; "
+        f"{L_ / secs:.4f} frames/s F={SEM_F} vs {L_ / secs0:.4f} F=0; peak {peak} B vs {peak0} B; "
+        f"launches {LAUNCHES[f'semantic_{name}_F{SEM_F}']} vs {LAUNCHES[f'semantic_{name}_F0']}")
+    if failed:
+        raise AssertionError(f"semantic {name}: " + "; ".join(failed))
+    return {"new": cap.calls, "into": cap_into.calls}
+
+
+def step_loop(slam, frames, cv: bool, split: bool = False):
+    """The online loop of ``examples/online_slam.py`` on a fresh
+    ``ONLINE_CAP`` map: frame 0 bootstraps at its own pose, each later
+    frame is tracked from the previous returned pose (``odom='gt'``: fused
+    at its own), with ``cv`` the previous step's motion threaded as
+    ``prev_transform`` (the identity first); with ``split`` a step is
+    ``localize`` then ``map_update``."""
+    B_, L_ = frames.shape[:2]
+    pc, pose = slam.step(slam.empty_map(B_, ONLINE_CAP, device=frames.device), frames[:, 0])
+    poses = [pose[:, 0]]
+    delta = torch.eye(4, device=pose.device).expand(B_, 4, 4) if cv else None
+    for f in range(1, L_):
+        live = frames[:, f]
+        prev = None if slam.odom == "gt" else frames[:, f - 1].with_poses(poses[-1][:, None])
+        if split:
+            pose = slam.localize(pc, live, prev, prev_transform=delta)
+            pc = slam.map_update(pc, live.with_poses(pose))
+        else:
+            pc, pose = slam.step(pc, live, prev, prev_transform=delta)
+        if cv:
+            delta = compose_transformations(pose[:, 0], inverse_transformation(poses[-1]))
+        poses.append(pose[:, 0])
+    return pc, torch.stack(poses, dim=1)
+
+
+def online_rows() -> None:
+    """(2) Each ONLINE_ROWS pipeline at ``ONLINE_CAP``: ``forward``, the step
+    loop and (tracked) the localize -> map_update loop, a warm-up each, then
+    two counted runs each in turns: digests and both kernels' launches
+    equal, frames/s from the median."""
+    plain, sem, _ = semantic_frames((B, L, H, W))
+    for name, kw in ONLINE_ROWS.items():
+        frames = sem if kw.get("feature_channels") else plain
+        slam = PointFusion(map_capacity=ONLINE_CAP, **kw)
+        cv = kw.get("motion_model") == "constant_velocity"
+        loops = {"forward": lambda: slam(frames), "step": lambda: step_loop(slam, frames, cv)}
+        if kw["odom"] != "gt":
+            loops["localize_map_update"] = lambda: step_loop(slam, frames, cv, split=True)
+        for run in loops.values():
+            run()
+        seen, secs, digests, counts = {}, {loop: [] for loop in loops}, set(), set()
+        for loop in list(loops) + list(loops)[::-1]:  # two counted runs each, in turns
+            torch.cuda.synchronize()
+            knn_cuda.launches = 0
+            scatter_cuda.launches = 0
+            t0 = time.perf_counter()
+            pc, poses = loops[loop]()
+            torch.cuda.synchronize()
+            secs[loop].append(time.perf_counter() - t0)
+            path = f"online_{name}_{loop}"
+            LAUNCHES[path] = {"knn": knn_cuda.launches, "scatter": scatter_cuda.launches}
+            seen[loop] = (map_digest(pc, poses), LAUNCHES[path], float(np.median(secs[loop])),
+                          int(pc.num_points[0]))
+            digests.add(seen[loop][0])
+            counts.add(json.dumps(LAUNCHES[path], sort_keys=True))
+        if len(digests) != 1 or len(counts) != 1:
+            raise AssertionError(f"online {name}: {seen}")
+        log(f"online {name} {W}x{H}x{L} at capacity {ONLINE_CAP}: digests equal "
+            f"({seen['forward'][0][:16]}), map {seen['forward'][3]}, launches "
+            f"{seen['forward'][1]} in every loop; frames/s "
+            + ", ".join(f"{loop} {L / v[2]:.4f}" for loop, v in seen.items()))
+
+
+def knn_rows_check(golden) -> tuple:
+    """(3) K-NN and estimate_normals at K = KNN_K: frame 0's stride-4 cloud
+    against the golden, knn_points(K=1) against nn_points_auto, the full
+    cloud's K sets on sampled rows against a brute-force row, its normals
+    against the frame's. Returns the 1-NN kernel's case at the stride-4
+    cloud (timed by the caller)."""
+    from gradslam_torch.ops import knn as knn_module
+
+    rgb, depth, K, P = grad_arrays((B, L, H, W))
+    host = stride_cloud(depth, K, P)
+    if hashlib.sha256(host.tobytes()).hexdigest() != str(golden["knn_input_sha256"]):
+        raise AssertionError("knn: the stride-4 cloud differs from the golden's input")
+    pts = torch.from_numpy(host).cuda()
+    N = pts.shape[1]
+
+    def brute(src_rows, tgt):
+        s2 = knn_module._sq_norm_fma(src_rows)[:, :, None]
+        t2 = knn_module._sq_norm_fma(tgt)[:, None, :]
+        return s2 + t2 - 2.0 * torch.bmm(src_rows, tgt.transpose(1, 2))
+
+    def near_tie_rows(idx, ref_idx, rows, tgt):
+        """Rows whose K sets differ; each must differ only among targets
+        within 1e-6 of the row's K-th distance (a tie up to rounding)."""
+        differ = (idx != ref_idx).any(-1).nonzero()[:, 0]
+        for r in differ.tolist():
+            d = brute(tgt[:, rows[r]:rows[r] + 1], tgt)[0, 0]
+            kth = torch.sort(d).values[KNN_K - 1]
+            for i in set(idx[r].tolist()) ^ set(ref_idx[r].tolist()):
+                if abs(float(d[i] - kth)) > 1e-6 * max(1.0, float(kth)):
+                    raise AssertionError(f"knn: row {rows[r]} neighbour {i} at {float(d[i])}, "
+                                         f"K-th {float(kth)}")
+        return len(differ)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = knn_points(pts, pts, K=KNN_K)
+    torch.cuda.synchronize()
+    small_s = time.perf_counter() - t0
+    ref_idx = torch.from_numpy(golden["knn_idx_delta"].astype(np.int64)
+                               + np.arange(N)[:, None]).cuda()
+    ties = near_tie_rows(res.idx[0].long(), ref_idx, list(range(N)), pts)
+    normals = estimate_normals(Pointclouds(points=pts, num_points=torch.tensor([N]).cuda()),
+                               k=KNN_K - 1).normals[0, ::KNN_GOLDEN_NORMAL_ROWS]
+    n_gap = float((normals.cpu() - torch.from_numpy(golden["knn_normals"])).abs().max())
+    if not n_gap <= KNN_NORMAL_ATOL:
+        raise AssertionError(f"knn: normals {n_gap} from the golden's")
+    log(f"knn_points K={KNN_K} on frame 0's stride-{KNN_STRIDE} cloud ({N} points): neighbour "
+        f"indices equal to the JAX golden's on {N - ties} of {N} rows ({ties} differ only at "
+        f"ties within 1e-6), {small_s:.4f} s; estimate_normals(k={KNN_K - 1}) within {n_gap:.2e} "
+        "of the golden's")
+
+    knn_cuda.launches = 0
+    one = knn_points(pts, pts, K=1)
+    LAUNCHES["knn_points_k1"] = {"knn": knn_cuda.launches, "scatter": 0}
+    d1, i1 = nn_points_auto(pts, pts)
+    if LAUNCHES["knn_points_k1"]["knn"] != 1 or not (
+            torch.equal(one.dists[..., 0], d1) and torch.equal(one.idx[..., 0], i1)):
+        raise AssertionError(f"knn_points(K=1): launches {LAUNCHES['knn_points_k1']}, or differs "
+                             "from nn_points_auto")
+
+    frames = rgbdimages_from_numpy(rgb[:, :1], depth[:, :1], K, P[:, :1], device="cuda")
+    full = pointclouds_from_rgbdimages(frames[:, 0], filter_missing_depths=False)
+    M = full.points.shape[1]
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = knn_points(full.points, full.points, K=KNN_K, tgt_mask=full.nonpad_mask)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    knn_peak = torch.cuda.max_memory_allocated()
+    rows = torch.from_numpy(np.random.RandomState(0).choice(M, KNN_BRUTE_ROWS, replace=False))
+    rows = torch.sort(rows).values.cuda()
+    d = brute(full.points[:, rows], full.points)[0]
+    ref = torch.sort(d, dim=-1, stable=True).indices[:, :KNN_K]  # ties to the smallest index
+    ties_full = near_tie_rows(res.idx[0, rows].long(), ref, rows.tolist(), full.points)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = estimate_normals(full, k=KNN_K - 1)
+    torch.cuda.synchronize()
+    normals_s = time.perf_counter() - t0
+    cos = torch.abs(torch.sum(est.normals[0].reshape(H, W, 3)
+                              * frames.global_normal_map[0, 0], -1))
+    inner = cos[KNN_BORDER:-KNN_BORDER, KNN_BORDER:-KNN_BORDER]
+    within = float((inner > math.cos(math.radians(KNN_NORMAL_DEG))).double().mean())
+    if not within >= KNN_NORMAL_MIN:
+        raise AssertionError(f"estimate_normals: within {KNN_NORMAL_DEG} deg of the frame's "
+                             f"normals on {within} of interior pixels")
+    log(f"knn_points K={KNN_K} on frame 0's full cloud (N = M = {M}): "
+        f"{float(np.median(times)):.4f} s a call (runs {times}), peak {knn_peak} B; "
+        f"{KNN_BRUTE_ROWS} sampled rows' K sets equal to a brute-force row's on "
+        f"{KNN_BRUTE_ROWS - ties_full} ({ties_full} differ only at ties within 1e-6); "
+        f"estimate_normals(k={KNN_K - 1}) {normals_s:.4f} s, within {KNN_NORMAL_DEG} deg of "
+        f"the frame's normal map on {100 * within:.3f}% of interior pixels")
+    return ("knn_points_k1_stride4", pts, pts, None)
+
+
+def semantic_online_phase() -> tuple:
+    """The semantic / online / K-NN slice: (1) the SEMANTIC_ROWS, (2) the
+    online API, (3) K-NN and estimate_normals, (4) both kernels at the
+    slice's new shapes. Returns the 1-NN kernel's new timed shape and the
+    scatter kernel's."""
+    golden = np.load(SEM_GOLDEN)
+    t0 = time.perf_counter()
+    calls = {name: semantic_row(name, golden) for name in SEMANTIC_ROWS}
+    log(f"semantic rows: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    online_rows()
+    log(f"online rows: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    knn_case = knn_rows_check(golden)
+    log(f"knn rows: {time.perf_counter() - t0:.2f} s")
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    max_err = check_knn_case(*knn_case)
+    knn_row = time_knn(*knn_case[1:], sms, max_sm_clock_hz())
+    knn_row["case"] = knn_case[0]
+    scatter_shapes = {
+        f"features_writeback_F{SEM_F}": calls["gt_scatter"]["into"][1 + SEM_F],
+        f"features_writeback_quantized_F{SEM_F}": calls["gt_quantized_scatter"]["into"][2 + SEM_F],
+        f"window_compaction_{SEM_SCATTER_CAP}": calls["gt_scatter"]["new"][2 * H * W],
+        f"aggregate_append_F{SEM_F}": calls["icpslam_gt"]["into"][1 + SEM_F],
+    }
+    rows = []
+    for name, (table, dest, values, fill) in scatter_shapes.items():
+        table = table if isinstance(table, int) else table.contiguous()
+        dest, values = dest.contiguous(), values.contiguous()
+        k = scatter_kernel(table, dest, values, fill)
+        if not torch.equal(int_view(k), int_view(scatter_plain(table, dest, values, fill))):
+            raise AssertionError(f"scatter {name}: kernel differs from the plain version")
+        size = table if isinstance(table, int) else table.shape[1]
+        row_bytes = math.prod(values.shape[2:]) * values.element_size()
+        log(f"scatter {name}: into {size} rows, dest {tuple(dest.shape)} {dest.dtype}, values "
+            f"{tuple(values.shape)} {values.dtype} ({row_bytes}-byte rows, "
+            f"{scatter_cuda.word_bytes(row_bytes)}-byte words), bit-equal to the plain version")
+        rows.append(time_scatter(name, table, dest, values, fill))
+    return [knn_row], max_err, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2300,6 +2773,13 @@ def main() -> int:
     knn["max_abs_err"] = max(knn["max_abs_err"], knn_err)
     scatter["shapes"] += scatter_new
     log(f"recovery phase: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    knn_new, knn_err, scatter_new = semantic_online_phase()
+    knn["shapes"] += knn_new
+    knn["max_abs_err"] = max(knn["max_abs_err"], knn_err)
+    scatter["shapes"] += scatter_new
+    log(f"semantic/online phase: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     grad_phase()

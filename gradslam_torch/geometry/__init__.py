@@ -5,6 +5,7 @@ from .geometryutils import (
     create_meshgrid,
     inverse_transformation,
     orthonormalize_rotations,
+    relative_transformation,
     transform_normals,
     transform_pointcloud,
 )
@@ -21,6 +22,7 @@ __all__ = [
     "create_meshgrid",
     "inverse_transformation",
     "orthonormalize_rotations",
+    "relative_transformation",
     "transform_normals",
     "transform_pointcloud",
     "homogenize_points",

@@ -2,8 +2,8 @@ r"""Rigid-body geometry utilities (PyTorch).
 
 Counterpart of ``gradslam_tpu/geometry/geometryutils.py``: ``create_meshgrid``
 (:51), ``compose_transformations`` (:75), ``inverse_transformation`` (:90),
-``orthonormalize_rotations`` (:110), ``transform_pointcloud`` (:147) and
-``transform_normals`` (:167). Transforms broadcast over leading dimensions.
+``orthonormalize_rotations`` (:110), ``relative_transformation`` (:138),
+``transform_pointcloud`` (:147) and ``transform_normals`` (:167). Transforms broadcast over leading dimensions.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ __all__ = [
     "compose_transformations",
     "inverse_transformation",
     "orthonormalize_rotations",
+    "relative_transformation",
     "transform_pointcloud",
     "transform_normals",
 ]
@@ -87,6 +88,12 @@ def orthonormalize_rotations(trans: torch.Tensor) -> torch.Tensor:
     out = trans.clone()
     out[..., :3, :3] = torch.matmul(R, 1.5 * eye - 0.5 * RtR)
     return out
+
+
+def relative_transformation(trans_01: torch.Tensor, trans_02: torch.Tensor) -> torch.Tensor:
+    r"""``T_12 = T_01^-1 @ T_02`` for ``(*, 4, 4)`` transforms."""
+    _check_transform(trans_02, "trans_02")
+    return torch.matmul(inverse_transformation(trans_01), trans_02)
 
 
 def transform_pointcloud(pointcloud: torch.Tensor, transform: torch.Tensor) -> torch.Tensor:

@@ -63,16 +63,22 @@ def rgbdimages_from_numpy(
     intrinsics,
     poses=None,
     *,
+    channels_first: bool = False,
+    feature_image=None,
     normal_pitch: int = 1,
     device: Union[str, torch.device] = "cuda",
 ) -> RGBDImages:
-    r"""A channels-last :class:`RGBDImages` from numpy arrays on ``device``
-    (the card by default)."""
+    r"""An :class:`RGBDImages` from numpy arrays on ``device`` (the card by
+    default), channels-last unless ``channels_first``, with the optional
+    ``feature_image`` plane. ``rgbdimages_from_numpy(**to_numpy(f))``
+    rebuilds ``f``."""
     return RGBDImages(
         _float(rgb_image, device),
         _float(depth_image, device),
         _float(intrinsics, device),
         _float(poses, device),
+        channels_first=channels_first,
+        feature_image=_float(feature_image, device),
         normal_pitch=normal_pitch,
     )
 
@@ -80,7 +86,8 @@ def rgbdimages_from_numpy(
 def to_numpy(structure: Union[Pointclouds, RGBDImages]) -> Dict[str, object]:
     r"""The fields of a :class:`Pointclouds` or :class:`RGBDImages` as a
     dict: tensors become numpy arrays (None stays None, other fields pass
-    through). ``pointclouds_from_numpy(**to_numpy(pc))`` rebuilds ``pc``."""
+    through). ``pointclouds_from_numpy(**to_numpy(pc))`` rebuilds ``pc``, and
+    ``rgbdimages_from_numpy(**to_numpy(frames))`` rebuilds ``frames``."""
     out = {}
     for field in dataclasses.fields(structure):
         value = getattr(structure, field.name)

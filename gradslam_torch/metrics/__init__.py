@@ -1,6 +1,6 @@
 """Trajectory and pointcloud metrics of the PyTorch port."""
 
 from .pointcloud import chamfer_distance
-from .trajectory import align_trajectories, ate_rmse
+from .trajectory import align_trajectories, ate_rmse, rpe
 
-__all__ = ["align_trajectories", "ate_rmse", "chamfer_distance"]
+__all__ = ["align_trajectories", "ate_rmse", "chamfer_distance", "rpe"]

@@ -1,8 +1,9 @@
 r"""Trajectory metrics (PyTorch).
 
-Counterpart of ``gradslam_tpu/metrics/trajectory.py:36-80``: the absolute
+Counterpart of ``gradslam_tpu/metrics/trajectory.py:36-119``: the absolute
 trajectory error after Umeyama alignment of the estimated positions to the
-ground truth (Sturm et al., IROS 2012). The 3x3 SVD reads nothing back to the
+ground truth, and the relative pose error over frame pairs (Sturm et al.,
+IROS 2012). The 3x3 SVD reads nothing back to the
 host by itself, but this is an evaluation metric: call it after a run, not
 inside one.
 """
@@ -13,7 +14,7 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["align_trajectories", "ate_rmse"]
+__all__ = ["align_trajectories", "ate_rmse", "rpe"]
 
 
 def _as_positions(poses: torch.Tensor) -> torch.Tensor:
@@ -68,3 +69,35 @@ def ate_rmse(est_poses: torch.Tensor, gt_poses: torch.Tensor, align: bool = True
         est_p = s * torch.matmul(est_p, R.T) + t
     err = torch.linalg.norm(est_p - gt_p, dim=-1)
     return torch.sqrt(torch.mean(err**2))
+
+
+def rpe(
+    est_poses: torch.Tensor, gt_poses: torch.Tensor, delta: int = 1, reduce: bool = True
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    r"""Relative pose error over the frame pairs ``(i, i + delta)`` of
+    ``(L, 4, 4)`` trajectories: ``(trans_rmse, rot_rmse_rad)``, or with
+    ``reduce=False`` the per-pair errors ``(trans (L - delta,), rot_rad
+    (L - delta,))``. The inverses and products are full float32 (TF32 off,
+    :mod:`gradslam_torch.utils.precision`)."""
+    if est_poses.shape != gt_poses.shape or est_poses.shape[-2:] != (4, 4):
+        raise ValueError(
+            f"expected matching (L, 4, 4) pose arrays. Got {tuple(est_poses.shape)} "
+            f"and {tuple(gt_poses.shape)}."
+        )
+    if delta < 1:
+        raise ValueError(f"delta must be >= 1. Got {delta}.")
+    if est_poses.shape[0] <= delta:
+        raise ValueError(
+            f"delta ({delta}) must be smaller than trajectory length ({est_poses.shape[0]})."
+        )
+
+    def rel(poses):
+        return torch.matmul(torch.linalg.inv(poses[:-delta]), poses[delta:])
+
+    e = torch.matmul(torch.linalg.inv(rel(gt_poses)), rel(est_poses))
+    trans = torch.linalg.norm(e[:, :3, 3], dim=-1)
+    trace = torch.diagonal(e[:, :3, :3], dim1=1, dim2=2).sum(-1)
+    rot = torch.arccos(torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0))
+    if not reduce:
+        return trans, rot
+    return torch.sqrt(torch.mean(trans**2)), torch.sqrt(torch.mean(rot**2))

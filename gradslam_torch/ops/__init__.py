@@ -1,8 +1,9 @@
 """Kernels of the PyTorch port and their plain versions.
 
 - Nearest-neighbour search: the plain PyTorch version (:func:`nn_points`),
-  the hand-written CUDA kernel (:func:`nn_points_cuda`) and the dispatcher
-  the odometry calls (:func:`nn_points_auto`).
+  the hand-written CUDA kernel (:func:`nn_points_cuda`), the dispatcher
+  the odometry calls (:func:`nn_points_auto`), and the chamferdist-style
+  K-NN (:func:`knn_points`: its K = 1 goes through the dispatcher).
 - Unique-row scatter: the plain versions (``scatter.py``) and the
   hand-written CUDA kernel (``scatter_cuda.py``); the dispatchers are
   :func:`gradslam_torch.structures.pointclouds.scatter_rows` and
@@ -12,7 +13,7 @@
 from __future__ import annotations
 
 from . import knn_cuda, scatter_cuda
-from .knn import nn_points
+from .knn import knn_points, nn_points
 from .knn_cuda import nn_points_cuda
 
 
@@ -33,4 +34,6 @@ def nn_points_auto(src, tgt, tgt_mask=None):
     return nn_points(src, tgt, tgt_mask)
 
 
-__all__ = ["knn_cuda", "scatter_cuda", "nn_points", "nn_points_cuda", "nn_points_auto"]
+__all__ = [
+    "knn_cuda", "scatter_cuda", "knn_points", "nn_points", "nn_points_cuda", "nn_points_auto",
+]

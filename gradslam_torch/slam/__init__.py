@@ -8,6 +8,7 @@ from .fusionutils import (
     unpack_colors,
     update_map_aggregate,
     update_map_fusion,
+    voxel_downsample,
 )
 from .health import keyframe_anchor, tracking_health
 from .icpslam import ICPSLAM, split_prune_segments
@@ -29,4 +30,5 @@ __all__ = [
     "unpack_colors",
     "update_map_aggregate",
     "update_map_fusion",
+    "voxel_downsample",
 ]

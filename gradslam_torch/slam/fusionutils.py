@@ -5,9 +5,11 @@ Counterpart of ``gradslam_tpu/slam/fusionutils.py``: ``pack_colors`` and
 (:137), ``_project_map_points`` (:360), ``update_map_fusion`` (:405) with
 both associations (``sort_full``, ``windowed``), both merges (``gather``,
 ``scatter``) and both map layouts (float colors, quantized colors),
-``update_map_aggregate`` (:771, ``ICPSLAM``'s aggregate map) and
-``prune_map`` (:827). Every fusion stage is a dense masked computation over
-the fixed-capacity map buffer:
+``update_map_aggregate`` (:771, ``ICPSLAM``'s aggregate map),
+``prune_map`` (:827) and ``voxel_downsample`` (:860), each with user feature
+channels after the map's bookkeeping channels (``PointFusion(
+feature_channels=F)``: semantic one-hots, descriptors). Every fusion stage
+is a dense masked computation over the fixed-capacity map buffer:
 
 1. a streaming projection of all map rows into the live frame;
 2. optionally, a compaction of the rows that land in the frame into a
@@ -17,6 +19,10 @@ the fixed-capacity map buffer:
    ``(pixel, -ccount, raydist, map row)``;
 5. a confidence-weighted merge of winners and an append of un-corresponded
    valid pixels, written back by gather or by scatter.
+
+User feature channels never enter a merge decision: a map fused with
+features has the geometry, colors and confidences of the same map fused
+without them, bit for bit.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ __all__ = [
     "unpack_colors",
     "update_map_aggregate",
     "update_map_fusion",
+    "voxel_downsample",
 ]
 
 
@@ -210,9 +217,12 @@ def update_map_fusion(
     ``6 * H * W`` rows. ``'auto'`` resolves exactly as in the JAX package.
 
     The map is either float-color (``colors (B, CAP, 3)``, features
-    ``[ccount]``) or quantized (``colors=None``, features ``[ccount,
-    packed_color]``, see :func:`pack_colors`).
+    ``[ccount, *user]``) or quantized (``colors=None``, features ``[ccount,
+    packed_color, *user]``, see :func:`pack_colors`). User feature channels
+    are fused like colors, a confidence-weighted running average against
+    the frame's ``feature_image``, which must have as many channels.
     """
+    rgbdimages = rgbdimages.to_channels_last()
     if rgbdimages.shape[1] != 1:
         raise ValueError(
             f"Expected rgbdimages to have sequence length of 1. Got {rgbdimages.shape[1]}."
@@ -225,13 +235,25 @@ def update_map_fusion(
             "(ccounts): use the pipeline's empty_map() to build one."
         )
     quantized = pointclouds.colors is None
-    base = 2 if quantized else 1
-    if pointclouds.features.shape[-1] != base:
-        raise NotImplementedError(
-            "update_map_fusion supports the float-color map ([ccount]) and the "
-            "quantized map ([ccount, packed_color]); user feature channels are "
-            "not ported yet (ROADMAP.md queue 1, item 8)."
+    if quantized and pointclouds.features.shape[-1] < 2:
+        raise ValueError(
+            "update_map_fusion needs either float colors or the quantized layout "
+            "(colors=None, features (B, CAP, 2+) = [ccount, packed_color, *user])."
         )
+    base = 2 if quantized else 1
+    n_user = pointclouds.features.shape[-1] - base
+    if n_user > 0:
+        if rgbdimages.feature_image is None:
+            raise ValueError(
+                f"The map carries {n_user} user feature channel(s) but the live frame "
+                "has no feature_image: attach RGBDImages.feature_image (B, L, H, W, F) "
+                "to fuse features."
+            )
+        if rgbdimages.feature_image.shape[-1] != n_user:
+            raise ValueError(
+                f"feature_image has {rgbdimages.feature_image.shape[-1]} channels but "
+                f"the map carries {n_user} user feature channel(s): widths must match."
+            )
     B, _, H, W = rgbdimages.shape
     cap = pointclouds.capacity
     HW = H * W
@@ -240,9 +262,10 @@ def update_map_fusion(
     association, merge = _resolve_modes(association, merge, cap, HW, window)
     pose = rgbdimages.poses[:, 0]
     K = rgbdimages.intrinsics[:, 0]
-    points, normals, feats = pointclouds.points, pointclouds.normals, pointclouds.features
+    points, normals = pointclouds.points, pointclouds.normals
+    feats, user_feats = pointclouds.features[..., :base], pointclouds.features[..., base:]
     # one packed row per map point: points | normals | ccount | packed color
-    # (quantized) or float color
+    # (quantized) or float color; user features ride a plane of their own
     map_row = torch.cat(
         [points, normals, feats] + ([] if quantized else [pointclouds.colors]), dim=-1
     )
@@ -319,6 +342,10 @@ def update_map_fusion(
     out_row = torch.cat(
         [out_pts, out_nrm, new_cc, pack_colors(out_col) if quantized else out_col], dim=-1
     )
+    if n_user > 0:  # fused like colors, from a second gather
+        m_uf = gather_rows(user_feats, safe_row)
+        ufeat_flat = rgbdimages.feature_image.reshape(B, HW, n_user)
+        out_uf = (cc_old * m_uf + alpha_flat * ufeat_flat) * inv_cc
 
     # destination row per pixel: the winner row for merges, a fresh tail slot
     # for appends, -1 (dropped) otherwise
@@ -334,22 +361,30 @@ def update_map_fusion(
         num_dropped = num_dropped + (new_mask.sum(dim=-1) - appended)
 
     # --- 6. write-back ---------------------------------------------------
+    f_end = 6 + base
     if merge == "gather":
         # invert pixel -> row, then every map row gathers its new value
         pix_ids = torch.arange(HW, device=device)[None, :].expand(B, HW)
         row_src = scatter_rows(cap, dest, pix_ids, fill=HW)
         touched = row_src < HW
-        g = gather_rows(out_row, torch.where(touched, row_src, torch.zeros_like(row_src)))
-        new_row = torch.where(touched[..., None], g, map_row)
+        src = torch.where(touched, row_src, torch.zeros_like(row_src))
+        new_row = torch.where(touched[..., None], gather_rows(out_row, src), map_row)
+        features = new_row[..., 6:f_end]
+        if n_user > 0:
+            new_uf = torch.where(touched[..., None], gather_rows(out_uf, src), user_feats)
+            features = torch.cat([features, new_uf], dim=-1)
     else:
         # write the pixel rows over the map rows (rows marked -1 dropped)
         new_row = scatter_rows_into(map_row, dest, out_row)
-    f_end = 6 + base
+        features = new_row[..., 6:f_end]
+        if n_user > 0:  # the whole features buffer in one more scatter
+            features = scatter_rows_into(
+                pointclouds.features, dest, torch.cat([out_row[..., 6:f_end], out_uf], dim=-1))
     return dataclasses.replace(
         pointclouds,
         points=new_row[..., :3].contiguous(),
         normals=new_row[..., 3:6].contiguous(),
-        features=new_row[..., 6:f_end].contiguous(),
+        features=features.contiguous(),
         colors=None if quantized else new_row[..., f_end:].contiguous(),
         num_points=pointclouds.num_points + appended,
         num_dropped=num_dropped,
@@ -364,23 +399,30 @@ def update_map_aggregate(
     r"""Naive aggregation: append every valid-depth pixel of the live frame
     (global vertex, global normal, color) to the map, in pixel order
     (:meth:`Pointclouds.append_masked`). A map with a features buffer gets
-    each point's confidence ``get_alpha`` (``sigma`` 0.6 by default) there;
-    user feature channels after it are not ported yet."""
+    each point's confidence ``get_alpha`` (``sigma`` 0.6 by default) there,
+    followed by the frame's ``feature_image`` channels when the buffer
+    carries user channels (``[alpha, *user]``)."""
     if not isinstance(pointclouds, Pointclouds):
         raise TypeError(f"Expected pointclouds to be of type Pointclouds. Got {type(pointclouds)}.")
     if not isinstance(rgbdimages, RGBDImages):
         raise TypeError(f"Expected rgbdimages to be of type RGBDImages. Got {type(rgbdimages)}.")
+    rgbdimages = rgbdimages.to_channels_last()
     B, _, H, W = rgbdimages.shape
     features = None
     if pointclouds.features is not None:
-        if pointclouds.features.shape[-1] != 1:
-            raise NotImplementedError(
-                "update_map_aggregate supports no user feature channels yet "
-                "(ROADMAP.md queue 1, item 8)."
-            )
         alpha = get_alpha(rgbdimages.vertex_map, sigma=0.6 if sigma is None else sigma,
                           dim=4, keepdim=True)
         features = alpha.reshape(B, H * W, 1)
+        n_user = pointclouds.features.shape[-1] - 1
+        if n_user > 0:
+            plane = rgbdimages.feature_image
+            if plane is None or plane.shape[-1] != n_user:
+                got = "no feature_image" if plane is None else f"{plane.shape[-1]} channel(s)"
+                raise ValueError(
+                    f"The map carries {n_user} user feature channel(s) but the live frame "
+                    f"has {got}: attach a matching RGBDImages.feature_image (B, L, H, W, F)."
+                )
+            features = torch.cat([features, plane.reshape(B, H * W, n_user)], dim=-1)
     return pointclouds.append_masked(
         rgbdimages.global_vertex_map.reshape(B, H * W, 3),
         rgbdimages.valid_depth_mask.reshape(B, H * W),
@@ -396,7 +438,9 @@ def prune_map(pointclouds: Pointclouds, min_confidence: Union[float, int]) -> Po
     r"""Remove unstable map points, those whose confidence (features channel
     0) is below ``min_confidence``, and pack the survivors to the front in
     order (Keller et al.'s map maintenance; ``gradslam_tpu/slam/
-    fusionutils.py:827``). ``num_dropped`` carries over."""
+    fusionutils.py:827``): every buffer, user feature channels included,
+    moves in one compaction of the concatenated rows. ``num_dropped``
+    carries over."""
     if pointclouds.features is None:
         raise ValueError("Pointclouds must have features (ccounts) to prune.")
     keep = pointclouds.nonpad_mask & (pointclouds.features[..., 0] >= min_confidence)
@@ -416,3 +460,116 @@ def prune_map(pointclouds: Pointclouds, min_confidence: Union[float, int]) -> Po
         features=part(pointclouds.features),
         num_dropped=pointclouds.num_dropped,
     )
+
+
+_INT_SENTINEL = 2**30  # above every shifted voxel id: invalid rows sort last
+
+
+def voxel_downsample(
+    pointclouds: Pointclouds,
+    voxel_size: Union[float, int],
+    *,
+    reduce: str = "mean",
+    quantized_colors: Optional[bool] = None,
+) -> Pointclouds:
+    r"""One point for each occupied ``voxel_size`` cube (open3d's
+    ``voxel_down_sample``; ``gradslam_tpu/slam/fusionutils.py:860``), the
+    survivors packed to the front in voxel order and ``num_dropped``
+    carried over.
+
+    Integer voxel ids (shifted to be non-negative in each batch row) are
+    sorted by ``(vx, vy, vz, row)`` with stable sorts, and the first row of
+    each run is its voxel's survivor. ``reduce='mean'`` makes it the
+    voxel's mean of every buffer (normals renormalised); ``'first'`` keeps
+    the voxel's lowest row unchanged.
+
+    ``quantized_colors``: whether the map has the quantized layout
+    (``colors=None``, features ``[ccount, packed_color, *user]``), whose
+    packed color is unpacked, averaged and packed again, and whose user
+    channels after it average plainly. None detects it as
+    :func:`update_map_fusion` does: a colorless cloud with 2 feature
+    channels is quantized; one with more is ambiguous (quantized with user
+    channels, or a generic descriptor cloud) and raises unless told.
+
+    The voxel sums are ``index_add_`` over the sorted rows: on the card
+    their order of additions is not fixed, so a mean may differ in its
+    last bits between calls.
+    """
+    if not voxel_size > 0:
+        raise ValueError(f"voxel_size must be > 0. Got {voxel_size}.")
+    if reduce not in ("mean", "first"):
+        raise ValueError(f"Unknown reduce mode: {reduce!r}.")
+    feats = pointclouds.features
+    if quantized_colors is None:
+        colorless = pointclouds.colors is None and feats is not None
+        if colorless and feats.shape[-1] > 2:
+            raise ValueError(
+                f"voxel_downsample cannot tell whether this colorless {feats.shape[-1]}-"
+                "channel feature layout is quantized ([ccount, packed_color, *user]) or "
+                "generic: pass quantized_colors=True/False explicitly."
+            )
+        quantized_colors = colorless and feats.shape[-1] == 2
+    elif quantized_colors and (pointclouds.colors is not None or feats is None
+                               or feats.shape[-1] < 2):
+        raise ValueError(
+            "quantized_colors=True expects the quantized map layout (colors=None, "
+            "features (B, CAP, 2+) = [ccount, packed_color, *user])."
+        )
+    pts = pointclouds.points
+    B, CAP, _ = pts.shape
+    valid = pointclouds.nonpad_mask
+    vid = torch.floor(pts / voxel_size).to(torch.int64)
+    sentinel = torch.full_like(vid, _INT_SENTINEL)
+    vid = vid - torch.where(valid[..., None], vid, sentinel).amin(dim=1, keepdim=True)
+    vx, vy, vz = (torch.where(valid, vid[..., k], sentinel[..., k]) for k in range(3))
+    order = _lexsort([vz, vy, vx])  # the row is the implicit last key
+    s_vx, s_vy, s_vz = (torch.gather(v, 1, order) for v in (vx, vy, vz))
+    s_valid = s_vx < _INT_SENTINEL
+    first = torch.ones_like(s_valid)
+    first[:, 1:] = ((s_vx[:, 1:] != s_vx[:, :-1]) | (s_vy[:, 1:] != s_vy[:, :-1])
+                    | (s_vz[:, 1:] != s_vz[:, :-1]))
+    first = first & s_valid
+
+    def sorted_rows(buf):
+        return gather_rows(buf, order)
+
+    if reduce == "mean":
+        seg = torch.cumsum(first.to(torch.int64), dim=1) - 1
+        seg = torch.where(s_valid, seg, torch.full_like(seg, CAP - 1))  # park invalid rows
+        ones = s_valid.to(pts.dtype)
+        cnt = torch.zeros((B, CAP), dtype=pts.dtype, device=pts.device).scatter_add_(1, seg, ones)
+        cnt = torch.where(cnt == 0, torch.ones_like(cnt), cnt)
+
+        def reduced(buf):
+            if buf is None:
+                return None
+            v = sorted_rows(buf) * ones[..., None]
+            acc = torch.zeros_like(v).scatter_add_(1, seg[..., None].expand_as(v), v)
+            return gather_rows(acc / cnt[..., None], seg)
+
+        new_nrm = reduced(pointclouds.normals)
+        if new_nrm is not None:
+            n2 = torch.sum(new_nrm * new_nrm, dim=-1, keepdim=True)
+            pos = n2 > 0
+            new_nrm = torch.where(pos, new_nrm / torch.sqrt(torch.where(pos, n2, 1.0)), new_nrm)
+        if quantized_colors:
+            # the packed integers are not linear in color: unpack, average, pack
+            parts = [reduced(feats[..., 0:1]), pack_colors(reduced(unpack_colors(feats[..., 1:2])))]
+            if feats.shape[-1] > 2:
+                parts.append(reduced(feats[..., 2:]))
+            new_feat = torch.cat(parts, dim=-1)
+        else:
+            new_feat = reduced(feats)
+    else:
+        def reduced(buf):
+            return None if buf is None else sorted_rows(buf)
+
+        new_nrm, new_feat = reduced(pointclouds.normals), reduced(feats)
+    bufs = [reduced(pts), new_nrm, reduced(pointclouds.colors), new_feat]
+    present = [b for b in bufs if b is not None]
+    packed, counts = compact_masked(torch.cat(present, dim=-1), first, CAP)
+    parts = iter(torch.split(packed, [b.shape[-1] for b in present], dim=-1))
+    points, normals, colors, features = (
+        None if b is None else next(parts).contiguous() for b in bufs)
+    return Pointclouds(points=points, num_points=counts, normals=normals, colors=colors,
+                       features=features, num_dropped=pointclouds.num_dropped)

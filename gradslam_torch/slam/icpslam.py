@@ -10,7 +10,10 @@ compaction, and the finest window it solved against), the in-scan recovery
 (``_health_gate`` :992, ``_maybe_relocalize`` :1023, ``_anchor_snapshot``
 :1087, ``_maybe_anchor_recover`` :1107) and ``_forward_impl`` (:1217): the
 ground-truth branch and the tracked branch with the constant-velocity
-model, prune between segments, relocalization and the keyframe anchor.
+model, prune between segments, relocalization and the keyframe anchor; and
+the online API (``step``, ``localize``, ``map_update``; :594-742,
+``_step_impl`` :1209), one frame at a time through the forward's own
+per-frame body.
 
 The JAX ``lax.scan`` over frames is a Python loop here. The capacity
 schedule is static and host-side. An unarmed pipeline reads nothing back
@@ -27,7 +30,9 @@ so takes the same branches.
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import warnings
 from typing import Optional, Tuple
 
 import torch
@@ -62,21 +67,16 @@ from .relocalize import perturbation_grid, relocalize
 
 __all__ = ["ICPSLAM", "split_prune_segments"]
 
-# Options of the JAX pipelines that this port does not carry yet, with the
-# value that means "off" and the ROADMAP.md item that will port them.
-_UNPORTED = {
-    "feature_channels": (0, "queue 1, item 8 (quantized colors, prune and features)"),
-}
 
-
-def _reject_unported(options: dict) -> None:
-    for name, value in options.items():
-        off, item = _UNPORTED[name]
-        if value != off:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported to gradslam_torch yet "
-                f"(ROADMAP.md {item})."
-            )
+def _check_prev_transform(prev_transform, live_frame: RGBDImages) -> None:
+    B = live_frame.shape[0]
+    if prev_transform is not None and tuple(prev_transform.shape) != (B, 4, 4):
+        # the natural mistake, the (B, 1, 4, 4) pose step returns, would
+        # broadcast into rank-5 poses and fail far downstream
+        raise ValueError(
+            f"prev_transform must have shape (B, 4, 4) = ({B}, 4, 4). "
+            f"Got {tuple(prev_transform.shape)}."
+        )
 
 
 def split_prune_segments(start: int, n: int, prune_every: int):
@@ -139,6 +139,11 @@ class ICPSLAM(nn.Module):
         prune_every, prune_min_confidence: every ``prune_every``-th mapped
             frame ends with :func:`~gradslam_torch.slam.fusionutils.prune_map`
             (PointFusion only: the aggregate map has no confidences).
+        feature_channels: user feature channels a map point carries, from
+            the frames' ``feature_image`` (semantic one-hots, descriptors):
+            the aggregate map appends them after each point's confidence
+            (``[alpha, *user]``), PointFusion fuses them like colors. The
+            frames must carry exactly this many.
         normal_pitch: finite-difference baseline of the frames' normal maps
             (None keeps the frames' own).
         use_jit: accepted for the JAX constructor's signature; eager
@@ -173,7 +178,6 @@ class ICPSLAM(nn.Module):
         anchor_below: the drift gate's threshold.
         anchor_dsratio: the anchor snapshot's stride (default ``dsratio``).
 
-    ``feature_channels`` raises ``NotImplementedError`` unless left at 0.
     After a tracked ``forward``, ``recovery_log`` holds the armed gate's
     reading of each tracked frame (``'health'``, ``(B,)`` tensors) and the
     global frame indices on which the relocalization (``'relocalize'``) or
@@ -209,6 +213,7 @@ class ICPSLAM(nn.Module):
         lookahead_assoc: str = "fresh",
         prune_every: int = 0,
         prune_min_confidence: float = 1.0,
+        feature_channels: int = 0,
         normal_pitch: Optional[int] = None,
         relocalize_below: float = 0.0,
         relocalize_grid: Optional[dict] = None,
@@ -219,13 +224,8 @@ class ICPSLAM(nn.Module):
         anchor_dsratio: Optional[int] = None,
         use_jit: bool = True,
         remat: bool = False,
-        **unported,
     ):
         super().__init__()
-        unknown = set(unported) - set(_UNPORTED)
-        if unknown:
-            raise TypeError(f"Unknown option(s): {sorted(unknown)}.")
-        _reject_unported(unported)
         # The checks and their messages follow the JAX constructor
         # (gradslam_tpu/slam/icpslam.py:336-544), in its order.
         if odom not in ("gt", "icp", "gradicp"):
@@ -292,6 +292,10 @@ class ICPSLAM(nn.Module):
                 "prune_every requires a pipeline whose map carries confidence "
                 "counters (PointFusion); ICPSLAM's aggregate map has none."
             )
+        if not isinstance(feature_channels, int) or feature_channels < 0:
+            raise ValueError(
+                f"feature_channels must be a non-negative int. Got {feature_channels!r}."
+            )
         if normal_pitch is not None and (
             not isinstance(normal_pitch, int) or normal_pitch < 1
         ):
@@ -336,6 +340,7 @@ class ICPSLAM(nn.Module):
         self.motion_model = motion_model
         self.prune_every = int(prune_every)
         self.prune_min_confidence = prune_min_confidence
+        self.feature_channels = feature_channels
         self.normal_pitch = normal_pitch
         self.remat = bool(remat)
         # the finest level's association decides the health statistic's
@@ -412,15 +417,26 @@ class ICPSLAM(nn.Module):
         ds = self.dsratio if ds is None else ds
         return 2 * math.ceil(H / ds) * math.ceil(W / ds)
 
+    _map_has_colors = True
+
+    @property
+    def _map_feature_dim(self) -> Optional[int]:
+        """The aggregate map's features: ``[alpha, *user]`` with user
+        channels, none without."""
+        return 1 + self.feature_channels if self.feature_channels else None
+
     def empty_map(
         self, batch_size: int, capacity: int, *, device="cuda", dtype=torch.float32
     ) -> Pointclouds:
-        r"""An empty map buffer for this pipeline on ``device`` (the card
-        by default): the
-        aggregate map carries normals and float colors, no features."""
+        r"""An empty map buffer for this pipeline on ``device`` (the card by
+        default), the initial value of the online :meth:`step`: the
+        aggregate map carries normals and float colors, and features only
+        with user channels (``[alpha, *user]``); PointFusion's map carries
+        ``[ccount, *user]`` beside float colors, or ``[ccount,
+        packed_color, *user]`` and no colors when quantized."""
         return Pointclouds.empty(
-            batch_size, capacity, device=device, dtype=dtype,
-            has_normals=True, has_colors=True, feature_dim=None,
+            batch_size, capacity, device=device, dtype=dtype, has_normals=True,
+            has_colors=self._map_has_colors, feature_dim=self._map_feature_dim,
         )
 
     def _map(self, pointclouds: Pointclouds, live_frame: RGBDImages) -> Pointclouds:
@@ -432,10 +448,20 @@ class ICPSLAM(nn.Module):
     def _with_normal_pitch(self, frames: RGBDImages) -> RGBDImages:
         if self.normal_pitch is None or frames.normal_pitch == self.normal_pitch:
             return frames
-        return RGBDImages(
-            frames.rgb_image, frames.depth_image, frames.intrinsics, frames.poses,
-            normal_pitch=self.normal_pitch,
-        )
+        return dataclasses.replace(frames, normal_pitch=self.normal_pitch)
+
+    def _check_features(self, frames: RGBDImages, subject: str) -> None:
+        """The frames' feature plane must be as wide as the map's user
+        channels: a plane the map cannot hold would otherwise be dropped,
+        or the fusion would fail mid-run on the widths. ``subject`` names
+        the frames in the message (``"frames carry"``)."""
+        want, got = self.feature_channels, frames.feature_channels
+        if want != got:
+            hint = (f"construct the pipeline with feature_channels={got}" if got
+                    else f"attach RGBDImages.feature_image with {want} channel(s)")
+            raise ValueError(
+                f"{subject} {got} feature channel(s) but this pipeline fuses {want}: {hint}."
+            )
 
     # ------------------------------------------------------------------ #
     # Odometry
@@ -654,32 +680,20 @@ class ICPSLAM(nn.Module):
             return body(*args)
         return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
 
-    def _track(self, map_pc: Pointclouds, prev_pose: torch.Tensor, prev_delta: torch.Tensor,
-               anchor, f: int, frame: RGBDImages):
-        r"""One tracked frame ``f`` (global index) of the forward: predict,
-        localize, run the armed recovery branches, fuse, and refresh the
-        keyframe anchor. ``frame`` is the sequence-length-1 frame (its poses
-        are not read). Returns ``(map, pose (B, 4, 4), motion (B, 4, 4),
-        anchor, events)``; ``events`` holds, when armed, the gate's reading
-        (``'health'``), whether the relocalization (``'relocalize'``) and
-        the anchor re-solve (``'anchor'``) ran, and where one ran, whether
-        its pose was taken (``'relocalize_taken'``, ``'anchor_taken'``: one
-        more read back on such a frame)."""
-        cv = self.motion_model == "constant_velocity"
-        # the constant-velocity chain pose @ inv(prev) @ pose doubles the
-        # rotation's orthonormality error each frame: re-project
-        pred = (orthonormalize_rotations(compose_transformations(prev_delta, prev_pose))
-                if cv else prev_pose)
-        live = frame.with_poses(pred[:, None])
+    def _solve(self, map_pc: Pointclouds, live: RGBDImages, anchor, armed: bool):
+        r"""Localize ``live`` (carrying the predicted pose) against the map
+        and, when ``armed``, run the recovery branches. Returns ``(poses
+        (B, 1, 4, 4), drifting, drifting_on_host, events)``; the two
+        ``drifting`` are None unless the anchor's gate ran."""
         events = {}
-        anchored = self.anchor_every > 0
-        if self.relocalize_below > 0:
+        drifting = drifting_host = None
+        if armed:
             pose, window = self._localize(map_pc, live, live, return_window=True)
             pose, taken, events["health"] = self._maybe_relocalize(map_pc, live, pose, window)
             events["relocalize"] = taken is not None
             if taken is not None:
                 events["relocalize_taken"] = bool(taken.any())
-            if anchored:
+            if self.anchor_every > 0:
                 # the self-consistent gate cannot see slow drift; the frozen
                 # keyframe can
                 pose, drifting, drifting_host, taken = self._maybe_anchor_recover(
@@ -689,17 +703,156 @@ class ICPSLAM(nn.Module):
                     events["anchor_taken"] = bool(taken.any())
         else:
             pose = self._localize(map_pc, live, live)
+        return pose, drifting, drifting_host, events
+
+    def _track(self, map_pc: Pointclouds, prev_pose: torch.Tensor, prev_delta: torch.Tensor,
+               anchor, f: int, frame: RGBDImages, cv: Optional[bool] = None,
+               armed: Optional[bool] = None):
+        r"""One tracked frame ``f`` (global index): predict, localize, run
+        the armed recovery branches, fuse, and refresh the keyframe anchor.
+        ``frame`` is the sequence-length-1 frame (its poses are not read).
+        ``cv`` (the constant-velocity prediction) and ``armed`` (recovery)
+        default to the pipeline's ``motion_model`` and
+        ``relocalize_below``; :meth:`step` passes its own. Returns ``(map,
+        pose (B, 4, 4), motion (B, 4, 4), anchor, events)``; ``events``
+        holds, when armed, the gate's reading (``'health'``), whether the
+        relocalization (``'relocalize'``) and the anchor re-solve
+        (``'anchor'``) ran, and where one ran, whether its pose was taken
+        (``'relocalize_taken'``, ``'anchor_taken'``: one more read back on
+        such a frame)."""
+        cv = self.motion_model == "constant_velocity" if cv is None else cv
+        armed = self.relocalize_below > 0 if armed is None else armed
+        pred = self._predict(prev_pose, prev_delta) if cv else prev_pose
+        live = frame.with_poses(pred[:, None])
+        pose, drifting, drifting_host, events = self._solve(map_pc, live, anchor, armed)
         live = live.with_poses(pose)
         map_pc = self._map(map_pc, live)
         if cv:  # world-frame motion of this frame, the next prediction
             prev_delta = compose_transformations(pose[:, 0], inverse_transformation(prev_pose))
-        if anchored and f % self.anchor_every == 0 and not bool(drifting_host.all()):
+        if (drifting is not None and f % self.anchor_every == 0
+                and not bool(drifting_host.all())):
             # refresh at the solved pose, but not where drifting: that would
             # bake the drift into the reference
             anchor = tuple(
                 torch.where(drifting.reshape((-1,) + (1,) * (new.ndim - 1)), old, new)
                 for new, old in zip(self._anchor_snapshot(live), anchor))
         return map_pc, pose[:, 0], prev_delta, anchor, events
+
+    @staticmethod
+    def _predict(prev_pose: torch.Tensor, prev_delta: torch.Tensor) -> torch.Tensor:
+        """The constant-velocity prediction ``prev_delta @ prev_pose``,
+        re-projected onto SO(3): the chain pose @ inv(prev) @ pose doubles
+        the rotation's orthonormality error each frame."""
+        return orthonormalize_rotations(compose_transformations(prev_delta, prev_pose))
+
+    # ------------------------------------------------------------------ #
+    # Online API
+    # ------------------------------------------------------------------ #
+    def step(
+        self,
+        pointclouds: Pointclouds,
+        live_frame: RGBDImages,
+        prev_frame: Optional[RGBDImages] = None,
+        prev_transform: Optional[torch.Tensor] = None,
+    ) -> Tuple[Pointclouds, torch.Tensor]:
+        r"""One online SLAM step: returns ``(pointclouds, poses (B, 1, 4,
+        4))``. With ``prev_frame`` None, or with ``odom='gt'``, the map is
+        updated at ``live_frame``'s own poses; otherwise the live frame is
+        tracked from ``prev_frame``'s pose (its imagery is not read) and
+        fused at the solved pose, through the forward's own per-frame body.
+
+        ``prev_transform``: optional ``(B, 4, 4)`` world-frame motion of the
+        previous step (``pose_prev @ inv(pose_prevprev)``), the
+        constant-velocity prior: the solve starts from (and the association
+        window projects at) ``prev_transform @ prev_pose``, re-projected
+        onto SO(3). ``step`` keeps no state, so the caller threads it; with
+        the identity on the first tracked frame and the returned poses'
+        motion after, a step loop replays the constant-velocity
+        :meth:`forward`. A step runs no recovery branch and no
+        ``prune_every`` (there is no frame counter): a step loop calls
+        :func:`~gradslam_torch.slam.fusionutils.prune_map` itself.
+        """
+        if not isinstance(live_frame, RGBDImages):
+            raise TypeError(
+                f"Expected live_frame to be of type RGBDImages. Got {type(live_frame)}.")
+        if prev_frame is not None and not isinstance(prev_frame, RGBDImages):
+            raise TypeError(
+                f"Expected prev_frame to be of type RGBDImages or None. Got {type(prev_frame)}.")
+        if prev_frame is not None and self.odom != "gt" and prev_frame.poses is None:
+            raise ValueError("`prev_frame` should have poses, but did not.")
+        if (prev_frame is None or self.odom == "gt") and live_frame.poses is None:
+            raise ValueError(
+                "`live_frame` must have poses when `prev_frame` is None or `odom='gt'`.")
+        _check_prev_transform(prev_transform, live_frame)
+        self._check_features(live_frame, "live_frame carries")
+        live_frame = self._with_normal_pitch(live_frame.to_channels_last())
+        if prev_frame is None or self.odom == "gt":
+            if prev_frame is None and self.odom != "gt":
+                # frame 0's bootstrap passes no prev_frame into an empty map;
+                # a later step without one fuses at a stale pose (one read
+                # back of the counters)
+                if bool((pointclouds.num_points > 0).any()):
+                    warnings.warn(
+                        f"`prev_frame` was None despite odom='{self.odom}'; skipping odometry "
+                        "and using `live_frame.poses`. Thread the previous frame through "
+                        "step() to enable tracking.", stacklevel=2)
+            elif prev_frame is not None:
+                warnings.warn("`prev_frame` is not used when `odom='gt'`.", stacklevel=2)
+            return self._frame(self._map, pointclouds, live_frame), live_frame.poses
+        cv = prev_transform is not None
+        map_pc, pose, _, _, _ = self._frame(
+            self._track, pointclouds, prev_frame.poses[:, 0], prev_transform, None, 0,
+            live_frame, cv, False)
+        return map_pc, pose[:, None]
+
+    def localize(
+        self,
+        pointclouds: Pointclouds,
+        live_frame: RGBDImages,
+        prev_frame: RGBDImages,
+        prev_transform: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        r"""The odometry half of :meth:`step`, without the map update:
+        returns poses ``(B, 1, 4, 4)``. With :meth:`map_update` it splits a
+        step for serving loops that check tracking before fusing::
+
+            poses = slam.localize(pc, live, prev)
+            h = tracking_health(pc, live.with_poses(poses))
+            if h["inlier_frac"][0] < threshold:
+                poses, info = relocalize(pc, live, anchors)
+            pc = slam.map_update(pc, live.with_poses(poses))
+
+        Arguments as :meth:`step`'s. Not available for ``odom='gt'``: there
+        is nothing to solve."""
+        if self.odom == "gt":
+            raise ValueError(
+                "localize is not available for odom='gt'; ground-truth pipelines use the "
+                "frame's own poses.")
+        if not isinstance(live_frame, RGBDImages):
+            raise TypeError(
+                f"Expected live_frame to be of type RGBDImages. Got {type(live_frame)}.")
+        if not isinstance(prev_frame, RGBDImages):
+            raise TypeError(
+                f"Expected prev_frame to be of type RGBDImages. Got {type(prev_frame)}.")
+        if prev_frame.poses is None:
+            raise ValueError("`prev_frame` should have poses, but did not.")
+        _check_prev_transform(prev_transform, live_frame)
+        live = self._with_normal_pitch(live_frame.to_channels_last())
+        pred = prev_frame.poses[:, 0]
+        if prev_transform is not None:
+            pred = self._predict(pred, prev_transform)
+        pose, _, _, _ = self._solve(pointclouds, live.with_poses(pred[:, None]), None, False)
+        return pose
+
+    def map_update(self, pointclouds: Pointclouds, live_frame: RGBDImages) -> Pointclouds:
+        r"""The map half of :meth:`step`: fuse ``live_frame`` at its own
+        poses."""
+        if not isinstance(live_frame, RGBDImages):
+            raise TypeError(
+                f"Expected live_frame to be of type RGBDImages. Got {type(live_frame)}.")
+        if live_frame.poses is None:
+            raise ValueError("live_frame must carry poses to fuse at.")
+        return self._map(pointclouds, self._with_normal_pitch(live_frame.to_channels_last()))
 
     def forward(self, frames: RGBDImages) -> Tuple[Pointclouds, torch.Tensor]:
         r"""Run SLAM over a batch of sequences. Returns ``(pointclouds,
@@ -708,7 +861,8 @@ class ICPSLAM(nn.Module):
             raise TypeError(f"Expected frames to be of type RGBDImages. Got {type(frames)}.")
         if self.odom == "gt" and frames.poses is None:
             raise ValueError("`frames` must have poses when `odom='gt'`.")
-        frames = self._with_normal_pitch(frames)
+        self._check_features(frames, "frames carry")
+        frames = self._with_normal_pitch(frames.to_channels_last())
         B, L, _, _ = frames.shape
         schedule = self._capacity_schedule(frames)
         map_pc = self.empty_map(B, schedule[0][1], device=frames.device, dtype=frames.dtype)

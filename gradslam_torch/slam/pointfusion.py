@@ -38,6 +38,10 @@ class PointFusion(ICPSLAM):
             second feature channel (``features = [ccount, packed_color]``,
             ``colors=None``); :meth:`decode_map` turns such a map back into
             float colors. Geometry and counts are the float-color map's.
+        feature_channels: user channels after the bookkeeping ones
+            (``[ccount, *user]`` or ``[ccount, packed_color, *user]``), fused
+            from the frames' ``feature_image`` like colors; they never change
+            the geometry, colors or confidences of the map.
     """
 
     has_features = True  # ccounts live in the map's feature channel
@@ -77,22 +81,19 @@ class PointFusion(ICPSLAM):
         self.merge = merge
         self.quantize_colors = bool(quantize_colors)
 
-    def empty_map(
-        self, batch_size: int, capacity: int, *, device="cuda", dtype=torch.float32
-    ) -> Pointclouds:
-        r"""An empty map buffer for this pipeline on ``device`` (the card
-        by default): float colors and ``[ccount]``, or no colors and
-        ``[ccount, packed_color]``."""
-        return Pointclouds.empty(
-            batch_size, capacity, device=device, dtype=dtype,
-            has_normals=True, has_colors=not self.quantize_colors,
-            feature_dim=2 if self.quantize_colors else 1,
-        )
+    @property
+    def _map_has_colors(self) -> bool:
+        return not self.quantize_colors
+
+    @property
+    def _map_feature_dim(self) -> int:
+        return (2 if self.quantize_colors else 1) + self.feature_channels
 
     @staticmethod
     def decode_map(pointclouds: Pointclouds) -> Pointclouds:
-        r"""Float colors ``(B, CAP, 3)`` and features ``[ccount]`` from a
-        quantized map; a float-color map is returned as it is."""
+        r"""Float colors ``(B, CAP, 3)`` and features ``[ccount, *user]``
+        from a quantized map (``[ccount, packed_color, *user]``); a
+        float-color map is returned as it is."""
         feats = pointclouds.features
         if pointclouds.colors is not None or feats is None or feats.shape[-1] < 2:
             return pointclouds

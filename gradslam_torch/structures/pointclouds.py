@@ -168,13 +168,14 @@ class Pointclouds:
         batch_size: int,
         capacity: int,
         *,
-        device,
+        device="cuda",
         dtype=torch.float32,
         has_normals: bool = True,
         has_colors: bool = True,
         feature_dim: Optional[int] = 1,
     ) -> "Pointclouds":
-        """An empty map buffer that tracks ``num_dropped``."""
+        """An empty map buffer that tracks ``num_dropped``, on ``device``
+        (the card by default)."""
 
         def zeros(c):
             return torch.zeros((batch_size, capacity, c), device=device, dtype=dtype)

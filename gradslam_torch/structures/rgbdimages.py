@@ -1,9 +1,14 @@
 r"""Batched RGB-D frame sequences as a frozen dataclass of tensors.
 
-Counterpart of ``gradslam_tpu/structures/rgbdimages.py``. Layout is
-channels-last ``(B, L, H, W, C)``; the derived maps (``vertex_map``,
-``normal_map``, ``global_*``) are pure functions of the fields with the JAX
-package's semantics:
+Counterpart of ``gradslam_tpu/structures/rgbdimages.py``. The canonical
+layout is channels-last ``(B, L, H, W, C)``; a channels-first instance
+(``channels_first=True``, ``(B, L, C, H, W)``) exists for the reference's
+API and converts with :meth:`RGBDImages.to_channels_last`. An optional
+``feature_image`` plane ``(B, L, H, W, F)`` (semantic one-hots, learned
+descriptors) rides along and is fused into the map's feature channels by
+``PointFusion(feature_channels=F)``. The derived maps (``vertex_map``,
+``normal_map``, ``global_*``) read the channels-last layout and follow the
+container's layout, with the JAX package's semantics:
 
 - ``vertex_map``: ``(Kinv[:3, :3] @ [u, v, 1]) * depth``, zeroed where the
   depth is not positive;
@@ -28,12 +33,24 @@ from ..geometry.projutils import inverse_intrinsics
 __all__ = ["RGBDImages"]
 
 
+def _last(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if x is None else torch.movedim(x, 2, -1)
+
+
+def _first(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if x is None else torch.movedim(x, -1, 2)
+
+
 @dataclass(frozen=True)
 class RGBDImages:
-    rgb_image: torch.Tensor  # (B, L, H, W, 3)
-    depth_image: torch.Tensor  # (B, L, H, W, 1)
+    # Declared in the JAX package's order, so positional calls bind alike:
+    # (rgb, depth, K, poses, channels_first) is the reference's order.
+    rgb_image: torch.Tensor  # (B, L, H, W, 3), or (B, L, 3, H, W) channels-first
+    depth_image: torch.Tensor  # (B, L, H, W, 1), or (B, L, 1, H, W)
     intrinsics: torch.Tensor  # (B, 1, 4, 4)
     poses: Optional[torch.Tensor] = None  # (B, L, 4, 4)
+    channels_first: bool = False
+    feature_image: Optional[torch.Tensor] = None  # (B, L, H, W, F), or (B, L, F, H, W)
     # Finite-difference baseline (pixels) of ``normal_map``; 1 differences
     # adjacent pixels exactly as the reference does.
     normal_pitch: int = 1
@@ -44,33 +61,74 @@ class RGBDImages:
                 f"normal_pitch must be an int >= 1. Got {self.normal_pitch}."
             )
         rgb = self.rgb_image
-        if rgb.ndim != 5 or rgb.shape[4] != 3:
+        cdim = self.cdim
+        layout = "(B, L, 3, H, W)" if self.channels_first else "(B, L, H, W, 3)"
+        if rgb.ndim != 5:
+            raise ValueError(f"rgb_image must have shape {layout}. Got {tuple(rgb.shape)}.")
+        if rgb.shape[cdim] != 3:
+            if not self.channels_first and rgb.shape[2] == 3:
+                raise ValueError(
+                    "rgb_image appears channels-first; use "
+                    "RGBDImages.from_channels_first or channels_first=True."
+                )
+            raise ValueError(f"rgb_image must have shape {layout}. Got {tuple(rgb.shape)}.")
+        expected_depth = tuple(rgb.shape[:cdim]) + (1,) + tuple(rgb.shape[cdim + 1:])
+        if tuple(self.depth_image.shape) != expected_depth:
             raise ValueError(
-                f"rgb_image must have shape (B, L, H, W, 3). Got {tuple(rgb.shape)}."
-            )
-        if self.depth_image.shape != rgb.shape[:4] + (1,):
-            raise ValueError(
-                f"depth_image must have shape {tuple(rgb.shape[:4]) + (1,)} "
-                f"matching rgb. Got {tuple(self.depth_image.shape)}."
+                f"depth_image must have shape {expected_depth} matching rgb "
+                f"{tuple(rgb.shape)}. Got {tuple(self.depth_image.shape)}."
             )
         if self.intrinsics.shape != (rgb.shape[0], 1, 4, 4):
             raise ValueError(
-                f"intrinsics must have shape ({rgb.shape[0]}, 1, 4, 4). "
+                f"intrinsics must have shape (B, 1, 4, 4) = ({rgb.shape[0]}, 1, 4, 4). "
                 f"Got {tuple(self.intrinsics.shape)}."
             )
         if self.poses is not None and self.poses.shape != rgb.shape[:2] + (4, 4):
             raise ValueError(
                 f"poses must have shape (B, L, 4, 4). Got {tuple(self.poses.shape)}."
             )
+        feat = self.feature_image
+        if feat is not None:
+            dims = (0, 1, 3, 4) if self.channels_first else (0, 1, 2, 3)  # all but channels
+            if feat.ndim != 5 or [feat.shape[d] for d in dims] != [rgb.shape[d] for d in dims]:
+                flayout = "(B, L, F, H, W)" if self.channels_first else "(B, L, H, W, F)"
+                raise ValueError(
+                    f"feature_image must have shape {flayout} matching rgb "
+                    f"{tuple(rgb.shape)}. Got {tuple(feat.shape)}."
+                )
+
+    @classmethod
+    def from_channels_first(cls, rgb_image, depth_image, intrinsics, poses=None,
+                            feature_image=None) -> "RGBDImages":
+        """A channels-last instance from the reference's channels-first
+        tensors ``(B, L, C, H, W)``."""
+        return cls(_last(rgb_image), _last(depth_image), intrinsics, poses,
+                   feature_image=_last(feature_image))
 
     # ------------------------------------------------------------------ #
     # Shape, device, indexing
     # ------------------------------------------------------------------ #
     @property
     def shape(self) -> Tuple[int, int, int, int]:
-        """``(B, L, H, W)``."""
-        B, L, H, W, _ = self.rgb_image.shape
+        """``(B, L, H, W)`` in either layout."""
+        B, L = self.rgb_image.shape[:2]
+        H, W = self.rgb_image.shape[3:5] if self.channels_first else self.rgb_image.shape[2:4]
         return (B, L, H, W)
+
+    @property
+    def cdim(self) -> int:
+        """The channel dimension: 2 channels-first, else 4."""
+        return 2 if self.channels_first else 4
+
+    @property
+    def has_features(self) -> bool:
+        """True when a ``feature_image`` plane is attached."""
+        return self.feature_image is not None
+
+    @property
+    def feature_channels(self) -> int:
+        """The feature plane's channel count (0 when none is attached)."""
+        return 0 if self.feature_image is None else self.feature_image.shape[self.cdim]
 
     def __len__(self) -> int:
         return self.rgb_image.shape[0]
@@ -104,6 +162,8 @@ class RGBDImages:
             depth_image=self.depth_image[bidx, sidx],
             intrinsics=self.intrinsics[bidx],
             poses=None if self.poses is None else self.poses[bidx, sidx],
+            feature_image=None if self.feature_image is None
+            else self.feature_image[bidx, sidx],
         )
 
     def with_poses(self, poses: torch.Tensor) -> "RGBDImages":
@@ -111,17 +171,54 @@ class RGBDImages:
         return dataclasses.replace(self, poses=poses)
 
     # ------------------------------------------------------------------ #
+    # Layout
+    # ------------------------------------------------------------------ #
+    def to_channels_last(self) -> "RGBDImages":
+        """The ``(B, L, H, W, C)`` layout; ``self`` if already in it."""
+        if not self.channels_first:
+            return self
+        return dataclasses.replace(
+            self, rgb_image=_last(self.rgb_image), depth_image=_last(self.depth_image),
+            feature_image=_last(self.feature_image), channels_first=False)
+
+    def to_channels_first(self) -> "RGBDImages":
+        """The ``(B, L, C, H, W)`` layout; ``self`` if already in it."""
+        if self.channels_first:
+            return self
+        return dataclasses.replace(
+            self, rgb_image=_first(self.rgb_image), depth_image=_first(self.depth_image),
+            feature_image=_first(self.feature_image), channels_first=True)
+
+    def to_channels_last_(self) -> "RGBDImages":
+        """The reference's in-place name of :meth:`to_channels_last`; the
+        structure is frozen, so it returns the converted copy."""
+        return self.to_channels_last()
+
+    def to_channels_first_(self) -> "RGBDImages":
+        """The reference's in-place name of :meth:`to_channels_first`; the
+        structure is frozen, so it returns the converted copy."""
+        return self.to_channels_first()
+
+    def _derived(self, name: str) -> torch.Tensor:
+        """A derived map of a channels-first instance: computed from the
+        channels-last layout, returned channels-first."""
+        return _first(getattr(self.to_channels_last(), name))
+
+    # ------------------------------------------------------------------ #
     # Derived maps
     # ------------------------------------------------------------------ #
     @property
     def valid_depth_mask(self) -> torch.Tensor:
-        """``(B, L, H, W, 1)`` bool, True where depth > 0."""
+        """``(B, L, H, W, 1)`` bool, True where depth > 0 (the channel
+        dimension follows the layout)."""
         return self.depth_image > 0
 
     @property
     def pixel_pos(self) -> torch.Tensor:
         """``(B, L, H, W, 3)`` homogeneous pixel coordinates ``(u, v, 1)``
         (u = column, v = row)."""
+        if self.channels_first:
+            return self._derived("pixel_pos")
         B, L, H, W = self.shape
         grid = create_meshgrid(
             H, W, normalized_coords=False, device=self.device, dtype=self.dtype
@@ -134,6 +231,8 @@ class RGBDImages:
     @property
     def vertex_map(self) -> torch.Tensor:
         """``(B, L, H, W, 3)`` camera-frame back-projection."""
+        if self.channels_first:
+            return self._derived("vertex_map")
         B, L = self.shape[:2]
         Kinv = inverse_intrinsics(self.intrinsics)[..., :3, :3].expand(B, L, 3, 3)
         v = torch.einsum("bsjc,bshwc->bshwj", Kinv, self.pixel_pos) * self.depth_image
@@ -142,6 +241,8 @@ class RGBDImages:
     @property
     def global_vertex_map(self) -> torch.Tensor:
         """``(B, L, H, W, 3)`` world-frame vertices."""
+        if self.channels_first:
+            return self._derived("global_vertex_map")
         if self.poses is None:
             return self.vertex_map
         rmat = self.poses[..., :3, :3]
@@ -154,6 +255,8 @@ class RGBDImages:
     def normal_map(self) -> torch.Tensor:
         """``(B, L, H, W, 3)`` camera-frame normals from pitch-k finite
         differences."""
+        if self.channels_first:
+            return self._derived("normal_map")
         v = self.vertex_map
         k = self.normal_pitch
         H, W = v.shape[-3], v.shape[-2]
@@ -185,6 +288,8 @@ class RGBDImages:
     @property
     def global_normal_map(self) -> torch.Tensor:
         """``(B, L, H, W, 3)`` world-frame normals."""
+        if self.channels_first:
+            return self._derived("global_normal_map")
         if self.poses is None:
             return self.normal_map
         rmat = self.poses[..., :3, :3]

@@ -147,10 +147,15 @@ def test_update_map_aggregate_matches_jax(cap, features):
 
 
 def test_update_map_aggregate_refuses_user_features():
-    _, tf = _frames_with_holes(6, B=1, L=1)
-    pc = jax_map_to_torch(G.Pointclouds.empty(1, 300, feature_dim=3))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, item 8"):
-        update_map_aggregate(pc, tf[:, 0])
+    """A map with user feature channels refuses a frame without a feature
+    plane, as the JAX package does (user channels are ported:
+    tests/port/test_torch_features.py)."""
+    jf, tf = _frames_with_holes(6, B=1, L=1)
+    jmap = G.Pointclouds.empty(1, 300, feature_dim=3)
+    with pytest.raises(ValueError, match="2 user feature channel"):
+        update_map_aggregate(jax_map_to_torch(jmap), tf[:, 0])
+    with pytest.raises(ValueError, match="2 user feature channel"):
+        jax_update_map_aggregate(jmap, jf[:, 0])
 
 
 def test_icp_meets_reference_golden_and_jax():

@@ -135,23 +135,37 @@ def test_pipeline_state_and_precision_policy():
     assert slam._default_icp_capacity(480, 640) == 2 * 120 * 160
 
 
-UNPORTED = [
+# The options that raised NotImplementedError until their ROADMAP item was
+# ported; feature_channels (queue 1, item 8) was the last.
+FORMERLY_UNPORTED = [
     {"feature_channels": 2},
 ]
 
 
-@pytest.mark.parametrize("option", UNPORTED, ids=lambda o: next(iter(o)))
+@pytest.mark.parametrize("option", FORMERLY_UNPORTED, ids=lambda o: next(iter(o)))
 def test_unported_options_raise_naming_their_roadmap_item(option):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, item \d+"):
-        PointFusion(**option)
+    """No option is left unported: each former one constructs as in the JAX
+    package and sets the same map layout."""
+    ours, theirs = PointFusion(**option), G.PointFusion(**option)
+    for name, value in option.items():
+        assert getattr(ours, name) == getattr(theirs, name) == value
+    assert ours._map_feature_dim == theirs._map_feature_dim
 
 
 @pytest.mark.parametrize("option, item", [
     ({"feature_channels": 1}, 8),
 ], ids=lambda o: next(iter(o)) if isinstance(o, dict) else str(o))
 def test_constructor_refuses_unported_options(option, item):
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md queue 1, item {item}\b"):
-        PointFusion(**option)
+    """The item is ported: its option constructs, and no source file of the
+    port raises naming it any more."""
+    import pathlib
+
+    PointFusion(**option)
+    root = pathlib.Path(__file__).resolve().parents[2] / "gradslam_torch"
+    for path in root.rglob("*.py"):
+        text = path.read_text()
+        assert f"queue 1, item {item}" not in text, path
+        assert "NotImplementedError(" not in text, path
 
 
 # The recovery and projective options against the JAX constructors
@@ -191,6 +205,11 @@ CONSTRUCTOR_CASES = [
     ("PointFusion", {"odom_subpixel": True}, "odom_subpixel"),
     ("ICPSLAM", {"odom_assoc": "bogus"}, "odom_assoc"),
     ("PointFusion", {"icp_window_frames": 2}, "icp_window_frames"),
+    ("PointFusion", {"feature_channels": 21}, None),
+    ("PointFusion", {"feature_channels": 2, "quantize_colors": True}, None),
+    ("ICPSLAM", {"feature_channels": 3}, None),
+    ("PointFusion", {"feature_channels": -1}, "feature_channels"),
+    ("ICPSLAM", {"feature_channels": 2.5}, "feature_channels"),
 ]
 
 
@@ -200,7 +219,8 @@ def test_constructor_matches_jax(cls, option, match):
     if match is None:
         ours, theirs = globals()[cls](**option), getattr(G, cls)(**option)
         for name in ("relocalize_below", "relocalize_grid", "relocalize_dsratio",
-                     "relocalize_numiters", "anchor_every", "anchor_below", "anchor_dsratio"):
+                     "relocalize_numiters", "anchor_every", "anchor_below", "anchor_dsratio",
+                     "feature_channels", "_map_feature_dim", "_map_has_colors"):
             assert getattr(ours, name) == getattr(theirs, name), name
         assert ours._finest_assoc == theirs._finest_assoc
         prov, jprov = ours.odomprov, theirs.odomprov

@@ -27,13 +27,17 @@ defines:
 - runs the four PointFusion paths at their full size (tracked
   ``odom='gradicp'`` and ``odom='gt'`` on the 640x480 synthetic clip with
   the six-segment schedule, the production recipe on the 640x480 hard clip,
-  ``odom='gt'`` with quantized colors) and the tree's ICPSLAM
-  configurations on the 320x240 clip: for each one warm-up run and three
-  timed runs (host clock, each ending in a synchronize), then one run under
-  ``torch.profiler``.
+  ``odom='gt'`` with quantized colors), the tree's ICPSLAM
+  configurations on the 320x240 clip and, where the tree's ``chip_smoke.py``
+  defines them, its semantic rows (``SEMANTIC_ROWS`` with
+  ``feature_channels=SEM_F`` on the clip with its ``stripe_plane``) and
+  online loops (``ONLINE_ROWS``' ``step`` loop at ``ONLINE_CAP``): for
+  each one warm-up run and three timed runs (host clock, each ending in a
+  synchronize), then one run under ``torch.profiler``.
 
 It prints one JSON line with the seconds of every timed run, each run's
-final map count, a SHA-256 of the last run's poses and of its map points,
+final map count, a SHA-256 of the last run's poses, of its map points and
+(where the map carries them) of its features,
 the profiled run's device events and device busy seconds (the sum of the
 device-side events' own times, and the union of their spans, which does not
 count the scatter's dependent launch twice where it overlaps its fill or
@@ -165,18 +169,30 @@ def main() -> int:
     }
     for name, kw in cs.ICPSLAM_CONFIGS.items():
         paths[f"icpslam_{name}"] = (ICPSLAM(map_capacity=cs.ICP_SCHEDULE, **kw), icp)
-    for name, (slam, frames) in paths.items():
-        slam(frames)
+    runs = {name: functools.partial(slam, frames) for name, (slam, frames) in paths.items()}
+    for name, (cls, shape, kw) in getattr(cs, "SEMANTIC_ROWS", {}).items():
+        _, sem, _ = cs.semantic_frames(shape)
+        slam = {"PointFusion": PointFusion, "ICPSLAM": ICPSLAM}[cls](
+            feature_channels=cs.SEM_F, **kw)
+        runs[f"semantic_{name}"] = functools.partial(slam, sem)
+    for name, kw in getattr(cs, "ONLINE_ROWS", {}).items():
+        plain, sem, _ = cs.semantic_frames(size)
+        slam = PointFusion(map_capacity=cs.ONLINE_CAP, **kw)
+        runs[f"online_{name}_step"] = functools.partial(
+            cs.step_loop, slam, sem if kw.get("feature_channels") else plain,
+            kw.get("motion_model") == "constant_velocity")
+    for name, run in runs.items():
+        run()
         torch.cuda.synchronize()
         secs, counts = [], []
         for _ in range(3):
             t0 = time.perf_counter()
-            pc, poses = slam(frames)
+            pc, poses = run()
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             counts.append(int(pc.num_points[0]))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            slam(frames)
+            run()
             torch.cuda.synchronize()
         device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
@@ -191,6 +207,8 @@ def main() -> int:
             "poses_sha256": sha256(poses),
             "points_sha256": sha256(*(pc.points[b, :int(pc.num_points[b])]
                                       for b in range(pc.points.shape[0]))),
+            "features_sha256": None if pc.features is None else sha256(
+                *(pc.features[b, :int(pc.num_points[b])] for b in range(pc.points.shape[0]))),
             "device_events": sum(e.count for e in device),
             "device_busy_s": sum(e.self_device_time_total for e in device) / 1e6,
             "device_busy_union_s": here_cs.device_busy_s(prof),
