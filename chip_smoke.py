@@ -138,15 +138,32 @@ Phases (each raises on failure; nothing is caught):
     write-backs (88- and 92-byte rows), the window compaction at
     ``SEM_SCATTER_CAP`` and the F=21 aggregate append, each against its
     plain version and timed as in phases 3 and 3b;
-15. print the kernels' JSON line, the card's line, and the result line.
+15. the dataset slice (after the semantic phase; ``dataset_phase``), from
+    disk to disk at 640x480x30: a TUM-format and an ICL-format tree written
+    from a seed with the port's PNG encoder (rows cycling through every
+    filter, ICL at its negative fy), the host's decode time a colour and a
+    depth frame and the sample's load time with both loaders;
+    ``examples.pointfusion.main`` on the TUM tree (gradICP at the default
+    capacity 9,216,000, fusion modes ``'auto'``): map within 0.2% of the JAX
+    package's CPU run (``tests/port/data/dataset_jax_cpu.npz``), 0 dropped,
+    unaligned ATE within 2x the golden's, poses, map and both kernels'
+    launches equal to the in-memory run of the same arrays;
+    ``examples.icpslam.main`` on the ICL tree resized to 320x240: the map
+    exactly the valid pixel count, aligned ATE within 2x the golden's;
+    ``examples.online_slam.main`` through 30 frames, through 15 and resumed
+    to 30: the resumed run SHA-256-equal to the uninterrupted one,
+    ``map.ply`` and ``trajectory.txt`` read back; both kernels against their
+    plain versions on the pointfusion run's own inputs, timed at its new
+    shapes;
+16. print the kernels' JSON line, the card's line, and the result line.
 
 Every timed run counts both kernels' launches from 0 and must hit the
 counts derived from the code (``KNN_LAUNCHES_PER_RUN``,
 ``PROD_LAUNCHES_PER_RUN``, ``ICP_KNN_LAUNCHES``, ``SCATTER_LAUNCHES``,
 ``grad_launches``, ``recovery_launches`` from the frames on which a run's
-recovery branches ran, ``semantic_launches``; the online loops must launch
-what ``forward`` does); the kernels' line prints the counts read in the
-runs.
+recovery branches ran, ``semantic_launches``, ``dataset_launches``; the
+online loops must launch what ``forward`` does); the kernels' line prints
+the counts read in the runs.
 
 Exits non-zero, printing no result, when no CUDA device is available.
 """
@@ -159,7 +176,9 @@ import functools
 import hashlib
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -180,7 +199,14 @@ from gradslam_torch import (
     relocalize,
     synthetic_sequence,
 )
+from gradslam_torch.datasets import TUM, frameio
+from gradslam_torch.datasets import base as base_module
+from gradslam_torch.datasets.datautils import scale_intrinsics
+from gradslam_torch.datasets import synthetic as synthetic_module
 from gradslam_torch.examples import gradient_refinement
+from gradslam_torch.examples import icpslam as icpslam_example
+from gradslam_torch.examples import online_slam as online_example
+from gradslam_torch.examples import pointfusion as pointfusion_example
 from gradslam_torch.geometry import (
     compose_transformations,
     inverse_transformation,
@@ -194,8 +220,10 @@ from gradslam_torch.ops._build import load_library
 from gradslam_torch.ops.scatter import scatter_rows_into_plain, scatter_rows_plain
 from gradslam_torch.slam.fusionutils import _resolve_modes
 from gradslam_torch.structures import pointclouds as pointclouds_module
+from gradslam_torch.structures.io import load_ply
 from gradslam_torch.structures.pointclouds import scatter_rows, scatter_rows_into
 from gradslam_torch.utils.precision import disable_tf32, tf32_disabled
+from gradslam_torch.utils.trajectory_io import load_trajectory_tum
 
 B, L, H, W = 1, 30, 480, 640
 DSRATIO, NUMITERS = 4, 10
@@ -2703,6 +2731,366 @@ def semantic_online_phase() -> tuple:
         rows.append(time_scatter(name, table, dest, values, fill))
     return [knn_row], max_err, rows
 
+# The dataset slice: a TUM-format and an ICL-format tree written from a seed
+# with the port's PNG encoder, read back by the port's loaders and run
+# through its example CLIs (gradslam_torch/examples/), held against the JAX
+# package's CPU run of the same trees (tests/port/make_dataset_golden.py).
+DS_L, DS_H, DS_W = 30, 480, 640
+DS_SEED = 0
+TUM_INTRINSICS = (525.0, 525.0, 319.5, 239.5)  # fx, fy, cx, cy (tum.py:84-87)
+ICL_INTRINSICS = (481.2, -480.0, 319.5, 239.5)  # ICL's negative fy (icl.py:111-114)
+DEPTH_UNITS_PER_M = 5000.0  # TUM's and ICL's 16-bit depth scale
+PNG_FILTERS = (4, 1, 2, 3, 0)  # each file's rows cycle through every filter, Paeth first
+TUM_SEQUENCE = "rgbd_dataset_freiburg1_smoke"
+ICL_TRAJECTORY = "living_room_traj0_frei_png"
+ICL_H, ICL_W = ICP_H, ICP_W  # the ICPSLAM cell's size: the loader resizes 640x480
+DS_GOLDEN = Path(__file__).resolve().parent / "tests/port/data/dataset_jax_cpu.npz"
+DS_COUNT_REL = 0.002  # map within 0.2% of the golden's
+DS_ATE_FACTOR = 2.0  # ATE within 2x of the golden's
+DS_TRAJ_ATOL = 1e-6  # trajectory.txt read back against the poses
+DS_RESUME_AT = 15  # the interrupted online run stops after this many frames
+DS_CHECKPOINT_EVERY = 5
+# the command lines of the example CLIs (the dataset path is added)
+DS_POINTFUSION_ARGS = ["--dataset", "tum", "--height", str(DS_H), "--width", str(DS_W),
+                       "--seqlen", str(DS_L), "--batch_size", "1", "--odometry", "gradicp"]
+DS_ICPSLAM_ARGS = ["--dataset", "icl", "--height", str(ICL_H), "--width", str(ICL_W),
+                   "--seqlen", str(DS_L), "--batch_size", "1", "--odometry", "icp"]
+DS_ONLINE_ARGS = ["--height", str(DS_H), "--width", str(DS_W), "--odometry", "gradicp"]
+# examples/pointfusion.py's PointFusion arguments at its flag defaults
+DS_POINTFUSION_DEFAULTS = dict(
+    quantize_colors=False, pyramid=None, robust_loss=None, robust_scale=0.05,
+    dist_thresh=None, motion_model="static", normal_pitch=None, odom_assoc="knn",
+    odom_sym_normals=False, odom_point_weight=0.0, odom_subpixel=False,
+    odom_angle_gate=None, relocalize_below=0.0, anchor_every=0, prune_every=0,
+    prune_min_confidence=1.5,
+)
+DS_DIR = "_dataset_smoke"  # the trees and the CLIs' outputs, removed after the phase
+
+
+def dataset_clip(intrinsics: tuple, shape: tuple = None, seed: int = DS_SEED) -> tuple:
+    """The wall and camera path of ``synthetic_sequence`` rendered over
+    ``shape = (L, H, W)`` (default ``(DS_L, DS_H, DS_W)``) at ``intrinsics`` ``(fx, fy, cx, cy)`` given for
+    640x480 and scaled to ``W x H`` as the loaders scale them, as a sensor
+    records it: ``(colors (L, H, W, 3) uint8, depths (L, H, W) uint16 in
+    1/5000 m, poses (L, 4, 4) float32)``."""
+    L_, H_, W_ = (DS_L, DS_H, DS_W) if shape is None else shape
+    sx, sy = W_ / 640.0, H_ / 480.0
+    fx, fy, cx, cy = (v * r for v, r in zip(intrinsics, (sx, sy, sx, sy)))
+    rng = np.random.RandomState(seed)
+    cam_ts = [(0.005 * s, 0.002 * s) for s in range(L_)]
+    depths = np.stack([
+        synthetic_module._render_depth(H_, W_, fx, cx, cy, tx, tz, fy=fy)
+        + 0.0002 * rng.rand(H_, W_) for tx, tz in cam_ts])
+    depths = np.round(depths * DEPTH_UNITS_PER_M).astype(np.uint16)
+    colors = (rng.rand(L_, H_, W_, 3) * 256).astype(np.uint8)
+    poses = synthetic_module._pan_poses(cam_ts, 1)[0]
+    return colors, depths, poses
+
+
+def tum_line(stamp: float, pose: np.ndarray) -> str:
+    """One ``t tx ty tz qx qy qz qw`` row of a pure-translation pose."""
+    tx, ty, tz = (float(v) for v in pose[:3, 3])
+    return f"{stamp:.6f} {tx:.9f} {ty:.9f} {tz:.9f} 0 0 0 1"
+
+
+def write_tum_tree(root: Path, clip: tuple) -> Path:
+    """A TUM sequence directory under ``root``: ``rgb/`` and ``depth/`` PNGs,
+    ``rgb.txt``, ``depth.txt`` with each depth stamp 1-15 ms after its rgb
+    stamp (inside the 0.02 s association gate, as
+    ``tests/datasets/test_long_sequence.py`` jitters them) and
+    ``groundtruth.txt``. Returns ``root``."""
+    colors, depths, poses = clip
+    seq = root / TUM_SEQUENCE
+    (seq / "rgb").mkdir(parents=True)
+    (seq / "depth").mkdir()
+    rng = np.random.RandomState(DS_SEED + 1)
+    rgb_lines, depth_lines, gt_lines = ["# rgb"], ["# depth"], ["# timestamp tx ty tz qx qy qz qw"]
+    for i in range(len(colors)):
+        t = 1000.0 + 0.05 * i
+        td = t + 0.001 + 0.014 * rng.rand()
+        frameio.write_png(str(seq / "rgb" / f"{t:.6f}.png"), colors[i], filters=PNG_FILTERS)
+        frameio.write_png(str(seq / "depth" / f"{td:.6f}.png"), depths[i], filters=PNG_FILTERS)
+        rgb_lines.append(f"{t:.6f} rgb/{t:.6f}.png")
+        depth_lines.append(f"{td:.6f} depth/{td:.6f}.png")
+        gt_lines.append(tum_line(t + 0.002, poses[i]))
+    (seq / "rgb.txt").write_text("\n".join(rgb_lines) + "\n")
+    (seq / "depth.txt").write_text("\n".join(depth_lines) + "\n")
+    (seq / "groundtruth.txt").write_text("\n".join(gt_lines) + "\n")
+    return root
+
+
+def write_icl_tree(root: Path, clip: tuple) -> Path:
+    """An ICL trajectory directory under ``root``: ``rgb/``, ``depth/``,
+    ``associations.txt`` and ``livingRoom0.gt.freiburg``. Returns ``root``."""
+    colors, depths, poses = clip
+    traj = root / ICL_TRAJECTORY
+    (traj / "rgb").mkdir(parents=True)
+    (traj / "depth").mkdir()
+    assoc, gt = [], []
+    for i in range(len(colors)):
+        frameio.write_png(str(traj / "rgb" / f"{i}.png"), colors[i], filters=PNG_FILTERS)
+        frameio.write_png(str(traj / "depth" / f"{i}.png"), depths[i], filters=PNG_FILTERS)
+        assoc.append(f"{i} depth/{i}.png {i} rgb/{i}.png")
+        gt.append(tum_line(float(i), poses[i]))
+    (traj / "associations.txt").write_text("\n".join(assoc) + "\n")
+    (traj / "livingRoom0.gt.freiburg").write_text("\n".join(gt) + "\n")
+    return root
+
+
+def decoded_arrays(clip: tuple, intrinsics: tuple) -> tuple:
+    """The clip as the TUM loader hands it over at the clip's own size,
+    made in memory: ``(rgb (1, L, H, W, 3), depth (1, L, H, W, 1), K (1, 1,
+    4, 4), poses (1, L, 4, 4))`` float32, ``intrinsics`` (for 640x480)
+    scaled as the loader scales them."""
+    colors, depths, poses = clip
+    fx, fy, cx, cy = intrinsics
+    K = np.eye(4, dtype=np.float32)
+    K[0, 0], K[1, 1], K[0, 2], K[1, 2] = fx, fy, cx, cy
+    K = scale_intrinsics(K, depths.shape[1] / 480.0, depths.shape[2] / 640.0)
+    depth = depths.astype(np.float32)[..., None] / DEPTH_UNITS_PER_M
+    rebased = (np.linalg.inv(poses[0:1]) @ poses).astype(np.float32)
+    return colors.astype(np.float32)[None], depth[None], K[None, None], rebased[None]
+
+
+def dataset_launches(kind: str) -> dict:
+    """Both kernels' launches of one run of a dataset-phase CLI, derived
+    from the code: the TUM pointfusion run as :func:`recovery_launches`
+    derives a gradICP PointFusion run at the default capacity L * H * W
+    (fusion windowed + scatter there); the ICL icpslam run as ICPSLAM flat
+    (``SCATTER_LAUNCHES``), with ``odom='icp'``'s 20 LM iterations of two
+    searches each."""
+    if kind == "tum":
+        kw = dict(odom="gradicp", map_capacity=DS_L * DS_H * DS_W)
+        return recovery_launches(kw, (1, DS_L, DS_H, DS_W), {"relocalize": [], "anchor": []})
+    return {"knn": 2 * 20 * (DS_L - 1), "scatter": 3 + (DS_L - 1) * ((2 + 3) + 3)}
+
+
+def decode_times(path: Path, image: np.ndarray) -> dict:
+    """Host ms to decode one frame (median of 5): the file as written (rows
+    cycling through ``PNG_FILTERS``), read from disk and decoded; its bytes
+    decoded from memory; and the same image encoded with every row Paeth or
+    every row Sub (the fast row path), decoded from memory."""
+    data = path.read_bytes()
+    cases = {"file": lambda: frameio.read_png(str(path)),
+             "as_written": lambda: frameio.decode_png(data)}
+    for name, filt in (("paeth", 4), ("sub", 1)):
+        encoded = frameio.encode_png(image, filters=filt)
+        cases[name] = lambda encoded=encoded: frameio.decode_png(encoded)
+    out = {}
+    for name, fn in cases.items():
+        got = fn()
+        if not np.array_equal(got, image):
+            raise AssertionError(f"PNG {path.name} ({name}) decodes to another image")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[name] = float(np.median(times))
+    return out
+
+
+def counted(fn):
+    """``fn()`` with both kernels' counts set to 0 just before and read just
+    after, timed on the host clock. Returns ``(result, launches, seconds)``."""
+    torch.cuda.synchronize()
+    knn_cuda.launches = scatter_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, {"knn": knn_cuda.launches, "scatter": scatter_cuda.launches}, secs
+
+
+def dataset_phase() -> tuple:
+    """The dataset slice (``gradslam_torch/datasets``, ``structures/io.py``,
+    ``utils/``, ``examples/``), from disk to disk at 640x480x30:
+
+    (1) write the TUM and ICL trees (``write_tum_tree``, ``write_icl_tree``)
+        and time the host's PNG decode of one colour and one depth frame and
+        the load of the 30-frame sample (both loaders, equal tensors);
+    (2) ``examples.pointfusion.main`` on the TUM tree (gradICP, the default
+        capacity, fusion modes ``'auto'``): map within 0.2% of the JAX
+        golden, 0 dropped, unaligned ATE within 2x the golden's, and poses,
+        map and both kernels' launches equal to the in-memory run of the
+        same frames (``decoded_arrays`` -> interop -> PointFusion);
+    (3) ``examples.icpslam.main`` on the ICL tree resized to 320x240: the
+        map exactly the valid pixel count, aligned ATE within 2x the
+        golden's;
+    (4) ``examples.online_slam.main`` on the TUM tree through 30 frames
+        (checkpoints every 5), through 15, then resumed to 30: the resumed
+        run's poses and map SHA-256-equal to the uninterrupted run's, its
+        ``map.ply`` read back equal to the map's live rows, its
+        ``trajectory.txt`` within ``DS_TRAJ_ATOL`` of the poses;
+    (5) both kernels against their plain versions on the inputs of (2).
+
+    Returns the 1-NN kernel's new timed shape, its max error and the scatter
+    kernel's new timed shapes."""
+    golden = np.load(DS_GOLDEN)
+    root = Path(__file__).resolve().parent / DS_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        return _dataset_phase(root, golden)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _dataset_phase(root: Path, golden) -> tuple:
+    # (1) the trees, the decoder's and the loaders' host times
+    t0 = time.perf_counter()
+    tum_clip = dataset_clip(TUM_INTRINSICS)
+    icl_clip = dataset_clip(ICL_INTRINSICS)
+    tum_root = write_tum_tree(root / "tum", tum_clip)
+    icl_root = write_icl_tree(root / "icl", icl_clip)
+    log(f"dataset: rendered and wrote the TUM and ICL trees ({2 * DS_L} frames each at "
+        f"{DS_W}x{DS_H}, rows cycling through PNG filters {PNG_FILTERS}) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    seq = tum_root / TUM_SEQUENCE
+    rgb0 = sorted((seq / "rgb").iterdir())[0]
+    depth0 = sorted((seq / "depth").iterdir())[0]
+    color_ms = decode_times(rgb0, tum_clip[0][0])
+    depth_ms = decode_times(depth0, tum_clip[1][0])
+    log(f"dataset: host PNG decode ms a {DS_W}x{DS_H} frame (median of 5): colour "
+        + ", ".join(f"{k} {v:.2f}" for k, v in color_ms.items()) + "; depth "
+        + ", ".join(f"{k} {v:.2f}" for k, v in depth_ms.items()))
+    loads = {}
+    for loader in ("cv2", "native"):
+        t0 = time.perf_counter()
+        sample = TUM(str(tum_root), seqlen=DS_L, height=DS_H, width=DS_W, loader=loader)[0]
+        loads[loader] = (time.perf_counter() - t0, sample)
+    for a, b in zip(loads["cv2"][1], loads["native"][1]):
+        if not (a == b if isinstance(a, str) else torch.equal(a, b)):
+            raise AssertionError("dataset: the 'native' loader's sample differs from 'cv2''s")
+    want = decoded_arrays(tum_clip, TUM_INTRINSICS)
+    for got, ref in zip(loads["cv2"][1][:4], (want[0][0], want[1][0], want[2][0, 0], want[3][0])):
+        if not (got.dtype == torch.float32 and np.array_equal(got.numpy(), ref)):
+            raise AssertionError("dataset: the TUM sample differs from the arrays written")
+    log(f"dataset: TUM sample of {DS_L} frames ({2 * DS_L} PNGs) loaded in "
+        f"{loads['cv2'][0]:.3f} s (loader 'cv2', one after the other) and "
+        f"{loads['native'][0]:.3f} s (loader 'native', {os.cpu_count()} threads), equal "
+        "tensors, equal to the arrays written")
+
+    # (2) pointfusion on the TUM tree, held against the golden and the
+    # in-memory run of the same frames
+    cap = DS_L * DS_H * DS_W
+    modes = _resolve_modes("auto", "auto", cap, DS_H * DS_W, min(2 * DS_H * DS_W, cap))
+    log(f"dataset: pointfusion at the default capacity {cap}: 'auto' fuses {modes[0]} + "
+        f"{modes[1]}")
+    argv = DS_POINTFUSION_ARGS + ["--dataset_path", str(tum_root)]
+    with KnnCapture() as knn_cap, ScatterCapture() as new_cap, ScatterIntoCapture() as into_cap:
+        (pc, poses), cli_launches, cli_s = counted(lambda: pointfusion_example.main(argv))
+    expect = dataset_launches("tum")
+    LAUNCHES["dataset_tum_pointfusion"] = cli_launches
+    if cli_launches != expect:
+        raise AssertionError(f"dataset pointfusion: launches {cli_launches}, expected {expect}")
+    count = int(pc.num_points[0])
+    ref = int(golden["tum_num_points"])
+    if int(pc.num_dropped[0]) != 0 or abs(count - ref) > DS_COUNT_REL * ref:
+        raise AssertionError(f"dataset pointfusion: map {count} ({int(pc.num_dropped[0])} "
+                             f"dropped), JAX golden {ref}")
+    check_run(pc, poses, (1, DS_L), "dataset pointfusion")
+    ate = ate_m(poses[0].cpu().numpy(), tum_clip[2])
+    bar = DS_ATE_FACTOR * float(golden["tum_ate_unaligned_m"])
+    if not ate <= bar:
+        raise AssertionError(f"dataset pointfusion: unaligned ATE {ate} m above {bar} m")
+    frames = rgbdimages_from_numpy(*want, device="cuda")
+    slam = PointFusion(odom="gradicp", **DS_POINTFUSION_DEFAULTS)
+    (pc_mem, poses_mem), mem_launches, mem_s = counted(lambda: slam(frames))
+    if mem_launches != cli_launches:
+        raise AssertionError(f"dataset pointfusion: in-memory launches {mem_launches}, "
+                             f"from disk {cli_launches}")
+    digest = map_digest(pc, poses)
+    if map_digest(pc_mem, poses_mem) != digest:
+        raise AssertionError("dataset pointfusion: poses or map differ from the in-memory run")
+    log(f"dataset: pointfusion CLI on the TUM tree {DS_W}x{DS_H}x{DS_L}: wall {cli_s:.3f} s "
+        f"(load + SLAM); the in-memory run {mem_s:.3f} s = {DS_L / mem_s:.4f} frames/s; map "
+        f"{count} points (JAX golden {ref}), 0 dropped, unaligned ATE {ate:.4e} m (bar "
+        f"{bar:.4e} m), launches {cli_launches} in both, SHA-256 of poses and map equal "
+        f"({digest[:16]})")
+
+    # (3) icpslam on the ICL tree, resized to the ICPSLAM cell's size
+    argv = DS_ICPSLAM_ARGS + ["--dataset_path", str(icl_root)]
+    (ipc, iposes), icl_launches, icl_s = counted(lambda: icpslam_example.main(argv))
+    LAUNCHES["dataset_icl_icpslam"] = icl_launches
+    if icl_launches != dataset_launches("icl"):
+        raise AssertionError(f"dataset icpslam: launches {icl_launches}, expected "
+                             f"{dataset_launches('icl')}")
+    valid = int((base_module.resize_nearest(icl_clip[1].transpose(1, 2, 0), ICL_H, ICL_W)
+                 > 0).sum())
+    icount = check_run(ipc, iposes, (1, DS_L), "dataset icpslam")
+    if icount != valid or icount != int(golden["icl_num_points"]):
+        raise AssertionError(f"dataset icpslam: map {icount}, valid pixels {valid}, JAX golden "
+                             f"{int(golden['icl_num_points'])}")
+    iate = float(ate_rmse(iposes[0].cpu(), torch.from_numpy(icl_clip[2])))
+    ibar = DS_ATE_FACTOR * float(golden["icl_ate_m"])
+    if not iate <= ibar:
+        raise AssertionError(f"dataset icpslam: aligned ATE {iate} m above {ibar} m")
+    log(f"dataset: icpslam CLI on the ICL tree ({DS_W}x{DS_H} files at {ICL_W}x{ICL_H}) x{DS_L}: "
+        f"wall {icl_s:.3f} s; map {icount} points = the valid pixels, 0 dropped, aligned ATE "
+        f"{iate:.4e} m (bar {ibar:.4e} m), launches {icl_launches}")
+
+    # (4) online_slam: uninterrupted against checkpoint + resume
+    common = DS_ONLINE_ARGS + ["--dataset_path", str(tum_root)]
+    whole, split = str(root / "online_whole"), str(root / "online_split")
+    runs = {}
+    for tag, extra in (("whole", ["--seqlen", str(DS_L), "--checkpoint-every",
+                                  str(DS_CHECKPOINT_EVERY), "--out", whole]),
+                       ("first", ["--seqlen", str(DS_RESUME_AT), "--out", split]),
+                       ("resumed", ["--seqlen", str(DS_L), "--resume", "--out", split])):
+        runs[tag] = counted(lambda extra=extra: online_example.main(common + extra))
+        LAUNCHES[f"dataset_online_{tag}"] = runs[tag][1]
+    (opc, oest), olaunches, osecs = runs["whole"]
+    (rpc, rest), _, _ = runs["resumed"]
+    digest = map_digest(opc, oest)
+    if map_digest(rpc, rest) != digest or not torch.equal(rpc.num_dropped, opc.num_dropped):
+        raise AssertionError("dataset online_slam: the resumed run differs from the "
+                             "uninterrupted one")
+    halves = {k: runs["first"][1][k] + runs["resumed"][1][k] for k in olaunches}
+    if halves != olaunches or olaunches != cli_launches:
+        raise AssertionError(f"dataset online_slam: launches {olaunches} uninterrupted, "
+                             f"{halves} in two parts, {cli_launches} for forward")
+    n = int(opc.num_points[0])
+    cloud = load_ply(f"{whole}/map.ply")
+    if not (np.array_equal(cloud["points"], opc.points[0, :n].cpu().numpy())
+            and np.array_equal(cloud["normals"], opc.normals[0, :n].cpu().numpy())):
+        raise AssertionError("dataset online_slam: map.ply differs from the map's live rows")
+    _, traj = load_trajectory_tum(f"{whole}/trajectory.txt")
+    traj_err = float(np.abs(traj - oest.cpu().numpy()).max())
+    if not traj_err <= DS_TRAJ_ATOL:
+        raise AssertionError(f"dataset online_slam: trajectory.txt off by {traj_err}")
+    log(f"dataset: online_slam CLI {DS_W}x{DS_H}x{DS_L}: wall {osecs:.3f} s uninterrupted "
+        f"(checkpoints every {DS_CHECKPOINT_EVERY}), {runs['first'][2]:.3f} s to frame "
+        f"{DS_RESUME_AT} and {runs['resumed'][2]:.3f} s resumed to {DS_L}; the resumed run "
+        f"SHA-256-equal to the uninterrupted one ({digest[:16]}), launches "
+        f"{olaunches} = forward's; map.ply ({n} points) equal to the map's live rows, "
+        f"trajectory.txt within {traj_err:.2e} of the poses")
+
+    # (5) both kernels against their plain versions on (2)'s own inputs
+    src, tgt, mask = knn_cap.args
+    max_err = check_knn_case("dataset_tum_first_search", src, tgt, mask)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    knn_row = time_knn(src, tgt, mask, sms, max_sm_clock_hz())
+    knn_row["case"] = "dataset_tum_first_search"
+    checked = []
+    for kind, calls in (("new table", new_cap.calls), ("into buffer", into_cap.calls)):
+        for key, (table, dest, values, fill) in calls.items():
+            table = table if isinstance(table, int) else table.contiguous()
+            args = (table, dest.contiguous(), values.contiguous(), fill)
+            if not torch.equal(int_view(scatter_kernel(*args)), int_view(scatter_plain(*args))):
+                raise AssertionError(f"dataset scatter ({kind} {key}): the kernel differs from "
+                                     "its plain version")
+            checked.append(f"{kind} {key}")
+    log("dataset: the 1-NN kernel on the run's first search and the scatter kernel on the "
+        "run's last call of each kind bit-equal to their plain versions: " + ", ".join(checked))
+    rows = []
+    width = max(into_cap.calls)  # the scatter merge's map rows
+    for name, (table, dest, values, fill) in (
+            (f"dataset_merge_{width}f_into_{cap}", into_cap.calls[width]),
+            (f"dataset_window_{2 * DS_H * DS_W}", new_cap.calls[2 * DS_H * DS_W])):
+        table = table if isinstance(table, int) else table.contiguous()
+        rows.append(time_scatter(name, table, dest.contiguous(), values.contiguous(), fill))
+    return [knn_row], max_err, rows
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2780,6 +3168,13 @@ def main() -> int:
     knn["max_abs_err"] = max(knn["max_abs_err"], knn_err)
     scatter["shapes"] += scatter_new
     log(f"semantic/online phase: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    knn_new, knn_err, scatter_new = dataset_phase()
+    knn["shapes"] += knn_new
+    knn["max_abs_err"] = max(knn["max_abs_err"], knn_err)
+    scatter["shapes"] += scatter_new
+    log(f"dataset phase: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     grad_phase()

@@ -8,12 +8,16 @@ relocalization and the keyframe drift anchor), offline (``forward``) or
 one frame at a time (``step``, ``localize``, ``map_update``), with the
 K-NN search and ``estimate_normals``, written in PyTorch, with the
 nearest-neighbour search and the unique-row scatter as hand-written CUDA
-kernels for Hopper (``ops/csrc/knn.cu``, ``ops/csrc/scatter.cu``). The JAX
-package ``gradslam_tpu`` is the reference it is tested against. This
-package imports neither JAX nor ``gradslam_tpu``.
+kernels for Hopper (``ops/csrc/knn.cu``, ``ops/csrc/scatter.cu``). From
+disk to disk: the TUM, ICL and ScanNet loaders (``datasets``, with the
+port's own PNG codec), PLY, TUM-trajectory and checkpoint IO
+(``structures.io``, ``utils``), ``config.CfgNode`` and the example CLIs
+(``python -m gradslam_torch.examples.<name>``). The JAX package
+``gradslam_tpu`` is the reference it is tested against. This package
+imports neither JAX nor ``gradslam_tpu``.
 """
 
-from . import metrics
+from . import config, datasets, metrics, utils
 from .datasets import hard_sequence, synthetic_sequence
 from .geometry import *  # noqa: F401,F403
 from .geometry import __all__ as _geometry_all

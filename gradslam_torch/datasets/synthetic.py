@@ -23,16 +23,18 @@ def _pixel_grids(H, W):
     return np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
 
 
-def _render_depth(H, W, fx, cx, cy, tx, tz):
+def _render_depth(H, W, fx, cx, cy, tx, tz, fy=None):
     # Solve z_c such that the camera ray hits the world surface
     # z_w(x_w, y_w) = 1.5 + 0.05 sin(x_w / 0.2) + 0.04 cos(y_w / 0.15)
     # with the camera at (tx, 0, tz); fixed-point iteration suffices for
-    # this gentle relief.
+    # this gentle relief. ``fy`` defaults to ``fx`` (square pixels); a
+    # negative ``fy`` (ICL's) flips the image rows.
+    fy = fx if fy is None else fy
     ys, xs = _pixel_grids(H, W)
     z = np.full((H, W), 1.5, dtype=np.float64)
     for _ in range(4):
         x_w = (xs - cx) / fx * z + tx
-        y_w = (ys - cy) / fx * z
+        y_w = (ys - cy) / fy * z
         z = (1.5 + 0.05 * np.sin(x_w / 0.2) + 0.04 * np.cos(y_w / 0.15)) - tz
     return z
 

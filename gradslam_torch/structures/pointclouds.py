@@ -28,6 +28,7 @@ import torch
 
 from ..ops import scatter_cuda
 from ..ops.scatter import scatter_rows_into_plain, scatter_rows_plain
+from .io import save_ply as _save_ply
 
 __all__ = ["Pointclouds", "compact_masked", "gather_rows", "scatter_rows", "scatter_rows_into"]
 
@@ -294,6 +295,21 @@ class Pointclouds:
             features=scat(self.features, features),
             num_dropped=(None if self.num_dropped is None
                          else self.num_dropped + (requested - appended)),
+        )
+
+    def save_ply(self, path: str, index: int = 0, binary: bool = True,
+                 color_range: Optional[str] = None) -> None:
+        r"""Write batch element ``index``'s live points (with its normals and
+        colors where the cloud carries them) to a PLY file, as
+        ``gradslam_tpu/structures/pointclouds.py:611`` does; ``color_range``
+        as :func:`~gradslam_torch.structures.io.save_ply`."""
+        _save_ply(
+            path,
+            self.points_list[index],
+            normals=None if self.normals is None else self.normals_list[index],
+            colors=None if self.colors is None else self.colors_list[index],
+            binary=binary,
+            color_range=color_range,
         )
 
     def append_points(self, other: "Pointclouds") -> "Pointclouds":
