@@ -155,13 +155,35 @@ Phases (each raises on failure; nothing is caught):
     ``map.ply`` and ``trajectory.txt`` read back; both kernels against their
     plain versions on the pointfusion run's own inputs, timed at its new
     shapes;
-16. print the kernels' JSON line, the card's line, and the result line.
+16. the structures slice (after the dataset phase; ``structures_phase``):
+    (a) the dense reference fusion path, ``find_correspondences`` +
+    ``fuse_with_map``, over the 640x480x30 clip with gt poses and the gt
+    schedule, at every frame from the same map against
+    ``update_map_fusion(association='sort_full')``: equal counts, the live
+    rows within 1e-5 row for row and column by column sorted, the
+    confidence mass within 1e-5 relative; two timed runs with 4 * 30 = 120
+    scatter launches each (one a buffer in ``append_masked``) and no 1-NN,
+    bit-equal to the lockstep run; the map within 0.2% of the reference's
+    516,214 with 0 dropped and within 0.2% of phase 5's map (the count gap
+    and the share of rows within 1e-5 reported), s/run beside phase 5's;
+    (b) the scatter kernel bit-equal to its plain version on the last
+    frame's four append calls, timed at the 12- and 4-byte rows into the
+    532,480-row map; (c) every ``Pointclouds`` operation, operator and
+    ``*_`` name on phase 5's map against the same on a CPU copy (points and
+    normals within 1e-5, a projection's pixels also within 1e-6 of their
+    size, the padding exactly zero, the input's SHA-256 unchanged), indexing,
+    ``from_list`` and the tensor round trips exact, ``RGBDImages`` ``clone``,
+    ``to``, ``cuda`` and the channels-first views at 640x480, ``transform``
+    with TF32 allowed by the caller bit-equal to TF32 off, and its device
+    time; TF32 off before and after;
+17. print the kernels' JSON line, the card's line, and the result line.
 
 Every timed run counts both kernels' launches from 0 and must hit the
 counts derived from the code (``KNN_LAUNCHES_PER_RUN``,
 ``PROD_LAUNCHES_PER_RUN``, ``ICP_KNN_LAUNCHES``, ``SCATTER_LAUNCHES``,
 ``grad_launches``, ``recovery_launches`` from the frames on which a run's
-recovery branches ran, ``semantic_launches``, ``dataset_launches``; the
+recovery branches ran, ``semantic_launches``, ``dataset_launches``,
+``DENSE_SCATTERS_PER_FRAME``; the
 online loops must launch what ``forward`` does); the kernels' line prints
 the counts read in the runs.
 
@@ -211,6 +233,7 @@ from gradslam_torch.geometry import (
     compose_transformations,
     inverse_transformation,
     orthonormalize_rotations,
+    se3_exp,
 )
 from gradslam_torch.interop import rgbdimages_from_numpy
 from gradslam_torch.metrics import ate_rmse, chamfer_distance, rpe
@@ -218,7 +241,17 @@ from gradslam_torch.odometry.icputils import downsample_rgbdimages
 from gradslam_torch.ops import _build, knn_cuda, knn_points, nn_points, nn_points_auto, scatter_cuda
 from gradslam_torch.ops._build import load_library
 from gradslam_torch.ops.scatter import scatter_rows_into_plain, scatter_rows_plain
-from gradslam_torch.slam.fusionutils import _resolve_modes
+from gradslam_torch.slam.fusionutils import (
+    ActiveMapPoints,
+    _project_map_points,
+    _resolve_modes,
+    find_active_map_points,
+    find_best_unique_correspondences,
+    find_correspondences,
+    find_similar_map_points,
+    fuse_with_map,
+    update_map_fusion,
+)
 from gradslam_torch.structures import pointclouds as pointclouds_module
 from gradslam_torch.structures.io import load_ply
 from gradslam_torch.structures.pointclouds import scatter_rows, scatter_rows_into
@@ -3092,6 +3125,357 @@ def _dataset_phase(root: Path, golden) -> tuple:
     return [knn_row], max_err, rows
 
 
+# The dense reference fusion path (find_correspondences + fuse_with_map) on
+# the easy clip with gt poses and the gt path's schedule, and the structure
+# API at full width (structures_phase).
+DENSE_DIST_TH, DENSE_DOT_TH, DENSE_SIGMA = 0.05, math.cos(math.radians(20)), 0.6
+DENSE_SCATTERS_PER_FRAME = 4  # append_masked: points, normals, colors, features
+DENSE_ATOL = 1e-5  # lockstep: the dense map's live rows against sort_full's
+DENSE_MASS_RTOL = 1e-5
+DENSE_GT_REL = 0.002  # the dense run's count against the gt pipeline's map
+STRUCT_ATOL = 1e-5  # a structure op on the card against the same op on the CPU
+STRUCT_PIX_RTOL = 1e-6  # pinhole projections, in pixels: also within this of their size
+
+
+class ScatterIntoTail:
+    """Keeps the last ``n`` scatter calls into a buffer made while it is
+    active (the kernel still runs): after a dense run, its last frame's
+    append, one call a buffer."""
+
+    def __init__(self, n: int):
+        self.n, self.calls = n, []
+
+    def __enter__(self):
+        self._real = pointclouds_module._scatter_rows_into
+
+        def spy(buf, dest, values):
+            self.calls = (self.calls + [(buf, dest, values, 0)])[-self.n:]
+            return self._real(buf, dest, values)
+
+        pointclouds_module._scatter_rows_into = spy
+        return self
+
+    def __exit__(self, *exc):
+        pointclouds_module._scatter_rows_into = self._real
+
+
+def dense_step(pc, frame):
+    """One frame of the dense chain as a user calls it."""
+    active, winner, corr = find_correspondences(pc, frame, DENSE_DIST_TH, DENSE_DOT_TH)
+    return fuse_with_map(pc, frame, active, winner, corr, DENSE_SIGMA)
+
+
+def dense_run(frames, step=dense_step):
+    """``step`` over the clip at the gt path's capacity schedule
+    (``with_capacity`` between segments)."""
+    pc = Pointclouds.empty(B, SCHEDULE[0][1], device=frames.device)
+    s = 0
+    for n, cap in SCHEDULE:
+        pc = pc.with_capacity(cap)
+        for _ in range(n):
+            pc, s = step(pc, frames[:, s]), s + 1
+    return pc
+
+
+def live_mass(pc) -> float:
+    return float((pc.features[0, :int(pc.num_points[0])].double()).sum())
+
+
+class DenseLockstep:
+    """A dense step held against the fast path from the same map:
+    ``update_map_fusion(association='sort_full')`` (every map row gated:
+    exact, nothing overflows) against ``find_similar_map_points``,
+    ``find_best_unique_correspondences`` and ``fuse_with_map`` given the
+    fast path's own projection (``_project_map_points``).
+
+    ``find_active_map_points`` (the dense chain's projection, as in the JAX
+    package) and ``_project_map_points`` compute the same pixel with other
+    float32 roundings, as their JAX counterparts do, so a map point within
+    an ulp of a pixel's edge lands on a neighbour in one of them; the
+    lockstep gives both paths one projection and counts those rows
+    (``flips``). Held: equal counts; the live rows within ``DENSE_ATOL`` row
+    for row (both merge in place and append in pixel order) and column by
+    column sorted (the form of JAX's ``test_windowed_equals_dense``); the
+    confidence mass within ``DENSE_MASS_RTOL``."""
+
+    def __init__(self):
+        self.worst, self.flips, self.frames = {}, [], 0
+
+    def __call__(self, pc, frame):
+        _, _, H_, W_ = frame.shape
+        valid, pix = _project_map_points(pc.points, pc.nonpad_mask, frame.poses[:, 0],
+                                         frame.intrinsics[:, 0], H_, W_)
+        active = ActiveMapPoints(valid=valid, pix_h=pix // W_, pix_w=pix % W_)
+        own = find_active_map_points(pc, frame)
+        own_pix = own.pix_h * W_ + own.pix_w
+        self.flips.append(int(((own.valid != valid) | (valid & (own_pix != pix))).sum()))
+        similar = find_similar_map_points(pc, frame, active, DENSE_DIST_TH, DENSE_DOT_TH)
+        winner, corr = find_best_unique_correspondences(pc, frame, active, similar)
+        dense = fuse_with_map(pc, frame, active, winner, corr, DENSE_SIGMA)
+        fast = update_map_fusion(pc, frame, DENSE_DIST_TH, DENSE_DOT_TH, DENSE_SIGMA,
+                                 association="sort_full")
+        s = self.frames
+        if not (torch.equal(fast.num_points, dense.num_points)
+                and torch.equal(fast.num_dropped, dense.num_dropped)):
+            raise AssertionError(f"dense lockstep frame {s}: counts {fast.num_points.tolist()} "
+                                 f"(sort_full) against {dense.num_points.tolist()} (dense)")
+        n = int(dense.num_points[0])
+        for name in ("points", "normals", "colors", "features"):
+            f, d = getattr(fast, name)[0, :n], getattr(dense, name)[0, :n]
+            rows = float((f - d).abs().max()) if n else 0.0
+            cols = (float((torch.sort(f, 0).values - torch.sort(d, 0).values).abs().max())
+                    if n else 0.0)
+            self.worst[name] = max(self.worst.get(name, 0.0), rows, cols)
+            if not max(rows, cols) <= DENSE_ATOL:
+                raise AssertionError(f"dense lockstep frame {s}: {name} {rows} row for row, "
+                                     f"{cols} sorted, above {DENSE_ATOL}")
+        mass_f, mass_d = live_mass(fast), live_mass(dense)
+        rel = abs(mass_f - mass_d) / max(abs(mass_d), 1e-30)
+        self.worst["mass_rel"] = max(self.worst.get("mass_rel", 0.0), rel)
+        if not rel <= DENSE_MASS_RTOL:
+            raise AssertionError(f"dense lockstep frame {s}: confidence mass {mass_f} "
+                                 f"(sort_full) against {mass_d} (dense)")
+        self.frames += 1
+        return dense
+
+
+def pointclouds_equal(a, b) -> bool:
+    return all(
+        (getattr(a, n) is None and getattr(b, n) is None)
+        or torch.equal(getattr(a, n).cpu(), getattr(b, n).cpu())
+        for n in ("points", "num_points", "normals", "colors", "features", "num_dropped"))
+
+
+def cloud_sha256(pc) -> str:
+    return sha256_of(*[t for t in (pc.points, pc.num_points, pc.normals, pc.colors,
+                                   pc.features, pc.num_dropped) if t is not None])
+
+
+def check_structure_op(tag, card, cpu, n_live) -> dict:
+    """A structure op's result on the card against the same op on the CPU:
+    points and normals within ``STRUCT_ATOL`` (a projection's pixels also
+    within ``STRUCT_PIX_RTOL`` of their size), the other buffers and the
+    counters equal, the padding rows' points exactly zero."""
+    gaps = {}
+    for name in ("points", "normals"):
+        c, h = getattr(card, name), getattr(cpu, name)
+        if c is None:
+            continue
+        c = c.cpu()
+        gap = (c - h).abs()
+        bar = STRUCT_ATOL + (STRUCT_PIX_RTOL * h.abs() if "projection" in tag else 0.0)
+        gaps[name] = float(gap.max())
+        if not bool((gap <= bar).all()):
+            raise AssertionError(f"structures {tag}: {name} {gaps[name]} from the CPU's")
+    for name in ("colors", "features", "num_points", "num_dropped"):
+        if not (getattr(card, name) is None and getattr(cpu, name) is None) and not torch.equal(
+                getattr(card, name).cpu(), getattr(cpu, name)):
+            raise AssertionError(f"structures {tag}: {name} differs from the CPU's")
+    for b, n in enumerate(n_live):
+        if bool((card.points[b, n:] != 0).any()):
+            raise AssertionError(f"structures {tag}: padding rows of cloud {b} are not zero")
+    return gaps
+
+
+def structure_api_phase(pc_gt, frames) -> None:
+    """(c) The structure API at full width on the gt map: each op on the
+    card against the same op on a CPU copy; the ``*_`` names leave their
+    input's SHA-256 unchanged; indexing, the tensor round trips and
+    ``from_list`` exact; ``RGBDImages`` at 640x480; the device time of
+    ``transform``."""
+    cpu = pc_gt.cpu()
+    n = int(pc_gt.num_points[0])
+    digest = cloud_sha256(pc_gt)
+    gen = torch.Generator().manual_seed(0)
+    xi = torch.cat([torch.randn(2, 3, generator=gen) * 0.3, torch.randn(2, 3, generator=gen) * 0.5], 1)
+    T2 = se3_exp(xi)  # (2, 4, 4) on the CPU; row 0 is the unbatched transform
+    args = {"T": T2[0], "T batched": T2[:1], "R": T2[0, :3, :3], "R batched": T2[:1, :3, :3],
+            "K": frames.intrinsics[0, 0].cpu(), "o": torch.tensor([0.1, -0.2, 0.3]),
+            "s": torch.tensor([1.5, 0.5, 2.0])}
+    ops = {
+        "transform": lambda p, a: p.transform(a["T"]),
+        "transform batched": lambda p, a: p.transform(a["T batched"]),
+        "transform post-multiplied": lambda p, a: p.transform(a["T"], pre_multiplication=False),
+        "rotate": lambda p, a: p.rotate(a["R"]),
+        "rotate batched": lambda p, a: p.rotate(a["R batched"]),
+        "offset": lambda p, a: p.offset(a["o"]),
+        "scale": lambda p, a: p.scale(a["s"]),
+        "pinhole_projection": lambda p, a: p.pinhole_projection(a["K"]),
+        "@ R": lambda p, a: p @ a["R"],
+        "@ T batched": lambda p, a: p @ a["T batched"],
+        "+ -": lambda p, a: (p + a["o"]) - a["o"] * 2,
+        "* /": lambda p, a: (p * a["s"]) / 4.0,
+        "transform_": lambda p, a: p.transform_(a["T"]),
+        "rotate_": lambda p, a: p.rotate_(a["R"]),
+        "offset_": lambda p, a: p.offset_(a["o"]),
+        "scale_": lambda p, a: p.scale_(a["s"]),
+        "pinhole_projection_": lambda p, a: p.pinhole_projection_(a["K"]),
+    }
+    card_args = {k: v.cuda() for k, v in args.items()}
+    gaps = {}
+    for tag, op in ops.items():
+        gaps[tag] = check_structure_op(tag, op(pc_gt, card_args), op(cpu, args), [n])
+    if cloud_sha256(pc_gt) != digest:
+        raise AssertionError("structures: an op changed its input map")
+    worst = {k: max(g.get(k, 0.0) for g in gaps.values()) for k in ("points", "normals")}
+
+    # indexing on a B=2 cloud, from_list and the tensor round trips
+    pts, nrm, col, feat = (pc_gt.points_list[0], pc_gt.normals_list[0], pc_gt.colors_list[0],
+                           pc_gt.features_list[0])
+    back = Pointclouds.from_list([pts], normals=[nrm], colors=[col], features=[feat],
+                                 capacity=pc_gt.capacity)
+    if back.device != pc_gt.device or back.num_points.dtype != torch.int64 or not all(
+            torch.equal(getattr(back, f), getattr(pc_gt, f))
+            for f in ("points", "num_points", "normals", "colors", "features")):
+        raise AssertionError("structures: from_list(points_list, ...) differs from the map")
+    half = n // 2
+    two = Pointclouds.from_list([pts, pts[:half]], normals=[nrm, nrm[:half]],
+                                capacity=pc_gt.capacity)
+    two_cpu = two.cpu()
+    for index in (0, 1, -1, -2, slice(0, 1), slice(1, None), slice(None)):
+        sub, sub_cpu = two[index], two_cpu[index]
+        if not pointclouds_equal(sub, sub_cpu) or sub.device != pc_gt.device:
+            raise AssertionError(f"structures: [{index}] differs from the CPU's")
+    for index in (2, -3):
+        try:
+            two[index]
+        except IndexError:
+            continue
+        raise AssertionError(f"structures: [{index}] of 2 clouds did not raise IndexError")
+    clone = pc_gt.clone()
+    round_trips = {"clone": clone, "detach": pc_gt.detach(), "to('cpu')": pc_gt.to("cpu"),
+                   "cpu().cuda()": pc_gt.cpu().cuda()}
+    for tag, copy in round_trips.items():
+        if not pointclouds_equal(copy, pc_gt):
+            raise AssertionError(f"structures: {tag} differs from the map")
+    if clone.points.data_ptr() == pc_gt.points.data_ptr() or \
+            round_trips["cpu().cuda()"].device != pc_gt.device:
+        raise AssertionError("structures: clone shares a buffer, or cuda() left the card")
+
+    # RGBDImages at 640x480
+    fr_cpu = frames.cpu()
+    for tag, fr in (("clone", frames.clone()), ("to('cpu')", frames.to("cpu")),
+                    ("cpu().cuda()", fr_cpu.cuda()), ("detach", frames.detach())):
+        if not all(torch.equal(getattr(fr, a).cpu(), getattr(fr_cpu, a))
+                   for a in ("rgb_image", "depth_image", "intrinsics", "poses")):
+            raise AssertionError(f"structures: RGBDImages {tag} differs")
+    cf = frames.to_channels_first()
+    for name in ("rgb_image_channels_first", "depth_image_channels_first"):
+        ours, theirs = getattr(frames, name), getattr(cf, name)
+        if not (torch.equal(ours, theirs) and torch.equal(ours.cpu(), getattr(fr_cpu, name))):
+            raise AssertionError(f"structures: RGBDImages {name} differs")
+    if frames.rgb_image_channels_first.data_ptr() != frames.rgb_image.data_ptr() or (
+            frames.h, frames.w, frames.has_poses) != (H, W, True):
+        raise AssertionError("structures: RGBDImages views or shape properties wrong")
+
+    # TF32: a user who allows it still gets float32 products from the
+    # structure ops, and finds the flag as it was
+    exact = pc_gt.transform(card_args["T"]).points
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        user = pc_gt.transform(card_args["T"]).points
+        restored = torch.backends.cuda.matmul.allow_tf32
+    finally:
+        disable_tf32()
+    if not (torch.equal(user, exact) and restored):
+        raise AssertionError("structures: transform with TF32 allowed differs, or the flag moved")
+    transform_ms = device_ms(lambda: pc_gt.transform(card_args["T"]), 20)
+    log(f"structures: {len(ops)} Pointclouds ops on the {n}-point gt map ({pc_gt.capacity} rows) "
+        f"against the CPU's: max |dpoint| {worst['points']:.3e}, max |dnormal| "
+        f"{worst['normals']:.3e}, padding exactly zero, the input's SHA-256 unchanged by every "
+        f"op and *_ name; from_list(points_list) back to the map's rows; indexing [0, 1, -1, -2, "
+        f"0:1, 1:, :] of a 2-cloud batch equal to the CPU's, [2] and [-3] IndexError; clone, "
+        f"detach, to('cpu'), cpu().cuda() exact; RGBDImages {W}x{H}x{L} clone, to, cuda and the "
+        f"channels-first views exact; transform with TF32 allowed bit-equal; transform "
+        f"{transform_ms:.4f} ms device time on the card")
+
+
+def structures_phase(frames, pc_gt, secs_gt) -> list:
+    """The structures slice (``structures/``, ``geometry/``, the dense
+    fusion path of ``slam/fusionutils.py``) on the 640x480x30 clip:
+
+    (a) with gt poses and the gt schedule, the dense steps in lockstep with
+        ``update_map_fusion(association='sort_full')`` from the same map at
+        every frame (:class:`DenseLockstep`); then the dense chain as a
+        user calls it (``find_correspondences`` + ``fuse_with_map``), two
+        timed runs that must launch the scatter kernel
+        ``DENSE_SCATTERS_PER_FRAME * L`` times and the 1-NN never, bit-equal
+        to each other; the map within 0.2% of the reference's 516,214 with 0
+        dropped, and against the gt pipeline's own map (``'auto'`` resolves
+        to ``sort_full`` there): counts within 0.2%, the count gap and the
+        share of rows within ``DENSE_ATOL`` reported; s/run beside the gt
+        fast path's;
+    (b) the scatter kernel on the last frame's append (four calls) bit-equal
+        to its plain version, timed at the points and the features row;
+    (c) :func:`structure_api_phase`.
+
+    TF32 stays off (asserted before and after). Returns the scatter
+    kernel's new timed shapes."""
+    if not tf32_disabled():
+        raise AssertionError("structures: TF32 enabled before the phase")
+    L_ = frames.shape[1]
+    lock = DenseLockstep()
+    with ScatterIntoTail(DENSE_SCATTERS_PER_FRAME) as tail:
+        pc_lock = dense_run(frames, lock)
+    runs, secs = [], []
+    for _ in range(TIMED_RUNS):
+        pc_dense, launches, sec = counted(lambda: dense_run(frames))
+        runs.append(pc_dense)
+        secs.append(sec)
+        expect = {"knn": 0, "scatter": DENSE_SCATTERS_PER_FRAME * L_}
+        if launches != expect:
+            raise AssertionError(f"dense: launches {launches}, expected {expect}")
+    if not pointclouds_equal(runs[0], runs[-1]):
+        raise AssertionError("dense: two runs of the same frames differ")
+    LAUNCHES["dense_gt_easy"] = launches
+    count = check_map(pc_dense, frames.poses, REF_COUNT_GT, "dense")
+    n_gt, n_lock = int(pc_gt.num_points[0]), int(pc_lock.num_points[0])
+    if abs(count - n_gt) > DENSE_GT_REL * n_gt:
+        raise AssertionError(f"dense: {count} points against the gt pipeline's {n_gt}")
+    m = min(count, n_gt)
+    rows_gap = (pc_dense.points[0, :m] - pc_gt.points[0, :m]).abs().amax(-1)
+    matched = float((rows_gap <= DENSE_ATOL).double().mean())
+    dense_secs = float(np.mean(secs))
+    w = lock.worst
+    log(f"dense lockstep {H}x{W}x{L_}, gt poses: at every frame the dense steps on the fast "
+        f"path's projection equal update_map_fusion(sort_full) from the same map: counts equal, "
+        f"max |d| points {w['points']:.3e}, normals {w['normals']:.3e}, colors "
+        f"{w['colors']:.3e}, ccounts {w['features']:.3e}, mass {w['mass_rel']:.3e} relative; "
+        f"find_active_map_points and _project_map_points part on {sum(lock.flips)} rows in all "
+        f"(at most {max(lock.flips)} a frame); final map {n_lock} points")
+    log(f"dense (find_correspondences + fuse_with_map) {H}x{W}x{L_}, gt poses: map {count} "
+        f"points (reference {REF_COUNT_GT}, {100 * (count - REF_COUNT_GT) / REF_COUNT_GT:+.4f}%), "
+        f"0 dropped, two runs bit-equal; against the gt pipeline's map ({n_gt}): count gap "
+        f"{count - n_gt:+d}, {100 * matched:.4f}% of the first {m} rows within {DENSE_ATOL}; "
+        f"against the lockstep run's: {count - n_lock:+d}; {dense_secs:.4f} s/run "
+        f"({L_ / dense_secs:.4f} frames/s, mean of {TIMED_RUNS}) beside the gt fast path's "
+        f"{secs_gt:.4f} s/run ({dense_secs / secs_gt:.2f}x); launches a run {launches}")
+
+    # (b) the scatter kernel on the last frame's append
+    if [tuple(v.shape[2:]) for _, _, v, _ in tail.calls] != [(3,), (3,), (3,), (1,)]:
+        raise AssertionError(f"dense: the last append's calls {[tuple(v.shape) for _, _, v, _ in tail.calls]}")
+    for i, (buf, dest, values, _) in enumerate(tail.calls):
+        args = (buf.contiguous(), dest.contiguous(), values.contiguous(), None)
+        if not torch.equal(int_view(scatter_kernel(*args)), int_view(scatter_plain(*args))):
+            raise AssertionError(f"dense: the scatter kernel differs from its plain version on "
+                                 f"the last append's call {i}")
+    kept = int(((tail.calls[0][1] >= 0) & (tail.calls[0][1] < pc_dense.capacity)).sum())
+    log(f"dense: the scatter kernel bit-equal to its plain version on the last frame's four "
+        f"append calls (dest {tuple(tail.calls[0][1].shape)} {tail.calls[0][1].dtype}, "
+        f"{kept} rows appended into {pc_dense.capacity})")
+    rows = []
+    for i, width in ((0, 3), (3, 1)):
+        buf, dest, values, _ = tail.calls[i]
+        rows.append(time_scatter(f"dense_append_{width}f_into_{buf.shape[1]}", buf.contiguous(),
+                                 dest.contiguous(), values.contiguous(), None))
+
+    # (c) the structure API
+    structure_api_phase(pc_gt, frames)
+    if not tf32_disabled():
+        raise AssertionError("structures: TF32 enabled after the phase")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3175,6 +3559,10 @@ def main() -> int:
     knn["max_abs_err"] = max(knn["max_abs_err"], knn_err)
     scatter["shapes"] += scatter_new
     log(f"dataset phase: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    scatter["shapes"] += structures_phase(frames, pc_gt, secs_gt)
+    log(f"structures phase: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     grad_phase()

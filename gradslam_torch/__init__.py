@@ -17,7 +17,11 @@ port's own PNG codec), PLY, TUM-trajectory and checkpoint IO
 imports neither JAX nor ``gradslam_tpu``.
 """
 
-from . import config, datasets, metrics, utils
+# utils first: the geometry and structures import utils.precision, and
+# utils.checkpoint imports the structures, so utils must already be
+# initialising when they are first imported.
+from . import utils  # isort: skip
+from . import config, datasets, metrics
 from .datasets import hard_sequence, synthetic_sequence
 from .geometry import *  # noqa: F401,F403
 from .geometry import __all__ as _geometry_all
@@ -36,6 +40,7 @@ from .slam import (
     tracking_health,
 )
 from .structures import Pointclouds, RGBDImages, estimate_normals, pointclouds_from_rgbdimages
+from .version import __version__
 
 __all__ = [
     "GradICPOdometryProvider",
@@ -55,4 +60,6 @@ __all__ = [
     "relocalize",
     "synthetic_sequence",
     "tracking_health",
+    "utils",
+    "__version__",
 ] + list(_geometry_all)

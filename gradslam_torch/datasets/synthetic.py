@@ -1,11 +1,13 @@
-r"""Synthetic RGB-D sequences (numpy only).
+r"""Synthetic RGB-D sequences.
 
-Counterpart of ``gradslam_tpu/datasets/synthetic.py:22-156``: a procedurally
+Counterpart of ``gradslam_tpu/datasets/synthetic.py``: a procedurally
 rendered static scene — a gently wavy wall observed by a slowly translating
 camera with mm-scale sensor noise (``synthetic_sequence``), or by a fast,
 accelerating camera with heavy noise and outlier patches (``hard_sequence``).
 The same seed gives the same arrays as the JAX package's generators, so both
-packages can be driven with one clip. The port cannot import the original:
+packages can be driven with one clip. The generators return numpy arrays;
+:class:`SyntheticRGBD` serves them as a dataset of CPU tensors, as the
+TUM, ICL and ScanNet loaders do. The port cannot import the original:
 importing ``gradslam_tpu`` imports JAX.
 """
 
@@ -15,7 +17,11 @@ from functools import lru_cache
 
 import numpy as np
 
-__all__ = ["hard_sequence", "synthetic_sequence"]
+from .base import RGBDSequenceDataset
+from .datautils import channels_first as to_channels_first
+from .datautils import poses_to_transforms
+
+__all__ = ["SyntheticRGBD", "hard_sequence", "synthetic_sequence"]
 
 
 @lru_cache(maxsize=8)
@@ -134,3 +140,48 @@ def hard_sequence(
     rgb = rng.rand(B, L, H, W, 3).astype(np.float32)
     poses = _pan_poses([cam_t(s) for s in range(L)], B)
     return rgb, depths, intrinsics, poses
+
+
+class SyntheticRGBD(RGBDSequenceDataset):
+    r"""Dataset over :func:`synthetic_sequence`: ``num_sequences`` samples,
+    sample ``idx`` rendered from seed ``seed + idx``, each ``(colors,
+    depths, intrinsics, poses, transforms, name)`` as CPU tensors (colours
+    in 0-255 unless ``normalize_color``), the loaders' contract and the JAX
+    package's tuple (``gradslam_tpu/datasets/synthetic.py:159``)."""
+
+    def __init__(
+        self,
+        num_sequences: int = 1,
+        seqlen: int = 10,
+        height: int = 240,
+        width: int = 320,
+        channels_first: bool = False,
+        normalize_color: bool = False,
+        seed: int = 0,
+    ):
+        super().__init__(seqlen=seqlen, height=height, width=width,
+                         channels_first=channels_first, normalize_color=normalize_color)
+        self.num_sequences = num_sequences
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return self.num_sequences
+
+    def __getitem__(self, idx: int):
+        if not 0 <= idx < self.num_sequences:
+            raise IndexError(idx)
+        rgb, depths, intrinsics, poses = synthetic_sequence(
+            1, self.seqlen, self.height, self.width, seed=self.seed + idx)
+        colors = rgb[0] * (1.0 if self.normalize_color else 255.0)
+        depths = depths[0]
+        if self.channels_first:
+            colors, depths = to_channels_first(colors), to_channels_first(depths)
+        transforms = np.stack(poses_to_transforms(poses[0])).astype(np.float32)
+        return (
+            self._tensor(colors.astype(np.float32)),
+            self._tensor(depths),
+            self._tensor(intrinsics[0, 0]),
+            self._tensor(poses[0]),
+            self._tensor(transforms),
+            f"synthetic_{self.seed + idx}",
+        )

@@ -1,8 +1,8 @@
 r"""Projective geometry utilities (PyTorch).
 
 Counterpart of ``gradslam_tpu/geometry/projutils.py``: ``homogenize_points``,
-``project_points`` (:66), ``unproject_points`` and ``inverse_intrinsics``
-(:152). All functions broadcast over leading dimensions and keep the device
+``unhomogenize_points`` (:43), ``project_points`` (:66), ``unproject_points``
+and ``inverse_intrinsics`` (:152). All functions broadcast over leading dimensions and keep the device
 and dtype of their inputs.
 """
 
@@ -12,6 +12,7 @@ import torch
 
 __all__ = [
     "homogenize_points",
+    "unhomogenize_points",
     "project_points",
     "unproject_points",
     "inverse_intrinsics",
@@ -25,6 +26,20 @@ def homogenize_points(pts: torch.Tensor) -> torch.Tensor:
             f"Input tensor must have at least 2 dimensions. Got {pts.ndim} instead."
         )
     return torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+
+
+def unhomogenize_points(pts: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    r"""Drop the trailing homogeneous coordinate: ``(*, K) -> (*, K-1)``,
+    divided by it; points at infinity (``|w| <= eps``) are scaled by 1, the
+    OpenCV convention the reference follows."""
+    if pts.ndim < 2:
+        raise ValueError(
+            f"Input tensor must have at least 2 dimensions. Got {pts.ndim} instead."
+        )
+    w = pts[..., -1:]
+    one = torch.ones_like(w)
+    scale = torch.where(w.abs() > eps, 1.0 / torch.where(w == 0, one, w), one)
+    return scale * pts[..., :-1]
 
 
 def _zdiv(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 r"""SO(3)/SE(3) Lie-group operations (PyTorch).
 
 Counterpart of ``gradslam_tpu/geometry/se3utils.py``: ``so3_hat``,
-``se3_hat``, ``_rodrigues_coefficients`` (:53) and ``se3_exp`` (:85). The
+``se3_hat``, ``_rodrigues_coefficients`` (:53), ``so3_exp`` (:69) and
+``se3_exp`` (:85). The
 reference's first-order small-angle branch (``|w| < 1e-6``) is a
 ``torch.where`` select with both branches finite, so no NaN from the unused
 branch can reach a gradient.
@@ -11,9 +12,11 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.precision import fp32_products
+
 _EPS = 1e-6
 
-__all__ = ["so3_hat", "se3_hat", "se3_exp"]
+__all__ = ["so3_hat", "se3_hat", "so3_exp", "se3_exp"]
 
 
 def so3_hat(omega: torch.Tensor) -> torch.Tensor:
@@ -52,6 +55,18 @@ def _rodrigues_coefficients(omega: torch.Tensor):
     B = torch.where(small, zero, (1.0 - c) / safe_theta**2)
     C = torch.where(small, zero, (safe_theta - s) / safe_theta**3)
     return A, B, C, small
+
+
+@fp32_products()
+def so3_exp(omega: torch.Tensor) -> torch.Tensor:
+    r"""Exponential map so(3) -> SO(3): ``(*, 3)`` to ``(*, 3, 3)``, with
+    the first-order ``I + w^`` branch below ``|w| = 1e-6``."""
+    omega_hat = so3_hat(omega)
+    omega_hat_sq = torch.matmul(omega_hat, omega_hat)
+    A, B, _, small = _rodrigues_coefficients(omega)
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device).expand(omega_hat.shape)
+    R_full = eye + A[..., None, None] * omega_hat + B[..., None, None] * omega_hat_sq
+    return torch.where(small[..., None, None], eye + omega_hat, R_full)
 
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:

@@ -19,20 +19,17 @@ import torch
 
 from .structures.pointclouds import Pointclouds
 from .structures.rgbdimages import RGBDImages
+from .structures.structutils import host_tensor
 
 __all__ = ["pointclouds_from_numpy", "rgbdimages_from_numpy", "to_numpy"]
 
 
 def _float(x, device) -> Optional[torch.Tensor]:
-    if x is None:
-        return None
-    return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
+    return host_tensor(x, np.float32, device)
 
 
 def _count(x, device) -> Optional[torch.Tensor]:
-    if x is None:
-        return None
-    return torch.tensor(np.asarray(x, dtype=np.int64), device=device)
+    return host_tensor(x, np.int64, device)
 
 
 def pointclouds_from_numpy(

@@ -8,8 +8,11 @@ both associations (``sort_full``, ``windowed``), both merges (``gather``,
 ``update_map_aggregate`` (:771, ``ICPSLAM``'s aggregate map),
 ``prune_map`` (:827) and ``voxel_downsample`` (:860), each with user feature
 channels after the map's bookkeeping channels (``PointFusion(
-feature_channels=F)``: semantic one-hots, descriptors). Every fusion stage
-is a dense masked computation over the fixed-capacity map buffer:
+feature_channels=F)``: semantic one-hots, descriptors); and the dense
+reference path ``find_correspondences`` + ``fuse_with_map`` (:104-357), the
+reference gradslam's own algorithm, which no pipeline option selects: it
+is the oracle the fast path is held against. Every fusion stage of the fast
+path is a dense masked computation over the fixed-capacity map buffer:
 
 1. a streaming projection of all map rows into the live frame;
 2. optionally, a compaction of the rows that land in the frame into a
@@ -45,6 +48,12 @@ from ..structures.rgbdimages import RGBDImages
 
 __all__ = [
     "ActiveMapPoints",
+    "are_normals_similar",
+    "are_points_close",
+    "find_best_unique_correspondences",
+    "find_correspondences",
+    "find_similar_map_points",
+    "fuse_with_map",
     "get_alpha",
     "find_active_map_points",
     "pack_colors",
@@ -133,6 +142,189 @@ def find_active_map_points(
         & pointclouds.nonpad_mask
     )
     return ActiveMapPoints(valid=valid, pix_h=_snap(v, H), pix_w=_snap(u, W))
+
+
+def _check_same_shape(tensor1: torch.Tensor, tensor2: torch.Tensor) -> None:
+    if tensor1.shape != tensor2.shape:
+        raise ValueError(
+            f"tensor1 and tensor2 should have the same shape, but had shapes "
+            f"{tuple(tensor1.shape)} and {tuple(tensor2.shape)} respectively."
+        )
+
+
+def are_points_close(tensor1: torch.Tensor, tensor2: torch.Tensor,
+                     dist_th: Union[float, int], dim: int = -1) -> torch.Tensor:
+    r"""True where the two points are nearer than ``dist_th`` (Euclidean)."""
+    _check_same_shape(tensor1, tensor2)
+    return torch.linalg.norm(tensor1 - tensor2, dim=dim) < dist_th
+
+
+def are_normals_similar(tensor1: torch.Tensor, tensor2: torch.Tensor,
+                        dot_th: Union[float, int], dim: int = -1) -> torch.Tensor:
+    r"""True where the two normals' dot product exceeds ``dot_th``."""
+    _check_same_shape(tensor1, tensor2)
+    return torch.sum(tensor1 * tensor2, dim=dim) > dot_th
+
+
+def _gather_pixels(image: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
+    """Rows of ``image (B, H*W, C)`` at each map point's pixel ``pix (B, CAP)``."""
+    return gather_rows(image, pix)
+
+
+def _pixels(active: ActiveMapPoints, W: int) -> torch.Tensor:
+    return (active.pix_h * W + active.pix_w).long()
+
+
+def find_similar_map_points(
+    pointclouds: Pointclouds,
+    rgbdimages: RGBDImages,
+    active: ActiveMapPoints,
+    dist_th: Union[float, int],
+    dot_th: Union[float, int],
+) -> torch.Tensor:
+    r"""The active map points that lie within ``dist_th`` of the live
+    frame's point at their pixel, with a normal whose dot product with the
+    frame's exceeds ``dot_th``: a ``(B, CAP)`` mask."""
+    if pointclouds.normals is None:
+        raise ValueError(
+            "Pointclouds must have normals for finding similar map points, but did not."
+        )
+    rgbdimages = rgbdimages.to_channels_last()
+    B, _, H, W = rgbdimages.shape
+    pix = _pixels(active, W)
+    frame_points = _gather_pixels(rgbdimages.global_vertex_map.reshape(B, H * W, 3), pix)
+    frame_normals = _gather_pixels(rgbdimages.global_normal_map.reshape(B, H * W, 3), pix)
+    is_close = are_points_close(frame_points, pointclouds.points, dist_th)
+    is_similar = are_normals_similar(frame_normals, pointclouds.normals, dot_th)
+    return active.valid & is_close & is_similar
+
+
+def find_best_unique_correspondences(
+    pointclouds: Pointclouds,
+    rgbdimages: RGBDImages,
+    active: ActiveMapPoints,
+    similar_mask: Optional[torch.Tensor] = None,
+):
+    r"""One winner per pixel among the map points that project to it (the
+    ``similar_mask`` rows, else the active ones): the highest confidence
+    count, then the smallest squared ray distance to the frame's point,
+    then the smallest map row, the reference's lexicographic order. Three
+    passes, each a per-pixel ``amax``/``amin`` into a ``(B, H*W)`` table
+    (``scatter_reduce_``, order-independent and deterministic) and an exact
+    equality test against the copied extreme.
+
+    Returns ``(winner_mask (B, CAP), pixel_corresponded (B, H*W))``.
+    """
+    if pointclouds.features is None:
+        raise ValueError(
+            "Pointclouds must have features for finding best unique "
+            "correspondences, but did not."
+        )
+    rgbdimages = rgbdimages.to_channels_last()
+    B, _, H, W = rgbdimages.shape
+    HW, cap = H * W, pointclouds.capacity
+    device = pointclouds.points.device
+    mask = active.valid if similar_mask is None else similar_mask
+    pix = _pixels(active, W)
+    frame_points = _gather_pixels(rgbdimages.global_vertex_map.reshape(B, HW, 3), pix)
+    ray_dists = torch.sum((pointclouds.points - frame_points) ** 2, dim=-1)
+
+    def per_pixel(values, fill, reduce):
+        table = torch.full((B, HW), fill, dtype=values.dtype, device=device)
+        return table.scatter_reduce_(1, pix, values, reduce, include_self=True)
+
+    def at_pixel(table):
+        return torch.gather(table, 1, pix)
+
+    # pass 1: the largest confidence count of each pixel
+    cc = torch.where(mask, pointclouds.features[..., 0], float("-inf"))
+    eligible = mask & (cc == at_pixel(per_pixel(cc, float("-inf"), "amax")))
+    # pass 2: the smallest ray distance among those
+    rd = torch.where(eligible, ray_dists, float("inf"))
+    eligible = eligible & (rd == at_pixel(per_pixel(rd, float("inf"), "amin")))
+    # pass 3: the smallest map row, so exactly one winner a pixel
+    rows = torch.arange(cap, device=device)[None].expand(B, cap)
+    ri = torch.where(eligible, rows, cap)
+    min_row = per_pixel(ri, cap, "amin")
+    winner = eligible & (rows == at_pixel(min_row))
+    return winner, min_row < cap
+
+
+def find_correspondences(
+    pointclouds: Pointclouds,
+    rgbdimages: RGBDImages,
+    dist_th: Union[float, int],
+    dot_th: Union[float, int],
+):
+    r"""The dense correspondence chain: active, then similar, then the best
+    unique winner of each pixel. Returns ``(active, winner_mask (B, CAP),
+    pixel_corresponded (B, H*W))``."""
+    active = find_active_map_points(pointclouds, rgbdimages)
+    similar = find_similar_map_points(pointclouds, rgbdimages, active, dist_th, dot_th)
+    winner, pixel_corresponded = find_best_unique_correspondences(
+        pointclouds, rgbdimages, active, similar)
+    return active, winner, pixel_corresponded
+
+
+def fuse_with_map(
+    pointclouds: Pointclouds,
+    rgbdimages: RGBDImages,
+    active: ActiveMapPoints,
+    winner_mask: torch.Tensor,
+    pixel_corresponded: torch.Tensor,
+    sigma: Union[float, int, torch.Tensor],
+) -> Pointclouds:
+    r"""The dense merge: each winning map point takes the confidence-weighted
+    average of itself and its pixel's frame point, normal and colour
+    (confidences ``get_alpha``); then the valid-depth pixels that no map
+    point corresponded to are appended in pixel order through
+    :meth:`Pointclouds.append_masked` (on the card, the scatter kernel: one
+    call for each of points, normals, colors and features).
+
+    The map must carry normals, float colors and one feature channel (the
+    confidence count); a quantized map or one with user feature channels
+    goes through :func:`update_map_fusion`.
+    """
+    if (
+        pointclouds.colors is None
+        or pointclouds.normals is None
+        or pointclouds.features is None
+        or pointclouds.features.shape[-1] != 1
+    ):
+        raise ValueError(
+            "fuse_with_map (dense path) requires normals, float colors and a "
+            "single ccount feature channel; quantized-layout maps are "
+            "supported by update_map_fusion only."
+        )
+    rgbdimages = rgbdimages.to_channels_last()
+    B, _, H, W = rgbdimages.shape
+    vertex_flat = rgbdimages.global_vertex_map.reshape(B, H * W, 3)
+    normal_flat = rgbdimages.global_normal_map.reshape(B, H * W, 3)
+    color_flat = rgbdimages.rgb_image.reshape(B, H * W, 3)
+    alpha_flat = get_alpha(rgbdimages.vertex_map, sigma=sigma, dim=4,
+                           keepdim=True).reshape(B, H * W, 1)
+    pix = _pixels(active, W)
+
+    cc = pointclouds.features
+    wm = winner_mask[..., None]
+    fa = torch.where(wm, _gather_pixels(alpha_flat, pix), torch.zeros_like(cc))
+    updated_cc = cc + fa
+    inv_cc = 1.0 / torch.where(updated_cc == 0, torch.ones_like(updated_cc), updated_cc)
+
+    def merged(buf, image):
+        new = (cc * buf + fa * _gather_pixels(image, pix)) * inv_cc
+        return torch.where(wm, new, buf)
+
+    fused = dataclasses.replace(
+        pointclouds,
+        points=merged(pointclouds.points, vertex_flat),
+        normals=merged(pointclouds.normals, normal_flat),
+        colors=merged(pointclouds.colors, color_flat),
+        features=torch.where(wm, updated_cc, cc),
+    )
+    new_mask = rgbdimages.valid_depth_mask.reshape(B, H * W) & ~pixel_corresponded
+    return fused.append_masked(vertex_flat, new_mask, normals=normal_flat,
+                               colors=color_flat, features=alpha_flat)
 
 
 def _project_map_points(points, nonpad_mask, pose, intrinsics, H: int, W: int):

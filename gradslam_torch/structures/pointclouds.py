@@ -9,6 +9,13 @@ dataclass of tensors
   ``(B, CAP, C)``,
 - optional ``num_dropped`` ``(B,)`` int64: rows lost to a full buffer.
 
+Host arrays given to the constructor (numpy, JAX arrays) become tensors on
+the device of the first tensor field, or on the card when there is none
+(:func:`~gradslam_torch.structures.structutils.coerce_torch`): float32
+buffers, int64 counters. Every operation returns a new cloud and leaves its
+input as it was; the reference's in-place names (``offset_``,
+``transform_``, ...) do the same.
+
 Writes that JAX parks past the end of an array and drops with
 ``mode="drop"`` go through :func:`scatter_rows` and :func:`scatter_rows_into`,
 which drop every destination outside the table: on the card in the
@@ -21,14 +28,18 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from ..geometry.geometryutils import transform_normals, transform_pointcloud
+from ..geometry.projutils import homogenize_points, project_points
 from ..ops import scatter_cuda
 from ..ops.scatter import scatter_rows_into_plain, scatter_rows_plain
+from ..utils.precision import fp32_products
 from .io import save_ply as _save_ply
+from .structutils import coerce_torch, host_tensor, landing_device
 
 __all__ = ["Pointclouds", "compact_masked", "gather_rows", "scatter_rows", "scatter_rows_into"]
 
@@ -140,6 +151,17 @@ def compact_masked(values: torch.Tensor, mask: torch.Tensor, capacity: int):
     return out, counts
 
 
+_FIELDS = ("points", "num_points", "normals", "colors", "features", "num_dropped")
+_COUNTERS = ("num_points", "num_dropped")
+
+
+def _as_operand(x, like: torch.Tensor) -> torch.Tensor:
+    """An operand of a cloud operation (tensor, numpy, scalar) as a tensor
+    of the cloud's dtype on its device."""
+    return torch.as_tensor(coerce_torch(x, np.float32, like.device), dtype=like.dtype,
+                           device=like.device)
+
+
 @dataclass(frozen=True)
 class Pointclouds:
     r"""A batch of ``B`` pointclouds in fixed-capacity padded buffers."""
@@ -152,6 +174,12 @@ class Pointclouds:
     num_dropped: Optional[torch.Tensor] = None  # (B,) int64
 
     def __post_init__(self):
+        fields = [getattr(self, name) for name in _FIELDS]
+        if not all(v is None or isinstance(v, torch.Tensor) for v in fields):
+            device = landing_device(fields)
+            for name, value in zip(_FIELDS, fields):
+                dtype = np.int64 if name in _COUNTERS else np.float32
+                object.__setattr__(self, name, coerce_torch(value, dtype, device))
         pts = self.points
         if pts.ndim != 3 or pts.shape[-1] != 3:
             raise ValueError(f"points must have shape (B, CAP, 3). Got {tuple(pts.shape)}.")
@@ -191,12 +219,110 @@ class Pointclouds:
             num_dropped=counter.clone(),
         )
 
+    @classmethod
+    def from_list(
+        cls,
+        points: Sequence,
+        normals: Optional[Sequence] = None,
+        colors: Optional[Sequence] = None,
+        features: Optional[Sequence] = None,
+        capacity: Optional[int] = None,
+        allow_truncation: bool = False,
+        *,
+        device: Union[str, torch.device] = "cuda",
+    ) -> "Pointclouds":
+        r"""A cloud from lists of ragged ``(N_b, 3)`` arrays (numpy, tensors
+        or JAX arrays; ``features`` ``(N_b, C)``), padded to ``capacity``
+        (the longest cloud by default), on ``device`` (the card by default),
+        with int64 counters. A cloud longer than ``capacity`` raises unless
+        ``allow_truncation``, which keeps its first ``capacity`` points."""
+        if len(points) == 0:
+            raise ValueError("points list must be non-empty.")
+        counts = [int(np.shape(p)[0]) for p in points]
+        cap = capacity if capacity is not None else max(max(counts), 1)
+        if max(counts) > cap and not allow_truncation:
+            raise ValueError(
+                f"cloud with {max(counts)} points exceeds capacity {cap}; "
+                "raise capacity or pass allow_truncation=True to keep only "
+                "the first `capacity` points."
+            )
+
+        def pad(seq):
+            if seq is None:
+                return None
+            rows = [np.asarray(a.detach().cpu() if isinstance(a, torch.Tensor) else a,
+                               dtype=np.float32) for a in seq]
+            out = np.zeros((len(rows), cap, rows[0].shape[-1]), dtype=np.float32)
+            for b, r in enumerate(rows):
+                out[b, : min(r.shape[0], cap)] = r[:cap]
+            return host_tensor(out, np.float32, device)
+
+        return cls(
+            points=pad(points),
+            num_points=host_tensor(np.minimum(counts, cap), np.int64, device),
+            normals=pad(normals),
+            colors=pad(colors),
+            features=pad(features),
+        )
+
     def __len__(self) -> int:
         return self.points.shape[0]
 
     @property
     def capacity(self) -> int:
         return self.points.shape[1]
+
+    @property
+    def equisized(self) -> bool:
+        """True when every cloud of the batch has as many points (reads the
+        counters on the host)."""
+        counts = self.num_points.cpu()
+        return bool((counts == counts[0]).all()) if counts.numel() else True
+
+    @property
+    def points_padded(self) -> torch.Tensor:
+        """The ``(B, CAP, 3)`` point buffer."""
+        return self.points
+
+    @property
+    def normals_padded(self) -> Optional[torch.Tensor]:
+        return self.normals
+
+    @property
+    def colors_padded(self) -> Optional[torch.Tensor]:
+        return self.colors
+
+    @property
+    def features_padded(self) -> Optional[torch.Tensor]:
+        return self.features
+
+    @property
+    def num_features(self) -> int:
+        """The feature channels, 0 when the cloud has none."""
+        return 0 if self.features is None else self.features.shape[-1]
+
+    @property
+    def num_points_per_pointcloud(self) -> torch.Tensor:
+        """The ``(B,)`` live point counts."""
+        return self.num_points
+
+    @property
+    def has_points(self) -> bool:
+        """True when any cloud of the batch has a point (reads the counters
+        on the host)."""
+        return bool((self.num_points > 0).any())
+
+    @property
+    def has_normals(self) -> bool:
+        return self.normals is not None
+
+    @property
+    def has_colors(self) -> bool:
+        return self.colors is not None
+
+    @property
+    def has_features(self) -> bool:
+        return self.features is not None
 
     @property
     def device(self) -> torch.device:
@@ -231,6 +357,163 @@ class Pointclouds:
     @property
     def features_list(self) -> Optional[List[np.ndarray]]:
         return self._list(self.features)
+
+    def __getitem__(self, index) -> "Pointclouds":
+        """The clouds of the batch rows ``index`` selects. An int keeps the
+        batch dim (``-1`` is the last row) and raises ``IndexError`` out of
+        range."""
+        if isinstance(index, int):
+            B = len(self)
+            if not -B <= index < B:
+                raise IndexError(f"Batch index {index} out of range for {B} pointclouds.")
+            index = slice(index, index + 1 if index != -1 else None)
+        return Pointclouds(**{name: None if getattr(self, name) is None
+                              else getattr(self, name)[index] for name in _FIELDS})
+
+    def _map(self, fn) -> "Pointclouds":
+        return Pointclouds(**{name: None if getattr(self, name) is None
+                              else fn(getattr(self, name)) for name in _FIELDS})
+
+    # ------------------------------------------------------------------ #
+    # Geometric operations: each returns a new cloud
+    # ------------------------------------------------------------------ #
+    def offset(self, offsets) -> "Pointclouds":
+        """Translate the live points by ``offsets`` (broadcast against
+        ``(B, CAP, 3)``); the padding stays zero."""
+        offsets = _as_operand(offsets, self.points)
+        mask = self.nonpad_mask[..., None].to(self.points.dtype)
+        return dataclasses.replace(self, points=self.points + offsets * mask)
+
+    def scale(self, scales) -> "Pointclouds":
+        """Scale the points by ``scales`` (broadcast against ``(B, CAP, 3)``)."""
+        return dataclasses.replace(self, points=self.points * _as_operand(scales, self.points))
+
+    @fp32_products()
+    def rotate(self, rmat, *, pre_multiplication: bool = True) -> "Pointclouds":
+        """Rotate points and normals by ``(3, 3)`` or ``(B, 3, 3)``
+        matrices: ``R @ p`` or, with ``pre_multiplication=False``,
+        ``p @ R`` (the ``@`` operator's)."""
+        rmat = _as_operand(rmat, self.points)
+        if rmat.shape[-2:] != (3, 3):
+            raise ValueError(f"rmat must have shape (*, 3, 3). Got {tuple(rmat.shape)}.")
+        batch = "" if rmat.ndim == 2 else "b"
+        spec = (f"{batch}ij,bnj->bni" if pre_multiplication else f"bnj,{batch}jk->bnk")
+
+        def rot(x):
+            return torch.einsum(spec, *((rmat, x) if pre_multiplication else (x, rmat)))
+
+        return dataclasses.replace(
+            self, points=rot(self.points),
+            normals=None if self.normals is None else rot(self.normals))
+
+    @fp32_products()
+    def transform(self, transform, *, pre_multiplication: bool = True) -> "Pointclouds":
+        """Apply ``(4, 4)`` or ``(B, 4, 4)`` rigid transforms: ``R p + t``
+        with the padding kept at zero and the normals rotated, not moved;
+        with ``pre_multiplication=False``, ``p @ R`` then the offset by
+        ``t`` (the ``@`` operator's)."""
+        transform = _as_operand(transform, self.points)
+        if transform.shape[-2:] != (4, 4):
+            raise ValueError(
+                f"transform must have shape (*, 4, 4). Got {tuple(transform.shape)}."
+            )
+        if not pre_multiplication:
+            tvec = transform[..., :3, 3]
+            if tvec.ndim == 2:
+                tvec = tvec[:, None]
+            return self.rotate(transform[..., :3, :3], pre_multiplication=False).offset(tvec)
+        moved = transform_pointcloud(self.points, transform)
+        return dataclasses.replace(
+            self,
+            points=torch.where(self.nonpad_mask[..., None], moved, torch.zeros_like(moved)),
+            normals=None if self.normals is None else transform_normals(self.normals, transform),
+        )
+
+    @fp32_products()
+    def pinhole_projection(self, intrinsics) -> "Pointclouds":
+        """Project the points through ``(4, 4)`` or ``(B, 4, 4)``
+        intrinsics onto the z = 1 plane: each live point becomes
+        ``(u, v, 1)``, the padding stays zero."""
+        intrinsics = _as_operand(intrinsics, self.points)
+        if intrinsics.shape[-2:] != (4, 4):
+            raise ValueError(
+                f"intrinsics must have shape (*, 4, 4). Got {tuple(intrinsics.shape)}."
+            )
+        projected = homogenize_points(project_points(self.points, intrinsics))
+        return dataclasses.replace(
+            self, points=projected * self.nonpad_mask[..., None].to(projected.dtype))
+
+    def __add__(self, other):
+        return self.offset(other)
+
+    def __sub__(self, other):
+        return self.offset(-_as_operand(other, self.points))
+
+    def __mul__(self, other):
+        return self.scale(other)
+
+    def __truediv__(self, other):
+        return self.scale(1.0 / _as_operand(other, self.points))
+
+    def __matmul__(self, other):
+        """``pc @ R`` with ``(3, 3)``/``(B, 3, 3)`` rotations or ``pc @ T``
+        with ``(4, 4)``/``(B, 4, 4)`` transforms, post-multiplying points
+        and normals."""
+        other = _as_operand(other, self.points)
+        if other.ndim not in (2, 3) or other.shape[-2:] not in ((3, 3), (4, 4)):
+            raise ValueError(
+                f"Unsupported shape for Pointclouds @ operand: {tuple(other.shape)}\n"
+                "Use tensor of shape (3, 3) or (B, 3, 3) for rotations, or "
+                "(4, 4) or (B, 4, 4) for transformations"
+            )
+        if other.shape[-2:] == (3, 3):
+            return self.rotate(other, pre_multiplication=False)
+        return self.transform(other, pre_multiplication=False)
+
+    # The reference's in-place names. The cloud is frozen and may be shared
+    # with an earlier map, so these return the new cloud and mutate nothing.
+    def offset_(self, offsets) -> "Pointclouds":
+        """:meth:`offset`, returning the new cloud (nothing is mutated)."""
+        return self.offset(offsets)
+
+    def scale_(self, scales) -> "Pointclouds":
+        """:meth:`scale`, returning the new cloud (nothing is mutated)."""
+        return self.scale(scales)
+
+    def rotate_(self, rmat) -> "Pointclouds":
+        """:meth:`rotate`, returning the new cloud (nothing is mutated)."""
+        return self.rotate(rmat)
+
+    def transform_(self, transform) -> "Pointclouds":
+        """:meth:`transform`, returning the new cloud (nothing is mutated)."""
+        return self.transform(transform)
+
+    def pinhole_projection_(self, intrinsics) -> "Pointclouds":
+        """:meth:`pinhole_projection`, returning the new cloud (nothing is
+        mutated)."""
+        return self.pinhole_projection(intrinsics)
+
+    # ------------------------------------------------------------------ #
+    # Tensor semantics
+    # ------------------------------------------------------------------ #
+    def clone(self) -> "Pointclouds":
+        """A copy with new buffers (gradients flow through it)."""
+        return self._map(torch.clone)
+
+    def detach(self) -> "Pointclouds":
+        """The same values, cut from the autograd graph."""
+        return self._map(torch.Tensor.detach)
+
+    def to(self, device) -> "Pointclouds":
+        """Every buffer on ``device``."""
+        return self._map(lambda t: t.to(device))
+
+    def cpu(self) -> "Pointclouds":
+        return self.to("cpu")
+
+    def cuda(self) -> "Pointclouds":
+        """Every buffer on the card, ``torch.device("cuda")``."""
+        return self.to(torch.device("cuda"))
 
     def with_capacity(self, capacity: int) -> "Pointclouds":
         """Copy whose buffers are zero-padded to ``capacity`` (grow only);
@@ -319,3 +602,58 @@ class Pointclouds:
             other.points, other.nonpad_mask, normals=other.normals,
             colors=other.colors, features=other.features,
         )
+
+    def open3d(self, index: int):
+        """Batch element ``index`` as an ``open3d.geometry.PointCloud``
+        (colors above 1 taken as 0-255). Needs open3d."""
+        import open3d as o3d
+
+        pcd = o3d.geometry.PointCloud()
+        pcd.points = o3d.utility.Vector3dVector(self.points_list[index].astype(np.float64))
+        if self.normals is not None:
+            pcd.normals = o3d.utility.Vector3dVector(
+                self.normals_list[index].astype(np.float64))
+        if self.colors is not None:
+            colors = self.colors_list[index].astype(np.float64)
+            if colors.size and colors.max() > 1.001:
+                colors = colors / 255.0
+            pcd.colors = o3d.utility.Vector3dVector(colors)
+        return pcd
+
+    def plotly(
+        self,
+        index: int,
+        include_colors: bool = True,
+        max_num_points: Optional[int] = 200000,
+        as_figure: bool = True,
+        point_size: int = 2,
+    ):
+        r"""Batch element ``index`` as a plotly ``Scatter3d`` (or a
+        ``Figure`` around it, axes hidden): a random subset above
+        ``max_num_points``, colors in 0-1 scaled to 0-255. Needs plotly."""
+        if not isinstance(index, int):
+            raise TypeError(f"Index should be int, but was {type(index)}.")
+        import plotly.graph_objects as go
+
+        pts = self.points_list[index]
+        subsample = max_num_points is not None and max_num_points < pts.shape[0]
+        if subsample:
+            point_inds = np.random.permutation(pts.shape[0])[:max_num_points]
+            pts = pts[point_inds]
+        marker = {"size": point_size}
+        if self.colors is not None and include_colors:
+            colors = self.colors_list[index]
+            if subsample:
+                colors = colors[point_inds]
+            if colors.size and colors.max() < 1.1:
+                colors = colors * 255.0
+            colors = np.clip(colors, 0.0, 255.0).astype(np.uint8)
+            marker["color"] = [f"rgb({r},{g},{b})" for r, g, b in colors]
+        scatter = go.Scatter3d(x=pts[:, 0], y=pts[:, 1], z=pts[:, 2], mode="markers",
+                               marker=marker)
+        if not as_figure:
+            return scatter
+        hidden = dict(showticklabels=False, showgrid=False, zeroline=False, visible=False)
+        fig = go.Figure(data=[scatter])
+        fig.update_layout(showlegend=False, scene=dict(xaxis=hidden, yaxis=hidden, zaxis=hidden))
+        return fig

@@ -8,7 +8,10 @@ API and converts with :meth:`RGBDImages.to_channels_last`. An optional
 descriptors) rides along and is fused into the map's feature channels by
 ``PointFusion(feature_channels=F)``. The derived maps (``vertex_map``,
 ``normal_map``, ``global_*``) read the channels-last layout and follow the
-container's layout, with the JAX package's semantics:
+container's layout, with the JAX package's semantics below. Host arrays
+given to the constructor (numpy, JAX arrays) become float32 tensors on the
+device of the first tensor field, or on the card when there is none
+(:func:`~gradslam_torch.structures.structutils.coerce_torch`).
 
 - ``vertex_map``: ``(Kinv[:3, :3] @ [u, v, 1]) * depth``, zeroed where the
   depth is not positive;
@@ -22,13 +25,17 @@ container's layout, with the JAX package's semantics:
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
+import numpy as np
+
 from ..geometry.geometryutils import create_meshgrid
 from ..geometry.projutils import inverse_intrinsics
+from .structutils import coerce_torch, landing_device
 
 __all__ = ["RGBDImages"]
 
@@ -39,6 +46,9 @@ def _last(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def _first(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if x is None else torch.movedim(x, -1, 2)
+
+
+_ARRAYS = ("rgb_image", "depth_image", "intrinsics", "poses", "feature_image")
 
 
 @dataclass(frozen=True)
@@ -56,6 +66,11 @@ class RGBDImages:
     normal_pitch: int = 1
 
     def __post_init__(self):
+        arrays = [getattr(self, name) for name in _ARRAYS]
+        if not all(v is None or isinstance(v, torch.Tensor) for v in arrays):
+            device = landing_device(arrays)
+            for name, value in zip(_ARRAYS, arrays):
+                object.__setattr__(self, name, coerce_torch(value, np.float32, device))
         if not isinstance(self.normal_pitch, int) or self.normal_pitch < 1:
             raise ValueError(
                 f"normal_pitch must be an int >= 1. Got {self.normal_pitch}."
@@ -101,7 +116,11 @@ class RGBDImages:
     def from_channels_first(cls, rgb_image, depth_image, intrinsics, poses=None,
                             feature_image=None) -> "RGBDImages":
         """A channels-last instance from the reference's channels-first
-        tensors ``(B, L, C, H, W)``."""
+        tensors (or host arrays) ``(B, L, C, H, W)``."""
+        arrays = (rgb_image, depth_image, intrinsics, poses, feature_image)
+        device = landing_device(arrays)
+        rgb_image, depth_image, intrinsics, poses, feature_image = (
+            coerce_torch(a, np.float32, device) for a in arrays)
         return cls(_last(rgb_image), _last(depth_image), intrinsics, poses,
                    feature_image=_last(feature_image))
 
@@ -114,6 +133,21 @@ class RGBDImages:
         B, L = self.rgb_image.shape[:2]
         H, W = self.rgb_image.shape[3:5] if self.channels_first else self.rgb_image.shape[2:4]
         return (B, L, H, W)
+
+    @property
+    def h(self) -> int:
+        """The frame height."""
+        return self.shape[2]
+
+    @property
+    def w(self) -> int:
+        """The frame width."""
+        return self.shape[3]
+
+    @property
+    def has_poses(self) -> bool:
+        """True when poses are attached."""
+        return self.poses is not None
 
     @property
     def cdim(self) -> int:
@@ -166,9 +200,40 @@ class RGBDImages:
             else self.feature_image[bidx, sidx],
         )
 
-    def with_poses(self, poses: torch.Tensor) -> "RGBDImages":
-        """Copy with ``poses (B, L, 4, 4)`` attached."""
-        return dataclasses.replace(self, poses=poses)
+    def with_poses(self, poses) -> "RGBDImages":
+        """Copy with ``poses (B, L, 4, 4)`` attached (a host array lands on
+        the frames' device)."""
+        return dataclasses.replace(self, poses=coerce_torch(poses, np.float32, self.device))
+
+    # ------------------------------------------------------------------ #
+    # Tensor semantics
+    # ------------------------------------------------------------------ #
+    def _map(self, fn) -> "RGBDImages":
+        return dataclasses.replace(self, **{name: None if getattr(self, name) is None
+                                            else fn(getattr(self, name)) for name in _ARRAYS})
+
+    def clone(self) -> "RGBDImages":
+        """A copy with new tensors (gradients flow through it)."""
+        return self._map(torch.clone)
+
+    def detach(self) -> "RGBDImages":
+        """The same values, cut from the autograd graph."""
+        return self._map(torch.Tensor.detach)
+
+    def to(self, device) -> "RGBDImages":
+        """Every tensor on ``device``."""
+        return self._map(lambda t: t.to(device))
+
+    def cpu(self) -> "RGBDImages":
+        return self.to("cpu")
+
+    def cuda(self) -> "RGBDImages":
+        """Every tensor on the card, ``torch.device("cuda")``."""
+        return self.to(torch.device("cuda"))
+
+    def _to_layout(self, x: torch.Tensor) -> torch.Tensor:
+        """A channels-last derived map in this container's layout."""
+        return _first(x) if self.channels_first else x
 
     # ------------------------------------------------------------------ #
     # Layout
@@ -202,7 +267,17 @@ class RGBDImages:
     def _derived(self, name: str) -> torch.Tensor:
         """A derived map of a channels-first instance: computed from the
         channels-last layout, returned channels-first."""
-        return _first(getattr(self.to_channels_last(), name))
+        return self._to_layout(getattr(self.to_channels_last(), name))
+
+    @property
+    def rgb_image_channels_first(self) -> torch.Tensor:
+        """The colours as ``(B, L, 3, H, W)`` in either layout (a view)."""
+        return self.rgb_image if self.channels_first else _first(self.rgb_image)
+
+    @property
+    def depth_image_channels_first(self) -> torch.Tensor:
+        """The depths as ``(B, L, 1, H, W)`` in either layout (a view)."""
+        return self.depth_image if self.channels_first else _first(self.depth_image)
 
     # ------------------------------------------------------------------ #
     # Derived maps
@@ -294,3 +369,77 @@ class RGBDImages:
             return self.normal_map
         rmat = self.poses[..., :3, :3]
         return torch.einsum("bsij,bshwj->bshwi", rmat, self.normal_map)
+
+    # ------------------------------------------------------------------ #
+    # Viewers (need plotly)
+    # ------------------------------------------------------------------ #
+    def plotly(
+        self,
+        index: int,
+        include_depth: bool = True,
+        as_figure: bool = True,
+        ms_per_frame: int = 50,
+    ):
+        r"""Frame-by-frame RGB (and depth) animation of batch element
+        ``index`` with a slider and play/stop buttons, the reference's
+        viewer: frames ``{'name', 'data', 'traces'}``, depth shown scaled
+        by ``10^floor(log10(255 / max_depth))``. ``as_figure=False``
+        returns the frames list. Needs plotly."""
+        if not isinstance(index, int):
+            raise TypeError(f"Index should be int, but was {type(index)}.")
+        from plotly.subplots import make_subplots
+
+        from .structutils import animation_slider, animation_updatemenus, numpy_to_plotly_image
+
+        frames_cl = self.to_channels_last()
+        rgb = frames_cl.rgb_image[index].detach().cpu().numpy().astype(np.float32)
+        if rgb.max() < 1.1:
+            rgb = rgb * 255
+        rgb = np.clip(rgb, 0.0, 255.0).astype(np.uint8)
+        image_rgb = [numpy_to_plotly_image(im, i) for i, im in enumerate(rgb)]
+        if not include_depth:
+            frames = [{"data": [frame], "name": i} for i, frame in enumerate(image_rgb)]
+        else:
+            depth = frames_cl.depth_image[index, ..., 0].detach().cpu().numpy().astype(np.float32)
+            dmax = float(depth.max())
+            scale = 10 ** math.floor(math.log10(255.0 / dmax)) if dmax > 0 else 1
+            image_depth = [numpy_to_plotly_image(d, i, True, scale)
+                           for i, d in enumerate((depth * scale).astype(np.uint8))]
+            frames = [{"name": i, "data": list(frame), "traces": [0, 1]}
+                      for i, frame in enumerate(zip(image_rgb, image_depth))]
+        if not as_figure:
+            return frames
+        if not include_depth:
+            fig = make_subplots(rows=1, cols=1, subplot_titles=("RGB",))
+            fig.add_traces(frames[0]["data"][0])
+        else:
+            fig = make_subplots(rows=2, cols=1, subplot_titles=("RGB", "Depth"),
+                                shared_xaxes=True, shared_yaxes=False, vertical_spacing=0.1)
+            fig.add_trace(frames[0]["data"][0], row=1, col=1)
+            fig.add_trace(frames[0]["data"][1], row=2, col=1)
+            fig.update_layout(scene=dict(aspectmode="data"))
+            fig.update_layout(autosize=False, height=1080)
+        fig.update(frames=frames)
+        fig.update_layout(updatemenus=animation_updatemenus(ms_per_frame),
+                          sliders=animation_slider(self.shape[1]))
+        return fig
+
+    def plotly_vertex_scatter(self, index: int, ds_ratio: int = 4):
+        """3-D plotly scatter of batch element ``index``'s global vertex
+        map, every ``ds_ratio``-th pixel with valid depth. Needs plotly."""
+        import plotly.graph_objects as go
+
+        frames_cl = self.to_channels_last()
+        every = (slice(None), slice(None, None, ds_ratio), slice(None, None, ds_ratio))
+        verts = frames_cl.global_vertex_map[index][every].detach().cpu().numpy()
+        cols = frames_cl.rgb_image[index][every].detach().cpu().numpy()
+        mask = frames_cl.valid_depth_mask[index][every][..., 0].cpu().numpy()
+        pts, rgb = verts[mask], cols[mask]
+        if rgb.size and rgb.max() <= 1.001:
+            rgb = rgb * 255.0
+        rgb = rgb.astype(np.uint8)
+        scatter = go.Scatter3d(
+            x=pts[:, 0], y=pts[:, 1], z=pts[:, 2], mode="markers",
+            marker=dict(size=2, color=[f"rgb({r},{g},{b})" for r, g, b in rgb]),
+        )
+        return go.Figure(data=[scatter])

@@ -2,7 +2,7 @@
 
 from .checkpoint import load_state, save_state
 from .cli import parse_pyramid
-from .precision import disable_tf32, tf32_disabled
+from .precision import disable_tf32, fp32_products, tf32_disabled
 from .profiling import annotate, device_timer, trace
 from .trajectory_io import load_trajectory_tum, save_trajectory_tum
 
@@ -10,6 +10,7 @@ __all__ = [
     "annotate",
     "device_timer",
     "disable_tf32",
+    "fp32_products",
     "load_state",
     "load_trajectory_tum",
     "parse_pyramid",

@@ -416,3 +416,21 @@ def test_dataset_golden_holds_what_chip_smoke_reads():
         assert 0 < float(data[f"{name}_ate_unaligned_m"]) < 0.01
     assert int(data["icl_num_points"]) == cs.DS_L * cs.ICL_H * cs.ICL_W
     assert 0.5 * cs.DS_H * cs.DS_W * cs.DS_L > int(data["tum_num_points"]) > cs.DS_H * cs.DS_W
+
+
+@pytest.mark.parametrize("kw", [{}, {"channels_first": True}, {"normalize_color": True, "seed": 3}])
+def test_synthetic_rgbd_samples_equal_jax(kw):
+    from gradslam_torch.datasets import SyntheticRGBD as TorchSynthetic
+    from gradslam_tpu.datasets import SyntheticRGBD as JaxSynthetic
+
+    ours = TorchSynthetic(num_sequences=2, seqlen=3, height=24, width=32, **kw)
+    theirs = JaxSynthetic(num_sequences=2, seqlen=3, height=24, width=32, **kw)
+    assert len(ours) == len(theirs) == 2
+    for idx in range(2):
+        a, b = ours[idx], theirs[idx]
+        assert len(a) == len(b) == 6 and a[-1] == b[-1]
+        for t, arr in zip(a[:-1], b[:-1]):
+            assert isinstance(t, torch.Tensor) and t.device.type == "cpu"
+            np.testing.assert_array_equal(t.numpy(), np.asarray(arr))
+    with pytest.raises(IndexError):
+        ours[2]
