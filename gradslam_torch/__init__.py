@@ -12,8 +12,11 @@ kernels for Hopper (``ops/csrc/knn.cu``, ``ops/csrc/scatter.cu``). From
 disk to disk: the TUM, ICL and ScanNet loaders (``datasets``, with the
 port's own PNG codec), PLY, TUM-trajectory and checkpoint IO
 (``structures.io``, ``utils``), ``config.CfgNode`` and the example CLIs
-(``python -m gradslam_torch.examples.<name>``). The JAX package
-``gradslam_tpu`` is the reference it is tested against. This package
+(``python -m gradslam_torch.examples.<name>``), with the frame loader API
+of the JAX package's native library (``datasets.frameio``); and
+multi-process SLAM on ``torch.distributed`` (``gradslam_torch.parallel``:
+``DataParallelSLAM`` and the map-sharded ``MapShardedPointFusion``). The
+JAX package ``gradslam_tpu`` is the reference it is tested against. This package
 imports neither JAX nor ``gradslam_tpu``.
 """
 

@@ -17,8 +17,8 @@ the card. Frames are read with the port's own codec
 
 from __future__ import annotations
 
-import concurrent.futures
 import os
+import warnings
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -26,7 +26,7 @@ import torch
 
 from .datautils import channels_first as to_channels_first
 from .datautils import poses_to_transforms
-from .frameio import read_image, read_images
+from .frameio import FrameLoader, read_image
 
 __all__ = [
     "RGBDSequenceDataset",
@@ -145,12 +145,15 @@ class RGBDSequenceDataset(torch.utils.data.Dataset):
     :meth:`intrinsics_for`.
 
     ``loader``: ``'cv2'`` reads and decodes a sample's frames one after the
-    other; ``'native'`` reads and inflates them on a thread pool (``zlib``
-    releases the interpreter lock) and unfilters them one after the other
-    (:func:`~gradslam_torch.datasets.frameio.read_images`). Both use the
-    same decoder and give the same tensors; the names are the JAX
-    package's. ``pin_memory``: pin the returned tensors (needs a CUDA build
-    of torch).
+    other and resizes them as cv2 does (:func:`resize_color`,
+    :func:`resize_depth`); ``'native'`` decodes them on the worker processes
+    of a :class:`~gradslam_torch.datasets.frameio.FrameLoader`, with the
+    JAX package's native library's arithmetic (bilinear colours left
+    unrounded, depth times ``1 / depth_scale``). At the stored size both
+    give the same tensors. Where a frame fails to decode, ``'native'``
+    warns and reads the sample as ``'cv2'`` does, as the JAX package's
+    does. ``pin_memory``: pin the returned tensors (needs a CUDA build of
+    torch).
     """
 
     def __init__(
@@ -192,21 +195,41 @@ class RGBDSequenceDataset(torch.utils.data.Dataset):
     def intrinsics_for(self, idx: int) -> np.ndarray:
         raise NotImplementedError
 
+    def _load_native(self, sample: dict):
+        """The sample's ``(colors, depths)`` through a
+        :class:`~gradslam_torch.datasets.frameio.FrameLoader`, or None when
+        a frame fails to decode."""
+        cpaths, dpaths = list(sample["color_paths"]), list(sample["depth_paths"])
+        loader = FrameLoader(self.height, self.width, self.depth_scale,
+                             normalize_color=self.normalize_color,
+                             num_threads=min(len(cpaths), os.cpu_count() or 1))
+        try:
+            loader.submit_sequence(cpaths, dpaths)
+            frames = [loader.fetch(i) for i in range(len(cpaths))]
+        except IOError:
+            warnings.warn(f"native frameio failed to decode a frame of {sample['name']!r}; "
+                          "falling back to the cv2 path for this sample.")
+            return None
+        finally:
+            loader.close()
+        return (np.stack([rgb for rgb, _ in frames]),
+                np.stack([depth for _, depth in frames])[..., None])
+
     def _load_frames(self, sample: dict) -> Tuple[np.ndarray, np.ndarray]:
         """The sample's frames: ``colors (L, H, W, 3)``, ``depths (L, H, W,
         1)`` float32, channels-first when the dataset is."""
-        paths = list(sample["color_paths"]) + list(sample["depth_paths"])
-        if self.loader == "native":
-            workers = min(len(paths), os.cpu_count() or 1)
-            with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as pool:
-                images = read_images(paths, pool)
-        else:
+        loaded = self._load_native(sample) if self.loader == "native" else None
+        if loaded is None:
+            paths = list(sample["color_paths"]) + list(sample["depth_paths"])
             images = [read_image(p) for p in paths]
-        n = len(sample["color_paths"])
-        colors = np.stack([resize_color(im, self.height, self.width, self.normalize_color)
-                           for im in images[:n]])
-        depths = np.stack([resize_depth(im, self.height, self.width, self.depth_scale)
-                           for im in images[n:]])[..., None]
+            n = len(sample["color_paths"])
+            loaded = (
+                np.stack([resize_color(im, self.height, self.width, self.normalize_color)
+                          for im in images[:n]]),
+                np.stack([resize_depth(im, self.height, self.width, self.depth_scale)
+                          for im in images[n:]])[..., None],
+            )
+        colors, depths = loaded
         if self.channels_first:
             colors = to_channels_first(colors)
             depths = to_channels_first(depths)

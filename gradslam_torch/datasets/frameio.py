@@ -1,5 +1,6 @@
 r"""Frame file IO of the PyTorch port: a PNG codec built from ``zlib`` and
-numpy, and the image reader the dataset loaders use.
+numpy, the image reader the dataset loaders use, and the frame loader API of
+the JAX package's native library.
 
 Counterpart of the role that ``imageio`` and the native loader
 (``gradslam_tpu/datasets/frameio.py``, ``native/``) play for the JAX
@@ -8,19 +9,37 @@ package. Neither is assumed here: a machine that runs the port may lack
 and depth, ScanNet depth and labels) are decoded and encoded by this module
 alone.
 
-The decoder reads non-interlaced PNGs of colour types 0 (grey), 2 (RGB), 4
-(grey + alpha) and 6 (RGBA) at bit depths 8 and 16; the alpha channel is
-stripped. 16-bit samples are big-endian in the file and come out as native
+The decoder reads every colour type and bit depth pair that PNG defines:
+grey (colour type 0) at 1, 2, 4, 8 and 16 bits, RGB (2) at 8 and 16,
+palette (3) at 1, 2, 4 and 8, grey + alpha (4) and RGBA (6) at 8 and 16,
+non-interlaced or Adam7-interlaced. It returns what cv2's
+``IMREAD_UNCHANGED`` and imageio return, with the alpha channel stripped:
+palette indices are looked up in ``PLTE`` (to RGB; a ``tRNS`` alpha would
+only be stripped), grey below 8 bits is scaled to 8 bits (``v * 255 / (2^d
+- 1)``), 16-bit samples are big-endian in the file and come out as native
 ``uint16``. Rows are unfiltered as the PNG specification defines: None, Sub
 and Up are whole-row numpy operations; Average and Paeth read the pixel to
 the left, so an image that uses them is unfiltered along anti-diagonals (a
 wavefront: pixel ``(y, x)`` needs ``(y, x-1)``, ``(y-1, x)`` and
 ``(y-1, x-1)``, all on earlier diagonals), ``H + W - 1`` vectorised steps
-instead of ``H * W`` scalar ones. Adam7-interlaced and palette files are refused with an
-error that names them.
+instead of ``H * W`` scalar ones. An Adam7 file's seven passes are
+unfiltered one by one, each as an image of its own, and scattered into the
+grid. Colour type and bit depth pairs that PNG does not define, and
+compression or filter methods other than 0, are refused.
 
 JPEG (ScanNet's ``color/*.jpg``) is read through Pillow, imported only when a
 JPEG is read; where Pillow is missing that read raises ``ImportError``.
+
+The frame loader API (:func:`is_available`, :func:`decode_color`,
+:func:`decode_depth`, :class:`FrameLoader`) gives the tensors of
+``native/frameio/frameio.cpp`` bit for bit on PNG frames: the library's
+bilinear colour resize left unrounded in float32 and its nearest depth
+resize times ``1 / depth_scale``, as numpy float32 operations in the C++
+order (x86-64 g++ without ``-ffast-math`` or ``-march`` contracts no FMAs,
+so each operation rounds as the C++ one does). :class:`FrameLoader` decodes
+on a pool of worker processes started by a ``forkserver`` (never forked
+from a process that may hold CUDA state): the decoder is bound to the
+interpreter, so threads would slow each other down.
 """
 
 from __future__ import annotations
@@ -29,15 +48,30 @@ import functools
 import os
 import struct
 import zlib
-from typing import List, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-__all__ = ["decode_png", "encode_png", "read_image", "read_images", "read_png", "write_png"]
+__all__ = [
+    "FrameLoader",
+    "decode_color",
+    "decode_depth",
+    "decode_png",
+    "encode_png",
+    "is_available",
+    "read_image",
+    "read_png",
+    "write_png",
+]
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> (samples a pixel, samples kept after the alpha is stripped)
-_COLOR_TYPES = {0: (1, 1), 2: (3, 3), 4: (2, 1), 6: (4, 3)}
+_COLOR_TYPES = {0: (1, 1), 2: (3, 3), 3: (1, 3), 4: (2, 1), 6: (4, 3)}
+# colour type -> the bit depths PNG defines for it
+_BIT_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
 _COLOR_TYPE_OF_CHANNELS = {1: 0, 2: 4, 3: 2, 4: 6}
 FILTER_NONE, FILTER_SUB, FILTER_UP, FILTER_AVERAGE, FILTER_PAETH = range(5)
 
@@ -50,9 +84,11 @@ def _chunks(data: bytes):
     while pos + 12 <= len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
+        if pos + 12 + length > len(data):
+            raise ValueError(f"truncated PNG file (chunk {kind!r} at byte {pos})")
         payload = data[pos + 8:pos + 8 + length]
         (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
-        if len(payload) != length or zlib.crc32(kind + payload) != crc:
+        if zlib.crc32(kind + payload) != crc:
             raise ValueError(f"corrupt PNG chunk {kind!r} at byte {pos}")
         yield kind, payload
         if kind == b"IEND":
@@ -141,59 +177,115 @@ def _unfilter_wavefront(filt: np.ndarray, types: np.ndarray, bpp: int) -> np.nda
     return out.astype(np.uint8).reshape(H, stride)
 
 
+def _stride(width: int, depth: int, color: int) -> int:
+    """Bytes of one unfiltered row (the filter-type byte not counted)."""
+    return (width * _COLOR_TYPES[color][0] * depth + 7) // 8
+
+
+def _passes(header: tuple) -> List[tuple]:
+    """``(x0, y0, dx, dy, width, height)`` of each non-empty pass: the
+    whole image, or the Adam7 passes of an interlaced one."""
+    width, height, interlace = header[0], header[1], header[6]
+    steps = _ADAM7 if interlace == 1 else ((0, 0, 1, 1),)
+    out = []
+    for x0, y0, dx, dy in steps:
+        w, h = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if w > 0 and h > 0:
+            out.append((x0, y0, dx, dy, w, h))
+    return out
+
+
 def _inflate(data: bytes) -> tuple:
-    """Parse and inflate PNG bytes: ``(header, raw)`` with the IHDR fields
-    and the filtered rows ``(H, 1 + W * bpp)`` uint8 (each row's filter type
-    first). ``zlib`` releases the interpreter lock while it inflates."""
-    header, idat = None, []
+    """Parse and inflate PNG bytes: ``(header, palette, raw)`` with the
+    IHDR fields, the ``PLTE`` entries (``(n, 3)`` uint8, or None) and the
+    inflated bytes ``raw`` (uint8): each pass's filtered rows, each row's
+    filter type first. ``zlib`` releases the interpreter lock while it
+    inflates."""
+    header, palette, idat = None, None, []
     for kind, payload in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", payload)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(payload, dtype=np.uint8)[:len(payload) // 3 * 3]
+            palette = palette.reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(payload)
     if header is None:
         raise ValueError("PNG file has no IHDR chunk")
     width, height, depth, color, compression, filtering, interlace = header
-    if interlace == 1:
-        raise ValueError("Adam7-interlaced PNG files are not supported; "
-                         "re-save the image without interlacing")
-    if color == 3:
-        raise ValueError("palette (colour type 3) PNG files are not supported")
-    if color not in _COLOR_TYPES or depth not in (8, 16):
+    if color not in _BIT_DEPTHS or depth not in _BIT_DEPTHS[color]:
         raise ValueError(f"unsupported PNG colour type {color} at bit depth {depth}; "
-                         "supported: colour types 0, 2, 4, 6 at bit depth 8 or 16")
-    if compression != 0 or filtering != 0 or interlace != 0:
+                         "PNG defines grey (0) at 1, 2, 4, 8, 16 bits, palette (3) at "
+                         "1, 2, 4, 8 and RGB (2), grey + alpha (4), RGBA (6) at 8, 16")
+    if compression != 0 or filtering != 0 or interlace not in (0, 1):
         raise ValueError(f"unsupported PNG compression {compression}, filter method "
                          f"{filtering} or interlace method {interlace}")
-    stride = width * _COLOR_TYPES[color][0] * depth // 8
+    if color == 3 and palette is None:
+        raise ValueError("palette (colour type 3) PNG file has no PLTE chunk")
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), dtype=np.uint8)
-    if raw.size != height * (stride + 1):
+    want = sum(h * (_stride(w, depth, color) + 1) for *_, w, h in _passes(header))
+    if raw.size != want:
         raise ValueError(f"PNG image data holds {raw.size} bytes, expected "
-                         f"{height * (stride + 1)} for {width}x{height}")
-    raw = raw.reshape(height, stride + 1)
+                         f"{want} for {width}x{height}")
+    return header, palette, raw
+
+
+def _samples(rows: np.ndarray, width: int, depth: int, samples: int) -> np.ndarray:
+    """Unfiltered rows ``(h, stride)`` to samples ``(h, width, samples)``:
+    16-bit big-endian to native ``uint16``, sub-byte samples unpacked (most
+    significant bits first), unscaled."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, width, samples)
+    if depth == 8:
+        return rows.reshape(h, width, samples)
+    per = 8 // depth
+    shifts = (8 - depth - depth * np.arange(per)).astype(np.uint8)
+    vals = (rows[..., None] >> shifts) & np.uint8((1 << depth) - 1)
+    return vals.reshape(h, -1)[:, :width * samples].reshape(h, width, samples)
+
+
+def _unfilter_pass(raw: np.ndarray, width: int, height: int, depth: int,
+                   color: int) -> np.ndarray:
+    """The samples ``(height, width, samples)`` of one pass's filtered
+    rows ``raw``."""
+    samples = _COLOR_TYPES[color][0]
+    bpp = max(1, samples * depth // 8)
+    raw = raw.reshape(height, _stride(width, depth, color) + 1)
     if raw[:, 0].max(initial=0) > FILTER_PAETH:
         raise ValueError(f"bad PNG row filter type {int(raw[:, 0].max())}")
-    return header, raw
-
-
-def _pixels(header: tuple, rows: np.ndarray) -> np.ndarray:
-    """Unfiltered rows to samples: 16-bit big-endian to native ``uint16``,
-    the alpha channel stripped, grey as ``(H, W)``."""
-    width, height, depth, color = header[:4]
-    samples, kept = _COLOR_TYPES[color]
-    pixels = rows.view(">u2").astype(np.uint16) if depth == 16 else rows
-    pixels = pixels.reshape(height, width, samples)[..., :kept]
-    return pixels[..., 0] if kept == 1 else pixels
-
-
-def _unfilter(header: tuple, raw: np.ndarray) -> np.ndarray:
-    """The samples of inflated rows (see :func:`_inflate`)."""
-    width, height, depth, color = header[:4]
-    bpp = _COLOR_TYPES[color][0] * depth // 8
     types, filt = raw[:, 0], raw[:, 1:]
     if np.any(types >= FILTER_AVERAGE):
-        return _pixels(header, _unfilter_wavefront(filt, types, bpp))
-    return _pixels(header, _unfilter_rows(filt, types, bpp))
+        rows = _unfilter_wavefront(filt, types, bpp)
+    else:
+        rows = _unfilter_rows(filt, types, bpp)
+    return _samples(rows, width, depth, samples)
+
+
+def _unfilter(header: tuple, palette: Optional[np.ndarray], raw: np.ndarray) -> np.ndarray:
+    """The image of inflated bytes (see :func:`_inflate`): palette entries
+    looked up, grey below 8 bits scaled to 8 bits, the alpha channel
+    stripped, grey as ``(H, W)``."""
+    width, height, depth, color = header[:4]
+    samples, kept = _COLOR_TYPES[color]
+    passes = _passes(header)
+    if len(passes) == 1:
+        image = _unfilter_pass(raw, width, height, depth, color)
+    else:
+        image = np.empty((height, width, samples), dtype=np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy, w, h in passes:
+            n = h * (_stride(w, depth, color) + 1)
+            image[y0::dy, x0::dx] = _unfilter_pass(raw[pos:pos + n], w, h, depth, color)
+            pos += n
+    if color == 3:  # indices past the palette read black, as libpng's do
+        table = np.zeros((256, 3), dtype=np.uint8)
+        table[:len(palette)] = palette[:256]
+        image = table[image[..., 0]]
+    elif depth < 8:
+        image = image * np.uint8(255 // ((1 << depth) - 1))
+    image = image[..., :kept]
+    return image[..., 0] if kept == 1 else image
 
 
 def decode_png(data: bytes) -> np.ndarray:
@@ -277,31 +369,6 @@ def write_png(
         f.write(data)
 
 
-def _is_png(path: str) -> bool:
-    return os.path.splitext(path)[1].lower() == ".png"
-
-
-def _read_and_inflate(path: str):
-    """A PNG file read and inflated (``(header, raw)``), any other frame
-    file read whole (:func:`read_image`)."""
-    if _is_png(path):
-        with open(path, "rb") as f:
-            return _inflate(f.read())
-    return read_image(path)
-
-
-def read_images(paths: Sequence[str], pool=None) -> List[np.ndarray]:
-    r"""Read several frame files as :func:`read_image` reads each. With
-    ``pool`` (a ``concurrent.futures`` executor) the files are read and
-    inflated on it, where ``zlib`` (and Pillow's JPEG decoder) release the
-    interpreter lock; a PNG's rows are then unfiltered in this thread, one
-    file after the other, since that work holds the lock and threads
-    running it slow each other down."""
-    loaded = pool.map(_read_and_inflate, paths) if pool is not None else map(
-        _read_and_inflate, paths)
-    return [_unfilter(*item) if _is_png(path) else item for path, item in zip(paths, loaded)]
-
-
 def read_image(path: str) -> np.ndarray:
     r"""Read a frame file: PNG through :func:`read_png`, JPEG through
     Pillow. Other suffixes are refused."""
@@ -318,3 +385,204 @@ def read_image(path: str) -> np.ndarray:
         with Image.open(path) as im:
             return np.asarray(im)
     raise ValueError(f"unsupported frame file type {ext!r} ({path}); expected .png or .jpg")
+
+
+# --------------------------------------------------------------------------- #
+# The frame loader API of ``native/frameio/frameio.cpp``
+# --------------------------------------------------------------------------- #
+
+_DECODE_ERRORS = (OSError, ValueError, EOFError, struct.error, zlib.error)
+
+
+def is_available() -> bool:
+    """True: the port's loader needs no native library (the JAX package's
+    needs ``native/libframeio.so`` built)."""
+    return True
+
+
+def _decode_frame_file(path: str) -> Optional[np.ndarray]:
+    """A frame file's samples as ``libframeio`` decodes it, or None where
+    decoding fails: JPEG (a ``.jpg``/``.jpeg`` suffix, any case) through
+    Pillow, anything else as PNG."""
+    try:
+        if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg"):
+            return read_image(path)
+        with open(path, "rb") as f:
+            return decode_png(f.read())
+    except _DECODE_ERRORS:
+        return None
+
+
+def _f32(x) -> np.float32:
+    return np.float32(x)
+
+
+def _bilinear_taps(src: int, dst: int):
+    """``libframeio``'s bilinear sample positions along one axis, in
+    float32: ``f = (i + 0.5f) * (src / dst) - 0.5f``, the low index
+    ``(int)f`` (``f`` clamped at 0 first), the high one clamped to ``src -
+    1`` and the weight ``f - low``."""
+    s = _f32(src) / _f32(dst)
+    f = (np.arange(dst, dtype=np.float32) + _f32(0.5)) * s - _f32(0.5)
+    neg = f < 0
+    f = np.where(neg, _f32(0.0), f)
+    lo = f.astype(np.int64)
+    hi = np.where(lo + 1 < src, lo + 1, src - 1)
+    return lo, hi, f - lo.astype(np.float32)
+
+
+def _color_arithmetic(image: np.ndarray, height: int, width: int,
+                     normalize: bool = False) -> np.ndarray:
+    r"""``libframeio``'s colour resize of decoded samples ``image (h, w)``
+    or ``(h, w, C)`` to ``(height, width, 3)`` float32
+    (``native/frameio/frameio.cpp:134-166``): bilinear with cv2's sample
+    positions, the sum ``v00 (1 - wy)(1 - wx) + v01 (1 - wy) wx + v10 wy
+    (1 - wx) + v11 wy wx`` in that order and left unrounded, times ``1.0f /
+    255`` when normalizing. A grey image is broadcast to 3 channels. The
+    library reads bytes: 16-bit samples are read as the little-endian
+    bytes it decodes them to, as it does."""
+    img = np.asarray(image)
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    flat = np.ascontiguousarray(img, dtype="<u2" if img.dtype == np.uint16 else np.uint8)
+    flat = flat.view(np.uint8).reshape(-1)
+    y0, y1, wy = _bilinear_taps(h, height)
+    x0, x1, wx = _bilinear_taps(w, width)
+    k = np.arange(3) if ch >= 3 else np.zeros(3, dtype=np.int64)
+
+    def at(ys, xs):
+        return flat[((ys[:, None] * w + xs[None, :]) * ch)[..., None] + k].astype(np.float32)
+
+    one = _f32(1.0)
+    if wy.any() or wx.any():
+        wy, wx = wy[:, None, None], wx[None, :, None]
+        out = (at(y0, x0) * (one - wy) * (one - wx) + at(y0, x1) * (one - wy) * wx
+               + at(y1, x0) * wy * (one - wx) + at(y1, x1) * wy * wx)
+    else:  # every weight 0 (the stored size): the sum is v00 + 0 + 0 + 0, exactly
+        out = at(y0, x0)
+    return out * (one / _f32(255.0)) if normalize else out
+
+
+def _depth_arithmetic(image: np.ndarray, height: int, width: int,
+                     depth_scale: float) -> np.ndarray:
+    r"""``libframeio``'s depth resize of decoded samples to ``(height,
+    width)`` float32 metres (``native/frameio/frameio.cpp:168-190``): the
+    nearest sample at ``(int)(y * (h / height))``, clamped to the last
+    row, read from the samples in order, times ``1.0f / depth_scale`` (the
+    scale a C ``float``), for 16-bit and 8-bit depth alike."""
+    img = np.asarray(image)
+    h, w = img.shape[:2]
+    flat = img.reshape(-1)
+    ys = np.minimum((np.arange(height, dtype=np.float32) * (_f32(h) / _f32(height)))
+                    .astype(np.int64), h - 1)
+    xs = np.minimum((np.arange(width, dtype=np.float32) * (_f32(w) / _f32(width)))
+                    .astype(np.int64), w - 1)
+    values = flat[ys[:, None] * w + xs[None, :]].astype(np.float32)
+    return values * (_f32(1.0) / _f32(depth_scale))
+
+
+def decode_color(path: str, height: int, width: int,
+                 normalize: bool = False) -> Optional[np.ndarray]:
+    """Decode and bilinear-resize a PNG/JPEG colour image to ``(H, W, 3)``
+    float32 with ``libframeio``'s arithmetic (:func:`_color_arithmetic`);
+    None when decoding fails."""
+    image = _decode_frame_file(path)
+    return None if image is None else _color_arithmetic(image, height, width, normalize)
+
+
+def decode_depth(path: str, height: int, width: int,
+                 depth_scale: float) -> Optional[np.ndarray]:
+    """Decode and nearest-resize a 16-bit (or 8-bit) depth image to ``(H,
+    W)`` float32 metres with ``libframeio``'s arithmetic
+    (:func:`_depth_arithmetic`); None when decoding fails."""
+    image = _decode_frame_file(path)
+    return None if image is None else _depth_arithmetic(image, height, width, depth_scale)
+
+
+def _decode_frame(color_path: str, depth_path: str, height: int, width: int,
+                  depth_scale: float, normalize: bool):
+    """One frame on a worker: ``(rgb, depth)``, or None if either file
+    fails to decode."""
+    rgb = decode_color(color_path, height, width, normalize)
+    depth = decode_depth(depth_path, height, width, depth_scale)
+    return None if rgb is None or depth is None else (rgb, depth)
+
+
+def _pool_context():
+    """The worker processes' start method: a ``forkserver`` that has
+    imported this module once, so a worker starts without importing torch
+    and without forking a process that may hold CUDA state."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload([__name__])
+    return ctx
+
+
+class FrameLoader:
+    r"""Prefetching frame loader over a pool of ``num_threads`` worker
+    processes (the name is the JAX package's, whose native loader runs
+    threads).
+
+    Example::
+
+        loader = FrameLoader(height=480, width=640, depth_scale=5000.0)
+        loader.submit_sequence(color_paths, depth_paths)
+        rgb, depth = loader.fetch(0)   # (H, W, 3) f32, (H, W) f32 meters
+        loader.close()
+    """
+
+    def __init__(
+        self,
+        height: int,
+        width: int,
+        depth_scale: float,
+        normalize_color: bool = False,
+        num_threads: int = 4,
+    ):
+        import concurrent.futures
+
+        self.height = height
+        self.width = width
+        self.depth_scale = float(depth_scale)
+        self.normalize_color = bool(normalize_color)
+        self._futures = {}
+        self._pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=num_threads if num_threads > 0 else 4, mp_context=_pool_context())
+
+    def submit(self, index: int, color_path: str, depth_path: str):
+        """Queue one frame (color+depth paths) for background decoding."""
+        if self._pool is None:
+            raise RuntimeError("FrameLoader is closed")
+        self._futures[index] = self._pool.submit(
+            _decode_frame, color_path, depth_path, self.height, self.width,
+            self.depth_scale, self.normalize_color)
+
+    def submit_sequence(self, color_paths: Sequence[str], depth_paths: Sequence[str]):
+        """Queue a whole sequence; frame ``i`` is fetched by index ``i``."""
+        for i, (c, d) in enumerate(zip(color_paths, depth_paths)):
+            self.submit(i, c, d)
+
+    def fetch(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Block until frame ``index`` is decoded; returns ``(rgb (H, W, 3),
+        depth (H, W))`` float32. A frame is fetched once, in any order."""
+        future = self._futures.pop(index, None)
+        if future is None:
+            raise IOError(f"frameio has no frame {index} queued")
+        result = future.result()
+        if result is None:
+            raise IOError(f"frameio failed to load frame {index}")
+        return result
+
+    def close(self):
+        """Shut the worker processes down; safe to call more than once."""
+        pool, self._pool = getattr(self, "_pool", None), None
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+        self._futures = {}
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -27,9 +27,6 @@ JAX_PKG, PORT_PKG = ROOT / "gradslam_tpu", ROOT / "gradslam_torch"
 
 _TPU = "TPU-only plumbing (ROADMAP.md, 'Do not port the TPU-only plumbing')"
 _PALLAS = "the Pallas kernel; its port is the hand CUDA kernel ops/csrc/knn.cu"
-_PARALLEL = "parallel/ is the last item of ROADMAP.md queue 1, not ported yet"
-_FRAMEIO = ("the native frame loader's API, the next item of ROADMAP.md queue 1; the port "
-            "decodes with its own codec (datasets/frameio.py)")
 _HP = ("XLA precision arguments; the port's TF32 switches play their role "
        "(utils/precision.py: disable_tf32, fp32_products)")
 
@@ -47,15 +44,6 @@ ALLOWED = {
         "matmul_hp": _HP, "einsum_hp": _HP, "HIGHEST": _HP,
     },
     "utils/precision.py": {"matmul_hp": _HP, "einsum_hp": _HP, "HIGHEST": _HP},
-    "parallel/__init__.py": {"*": _PARALLEL},
-    "parallel/sharding.py": {"*": _PARALLEL},
-    "parallel/map_sharded.py": {"*": _PARALLEL},
-    "datasets/frameio.py": {
-        name: _FRAMEIO for name in (
-            "FrameLoader", "FrameLoader.__init__", "FrameLoader.__del__", "FrameLoader.close",
-            "FrameLoader.fetch", "FrameLoader.submit", "FrameLoader.submit_sequence",
-            "decode_color", "decode_depth", "is_available")
-    },
     "slam/icpslam.py": {
         "ICPSLAM.__call__": "inherited from torch.nn.Module, which calls forward()",
     },

@@ -198,8 +198,11 @@ def test_tum_chunk_arithmetic_equals_jax(tum_tree, kw):
 
 
 def test_tum_options_equal_jax(tum_tree):
-    """channels_first, return_* switches and the threaded 'native' loader,
-    which gives the same tensors as the default one."""
+    """channels_first, return_* switches and the 'native' loader, which
+    gives the JAX native library's arithmetic (held bit for bit against it
+    in test_torch_frameio_native.py): its colours within one level of the
+    default loader's and its depths within one float32 ulp, every other
+    output equal."""
     for kw in (dict(channels_first=True), dict(return_depth=False, return_timestamps=False),
                dict(return_pose=False, return_transform=True, return_names=False),
                dict(return_intrinsics=False, return_transform=False)):
@@ -208,8 +211,13 @@ def test_tum_options_equal_jax(tum_tree):
         assert_samples_equal(jd[2], td[2], color_exact=True)
     plain = TorchTUM(tum_tree, seqlen=5, height=36, width=50)
     native = TorchTUM(tum_tree, seqlen=5, height=36, width=50, loader="native")
-    for a, b in zip(plain[1], native[1]):
-        assert a == b if isinstance(a, str) else torch.equal(a, b)
+    for k, (a, b) in enumerate(zip(plain[1], native[1])):
+        if k == 0:
+            assert (a - b).abs().max() <= 1.0
+        elif k == 1:
+            assert torch.allclose(a, b, rtol=2 ** -23, atol=0)
+        else:
+            assert a == b if isinstance(a, str) else torch.equal(a, b)
     with pytest.raises(ValueError):
         TorchTUM(tum_tree, loader="pil")
     with pytest.raises(ValueError):

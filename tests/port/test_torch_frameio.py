@@ -5,7 +5,8 @@ each row's filter adaptively), cv2 (Sub rows by default, every filter
 adaptively when asked) and the port wrote; the port's files read
 back bit for bit through imageio; a per-pixel loop that follows the PNG
 specification's unfiltering holds the wavefront decoder on every filter
-type."""
+type; every colour type and bit depth pair PNG defines, palette files and
+Adam7 files decode as cv2 reads them."""
 
 import struct
 import zlib
@@ -17,6 +18,8 @@ cv2 = pytest.importorskip("cv2")
 imageio = pytest.importorskip("imageio.v2")
 
 from gradslam_torch.datasets import frameio  # noqa: E402
+
+from . import _pngfiles  # noqa: E402
 
 
 def _images():
@@ -164,20 +167,108 @@ def _with_header_byte(data: bytes, offset: int, value: int) -> bytes:
     return data[:pos + 4] + bytes(payload) + crc + data[pos + 21:]
 
 
-def test_interlaced_and_palette_files_raise():
-    """Neither Pillow nor cv2 writes Adam7 files, so the header of a valid
-    file is edited (CRC redone)."""
+def test_undefined_formats_raise():
+    """Colour type and bit depth pairs that PNG does not define, and
+    methods other than 0, are refused; so are corrupt files. The header of a
+    valid file is edited (CRC redone)."""
     data = frameio.encode_png(IMAGES["rgb8"])
-    with pytest.raises(ValueError, match="Adam7"):
-        frameio.decode_png(_with_header_byte(data, 12, 1))
-    with pytest.raises(ValueError, match="palette"):
-        frameio.decode_png(_with_header_byte(data, 9, 3))
-    with pytest.raises(ValueError, match="bit depth 4"):
+    with pytest.raises(ValueError, match="colour type 2 at bit depth 4"):
         frameio.decode_png(_with_header_byte(data, 8, 4))
+    with pytest.raises(ValueError, match="colour type 3 at bit depth 16"):
+        frameio.decode_png(_with_header_byte(_with_header_byte(data, 9, 3), 8, 16))
+    with pytest.raises(ValueError, match="colour type 5"):
+        frameio.decode_png(_with_header_byte(data, 9, 5))
+    with pytest.raises(ValueError, match="compression 1"):
+        frameio.decode_png(_with_header_byte(data, 10, 1))
+    with pytest.raises(ValueError, match="filter method 1"):
+        frameio.decode_png(_with_header_byte(data, 11, 1))
+    with pytest.raises(ValueError, match="interlace method 2"):
+        frameio.decode_png(_with_header_byte(data, 12, 2))
+    with pytest.raises(ValueError, match="no PLTE"):
+        frameio.decode_png(_with_header_byte(frameio.encode_png(IMAGES["gray8"]), 9, 3))
+    with pytest.raises(ValueError, match="expected"):  # an interlaced header on plain rows
+        frameio.decode_png(_with_header_byte(data, 12, 1))
     with pytest.raises(ValueError, match="corrupt"):
         frameio.decode_png(data[:40] + bytes([data[40] ^ 1]) + data[41:])
     with pytest.raises(ValueError, match="signature"):
         frameio.decode_png(b"GIF89a" + data[6:])
+
+
+def _cv2_rgb(path):
+    """cv2's ``IMREAD_UNCHANGED`` read as the decoder returns it: RGB, the
+    alpha stripped."""
+    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    if img.ndim == 3:
+        img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB if img.shape[-1] == 3 else cv2.COLOR_BGRA2RGB)
+    return img
+
+
+_RNG = np.random.RandomState(5)
+_PALETTE = _RNG.randint(0, 256, (256, 3))
+# name -> (samples, colour type, bit depth, palette); odd sizes leave Adam7
+# passes partial (and empty at 1x1)
+FORMATS = {
+    "gray1": (_RNG.randint(0, 2, (37, 53)), 0, 1, None),
+    "gray2": (_RNG.randint(0, 4, (37, 53)), 0, 2, None),
+    "gray4": (_RNG.randint(0, 16, (37, 53)), 0, 4, None),
+    "pal1": (_RNG.randint(0, 2, (13, 21)), 3, 1, _PALETTE[:2]),
+    "pal2": (_RNG.randint(0, 4, (13, 21)), 3, 2, _PALETTE[:4]),
+    "pal4": (_RNG.randint(0, 16, (37, 53)), 3, 4, _PALETTE[:16]),
+    "pal8": (_RNG.randint(0, 200, (37, 53)), 3, 8, _PALETTE[:200]),
+    "rgb8": (_RNG.randint(0, 256, (37, 53, 3)), 2, 8, None),
+    "rgb16": (_RNG.randint(0, 65536, (11, 12, 3)), 2, 16, None),
+    "gray16": (_RNG.randint(0, 65536, (37, 53)), 0, 16, None),
+    "graya8": (_RNG.randint(0, 256, (9, 13, 2)), 4, 8, None),
+    "rgba16": (_RNG.randint(0, 65536, (9, 10, 4)), 6, 16, None),
+    "one_pixel": (_RNG.randint(0, 256, (1, 1, 3)), 2, 8, None),
+}
+
+
+@pytest.mark.parametrize("interlace", [False, True])
+@pytest.mark.parametrize("name", sorted(FORMATS))
+def test_every_png_format_decodes_as_cv2_reads_it(tmp_path, name, interlace):
+    """Grey at 1, 2 and 4 bits (scaled to 8 bits), palette files at every
+    depth (looked up to RGB) and Adam7 files of every colour type (the seven
+    passes unfiltered one by one, every filter type on their rows): bit for
+    bit what cv2's ``IMREAD_UNCHANGED`` reads, the alpha stripped."""
+    samples, color, depth, palette = FORMATS[name]
+    path = _pngfiles.write(tmp_path / f"{name}.png", samples, color, depth,
+                           interlace=interlace, palette=palette)
+    got, ref = frameio.read_png(path), _cv2_rgb(path)
+    if color == 4:  # cv2 reads grey + alpha as BGRA with the grey repeated
+        assert (ref == ref[..., :1]).all()
+        ref = ref[..., 0]
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+    if color == 3:
+        np.testing.assert_array_equal(got, np.asarray(palette, np.uint8)[samples])
+    elif depth < 8:
+        np.testing.assert_array_equal(got, samples * (255 // ((1 << depth) - 1)))
+
+
+def test_pillow_palette_and_1bit_files_equal_cv2_and_imageio(tmp_path):
+    """Files Pillow writes: palette PNGs at 8 and 4 bits (with a tRNS alpha,
+    which is stripped) and a 1-bit grey PNG (imageio reads it as bool)."""
+    from PIL import Image
+
+    rgb = (np.random.RandomState(1).rand(20, 30, 3) * 256).astype(np.uint8)
+    pal = Image.fromarray(rgb).quantize(16)
+    pal.save(str(tmp_path / "p8.png"))
+    pal.save(str(tmp_path / "p4.png"), bits=4)
+    pal.save(str(tmp_path / "pt.png"), transparency=3)
+    bits = np.random.RandomState(2).rand(20, 30) > 0.5
+    Image.fromarray(bits).save(str(tmp_path / "b1.png"))
+    assert frameio._inflate(open(tmp_path / "p4.png", "rb").read())[0][2:4] == (4, 3)
+    for name in ("p8", "p4", "pt"):
+        path = str(tmp_path / f"{name}.png")
+        got = frameio.read_png(path)
+        np.testing.assert_array_equal(got, _cv2_rgb(path))
+        np.testing.assert_array_equal(got, np.asarray(imageio.imread(path))[..., :3])
+    path = str(tmp_path / "b1.png")
+    assert frameio._inflate(open(path, "rb").read())[0][2:4] == (1, 0)
+    np.testing.assert_array_equal(frameio.read_png(path), _cv2_rgb(path))
+    np.testing.assert_array_equal(frameio.read_png(path),
+                                  np.asarray(imageio.imread(path)).astype(np.uint8) * 255)
 
 
 def _unfilter_loop(filt, types, bpp):
@@ -230,29 +321,6 @@ def test_read_image_jpeg_equals_imageio(tmp_path):
     np.testing.assert_array_equal(got, np.asarray(imageio.imread(path)))
     with pytest.raises(ValueError, match="unsupported frame file type"):
         frameio.read_image(str(tmp_path / "c.bmp"))
-
-
-def test_read_images_on_a_pool_equals_read_image(tmp_path):
-    """Exact: PNG and JPEG files read on a thread pool (read and inflated
-    there, unfiltered in the caller) equal one ``read_image`` each, in
-    order."""
-    import concurrent.futures
-
-    paths = []
-    for i, name in enumerate(["rgb8", "gray16", "smooth_rgb8", "rgba8"]):
-        paths.append(str(tmp_path / f"{i}.png"))
-        frameio.write_png(paths[-1], IMAGES[name], filters=(i, 4))
-    paths.append(str(tmp_path / "c.jpg"))
-    imageio.imwrite(paths[-1], IMAGES["rgb8"])
-    want = [frameio.read_image(p) for p in paths]
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        got = frameio.read_images(paths, pool)
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype
-        np.testing.assert_array_equal(g, w)
-    for g, w in zip(frameio.read_images(paths), want):
-        np.testing.assert_array_equal(g, w)
 
 
 def test_read_image_without_pillow_names_it(tmp_path, monkeypatch):

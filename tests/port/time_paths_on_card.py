@@ -21,7 +21,8 @@ defines:
   inputs for both trees: device time a call (10 calls behind the spin
   kernel, median of 5 rounds), the same for an empty kernel
   (``torch.cuda._sleep(0)``, the launch floor), each device kernel's time
-  from the profiler (``kernel_split_ms``), the host time a call
+  (``scatter_split_ms``, or the profiler's ``kernel_split_ms`` in a tree
+  that predates it), the host time a call
   (``host_us``: 100 calls enqueued behind a spin kernel, median and least
   of 7 rounds) and a SHA-256 of the output;
 - runs the four PointFusion paths at their full size (tracked
@@ -156,7 +157,9 @@ def main() -> int:
             "device_ms": float(np.median(times)), "device_ms_rounds": times,
             "floor_ms": float(np.median(floor)),
             "host_us": float(np.median(host)), "host_us_min": float(min(host)),
-            "kernels_ms": here_cs.kernel_split_ms(fn),
+            "kernels_ms": (here_cs.scatter_split_ms(table, dest, values, fill)
+                           if hasattr(here_cs, "scatter_split_ms")
+                           else here_cs.kernel_split_ms(fn)),
             "bound_ms": here_cs.scatter_bound(table, dest, values), "sha256": sha256(result)}
 
     paths = {
