@@ -11,7 +11,9 @@ Phases (each raises on failure; nothing is caught):
 1. print the card's name and power limit; require CUDA; turn TF32 off;
 2. build the CUDA kernels (``gradslam_torch/ops/csrc/knn.cu``, the 1-NN
    search, and ``scatter.cu``, the unique-row scatter; one ``nvcc`` each, in
-   parallel) from the checkout's sources and print the build time;
+   parallel) from the checkout's sources and print the build time; build
+   the frame decoder's host library (``gradslam_torch/datasets/csrc/
+   frameio.cpp``, ``g++``) and print its build time;
 3. hold the 1-NN kernel against its plain PyTorch version on the card at
    the paths' three shapes (the tracked slice's N=19,200/M=38,400, the
    production recipe's 1-NN level N=4,800/M=9,600, ICPSLAM window+pyramid's
@@ -141,13 +143,19 @@ Phases (each raises on failure; nothing is caught):
 15. the dataset slice (after the semantic phase; ``dataset_phase``), from
     disk to disk at 640x480x30: a TUM-format and an ICL-format tree written
     from a seed with the port's PNG encoder (rows cycling through every
-    filter, ICL at its negative fy), the host's decode time a colour and a
-    depth frame and the sample's load time with both loaders;
+    filter, ICL at its negative fy); the frame decoder's library bit-equal
+    to the plain numpy codec on every file of both trees; the host's decode
+    time a colour and a depth frame (library and plain codec) and the
+    sample's load time with both loaders, each sample equal to the arrays
+    written under its own depth arithmetic, no process started;
     ``examples.pointfusion.main`` on the TUM tree (gradICP at the default
     capacity 9,216,000, fusion modes ``'auto'``): map within 0.2% of the JAX
     package's CPU run (``tests/port/data/dataset_jax_cpu.npz``), 0 dropped,
     unaligned ATE within 2x the golden's, poses, map and both kernels'
-    launches equal to the in-memory run of the same arrays;
+    launches equal to the in-memory run of the same arrays, its wall time
+    and the part spent loading; the ``'native'`` sample through
+    ``PointFusion`` (gradICP, ``dsratio=4``) SHA-256-equal to the in-memory
+    run of the native arithmetic, with the same launches;
     ``examples.icpslam.main`` on the ICL tree resized to 320x240: the map
     exactly the valid pixel count, aligned ATE within 2x the golden's;
     ``examples.online_slam.main`` through 30 frames, through 15 and resumed
@@ -198,13 +206,12 @@ Phases (each raises on failure; nothing is caught):
 18. the frame loader API (``loader_phase``): ``decode_color`` and
     ``decode_depth`` on the 640x480x30 TUM tree at 480x640 and 240x320
     bit-equal to a numpy transcription of ``native/frameio/frameio.cpp``'s
-    arithmetic, ``FrameLoader`` (8 worker processes) and the TUM loader's
-    ``'native'`` sample bit-equal to them, and the host's ms a frame
-    serially and through ``FrameLoader``;
-19. stop every process the script started that still runs (the
-    forkserver and resource tracker ``FrameLoader``'s pool leaves; also
-    on a failed run), then print the kernels' JSON line, the card's
-    line, and the result line.
+    arithmetic, ``FrameLoader`` (4 and 8 threads) and the TUM loader's
+    ``'native'`` sample bit-equal to them, the host's ms a frame serially
+    and through ``FrameLoader``, and no process left behind;
+19. stop every process the script started that still runs (a guard, also
+    on a failed run), then print the kernels' JSON line, the card's line,
+    and the result line.
 
 Every timed run counts both kernels' launches from 0 and must hit the
 counts derived from the code (``KNN_LAUNCHES_PER_RUN``,
@@ -695,11 +702,11 @@ def _descendants(pid: int) -> list:
 
 def stop_child_processes() -> list:
     """Stop every process this script started that is still running and
-    return the pids it had to signal. ``FrameLoader``'s pool leaves
-    multiprocessing's forkserver and resource tracker running until the
-    interpreter exits, and they would outlive the script by the time they
-    take to see its end: both are stopped and reaped here. Any other
-    descendant gets SIGTERM, then SIGKILL after 5 s. Safe to call twice."""
+    return the pids it had to signal: a guard, as nothing of the port
+    should leave one (``FrameLoader`` runs threads). A multiprocessing
+    forkserver or resource tracker, which would run until the interpreter
+    exits, is stopped and reaped; any other descendant gets SIGTERM, then
+    SIGKILL after 5 s. Safe to call twice."""
     import signal
     from multiprocessing import forkserver, resource_tracker
 
@@ -1151,9 +1158,9 @@ def scatter_split_ms(table, dest, values, fill, rounds: int = 3) -> dict:
     rounds of 10 calls): the fill (or copy) of the table alone, the wrapper
     called with no rows (``M = 0``), and the time the row kernel adds to it
     in a whole call (a dependent launch, which starts while the fill runs).
-    Not ``torch.profiler``: after about twenty profiler sessions in one
-    process it stopped seeing device activity (in this script, from the
-    armed phase on). Raises unless both are finite."""
+    Not ``torch.profiler``: its sessions of ten calls of a 10 us kernel
+    read no device kernels late in this script. Raises unless both are
+    finite."""
     no_dest = dest[:, :0].contiguous()
     no_values = values[:, :0].contiguous()
     fns = {"fill": lambda: scatter_kernel(table, no_dest, no_values, fill),
@@ -1517,6 +1524,14 @@ def device_busy_s(prof) -> float:
     return busy_us / 1e6
 
 
+def check_profile(tag: str, busy: float, events: int) -> None:
+    """A profiled run must read device activity: raises on 0 device events
+    or a busy time that is not finite and positive."""
+    if events <= 0 or not (math.isfinite(busy) and busy > 0):
+        raise AssertionError(f"profile {tag}: the profiler read {events} device events and a "
+                             f"device busy time of {busy} s")
+
+
 def profile_run(run, tag: str, unprofiled_s: float) -> tuple:
     """One call of ``run`` under ``torch.profiler``: prints the wall time,
     the device's busy time, its share of this run's wall time and of
@@ -1536,6 +1551,7 @@ def profile_run(run, tag: str, unprofiled_s: float) -> tuple:
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     summed = sum(e.self_device_time_total for e in device) / 1e6
     busy = device_busy_s(prof)
+    check_profile(tag, busy, sum(e.count for e in device))
     log(f"profile {tag}: wall {wall:.4f} s, device busy {busy:.4f} s "
         f"({100 * busy / wall:.1f}% of this profiled run; "
         f"{100 * busy / unprofiled_s:.1f}% of the unprofiled mean {unprofiled_s:.4f} s "
@@ -2277,7 +2293,10 @@ def device_events(run) -> tuple:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    return device_busy_s(prof), sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy = device_busy_s(prof)
+    events = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    check_profile("device_events", busy, events)
+    return busy, events
 
 
 class ReadBackEachFrame:
@@ -2342,8 +2361,9 @@ def armed_phase(frames) -> dict:
         raise AssertionError(f"armed rows: poses and map differ from the unarmed run: {digests}")
     rows = {}
     for name in names:
-        busy, events = (device_events(lambda: slams[name](frames)) if name != "unarmed_read_back"
-                        else (float("nan"), 0))
+        with (ReadBackEachFrame(slams[name]) if name == "unarmed_read_back"
+              else contextlib.nullcontext()):
+            busy, events = device_events(lambda: slams[name](frames))
         mean = float(np.mean(secs[name]))
         rows[name] = (mean, peaks[name], busy, events)
         log(f"armed {name} {H}x{W}x{L}: {L / mean:.4f} frames/s ({mean:.4f} s/run, mean of "
@@ -2359,9 +2379,8 @@ def armed_phase(frames) -> dict:
 
     log("armed rows: poses and map SHA-256-equal to the unarmed run's in every round; against "
         "it, paired by round: " + "; ".join(
-            f"{name} {paired(name)}, {r[1] - base[1]:+d} B peak" + (
-                "" if name == "unarmed_read_back"
-                else f", {r[3] - base[3]:+d} device events, {r[2] - base[2]:+.4f} s busy")
+            f"{name} {paired(name)}, {r[1] - base[1]:+d} B peak, {r[3] - base[3]:+d} device "
+            f"events, {r[2] - base[2]:+.4f} s busy"
             for name, r in rows.items() if name != "unarmed"))
     return rows
 
@@ -2883,6 +2902,18 @@ DS_POINTFUSION_DEFAULTS = dict(
     prune_min_confidence=1.5,
 )
 DS_DIR = "_dataset_smoke"  # the trees and the CLIs' outputs, removed after the phase
+# What the numpy decoder, which the frame decoder's C++ library replaced,
+# measured on the card's host (PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W),
+# printed beside this run's numbers
+EARLIER_HOST = {
+    "decode": "the numpy decoder 38.4-68.5 ms a 640x480 PNG",
+    "serial": "the numpy decoder 103.6-117.0 ms",
+    "pool": "the numpy decoder on 8 processes 29.4-35.6 ms",
+    "native": "9.09 / 7.37 s on the numpy decoder's processes",
+    "cv2": "3.86 / 2.88 s on the numpy decoder",
+    "cli": "6.49 s wall, 3.66 s of it decoding, on the numpy decoder",
+}
+LOADER_THREADS = (4, 8)  # FrameLoader: the JAX constructor's default, and one a core
 
 
 def dataset_clip(intrinsics: tuple, shape: tuple = None, seed: int = DS_SEED) -> tuple:
@@ -2955,17 +2986,22 @@ def write_icl_tree(root: Path, clip: tuple) -> Path:
     return root
 
 
-def decoded_arrays(clip: tuple, intrinsics: tuple) -> tuple:
+def decoded_arrays(clip: tuple, intrinsics: tuple, native: bool = False) -> tuple:
     """The clip as the TUM loader hands it over at the clip's own size,
     made in memory: ``(rgb (1, L, H, W, 3), depth (1, L, H, W, 1), K (1, 1,
     4, 4), poses (1, L, 4, 4))`` float32, ``intrinsics`` (for 640x480)
-    scaled as the loader scales them."""
+    scaled as the loader scales them; depth divided by the scale, as the
+    ``'cv2'`` loader does, or with ``native`` times ``1.0f / scale``, as the
+    ``'native'`` loader does (the JAX package's native library's
+    arithmetic)."""
     colors, depths, poses = clip
     fx, fy, cx, cy = intrinsics
     K = np.eye(4, dtype=np.float32)
     K[0, 0], K[1, 1], K[0, 2], K[1, 2] = fx, fy, cx, cy
     K = scale_intrinsics(K, depths.shape[1] / 480.0, depths.shape[2] / 640.0)
-    depth = depths.astype(np.float32)[..., None] / DEPTH_UNITS_PER_M
+    depth = depths.astype(np.float32)[..., None]
+    depth = (depth * (np.float32(1) / np.float32(DEPTH_UNITS_PER_M)) if native
+             else depth / DEPTH_UNITS_PER_M)
     rebased = (np.linalg.inv(poses[0:1]) @ poses).astype(np.float32)
     return colors.astype(np.float32)[None], depth[None], K[None, None], rebased[None]
 
@@ -2986,18 +3022,20 @@ def dataset_launches(kind: str) -> dict:
 def decode_times(path: Path, image: np.ndarray) -> dict:
     """Host ms to decode one frame (median of 5): the file as written (rows
     cycling through ``PNG_FILTERS``), read from disk and decoded; its bytes
-    decoded from memory; and the same image encoded with every row Paeth or
-    every row Sub (the fast row path), decoded from memory."""
+    decoded from memory, by the library and by the plain numpy codec; and
+    the same image encoded with every row Paeth or every row Sub (the plain
+    codec's fast row path), decoded from memory by the library."""
     data = path.read_bytes()
     cases = {"file": lambda: frameio.read_png(str(path)),
-             "as_written": lambda: frameio.decode_png(data)}
+             "as_written": lambda: frameio.decode_png(data),
+             "plain": lambda: frameio.decode_png_plain(data)}
     for name, filt in (("paeth", 4), ("sub", 1)):
         encoded = frameio.encode_png(image, filters=filt)
         cases[name] = lambda encoded=encoded: frameio.decode_png(encoded)
     out = {}
     for name, fn in cases.items():
         got = fn()
-        if not np.array_equal(got, image):
+        if not (got.dtype == image.dtype and np.array_equal(got, image)):
             raise AssertionError(f"PNG {path.name} ({name}) decodes to another image")
         times = []
         for _ in range(5):
@@ -3006,6 +3044,54 @@ def decode_times(path: Path, image: np.ndarray) -> dict:
             times.append(1e3 * (time.perf_counter() - t0))
         out[name] = float(np.median(times))
     return out
+
+
+def decode_equals_plain(roots) -> int:
+    """Every PNG under ``roots`` decoded by the library and by the plain
+    numpy codec: the same dtype, shape and samples (raises otherwise).
+    Returns the number of files."""
+    n = 0
+    for root in roots:
+        for path in sorted(Path(root).rglob("*.png")):
+            data = path.read_bytes()
+            got, want = frameio.decode_png(data), frameio.decode_png_plain(data)
+            if not (got.dtype == want.dtype and got.shape == want.shape
+                    and np.array_equal(got, want)):
+                raise AssertionError(f"{path}: the library's decode differs from the plain "
+                                     "codec's")
+            n += 1
+    return n
+
+
+def new_children(before: set) -> set:
+    """Live processes below this one that were not in ``before``."""
+    import multiprocessing
+
+    return (set(_descendants(os.getpid())) - before) | {
+        p.pid for p in multiprocessing.active_children()}
+
+
+class LoadTimer:
+    """Seconds a dataset spends loading its samples' frames (reading,
+    decoding, resizing, stacking: ``RGBDSequenceDataset._load_frames``)
+    while the context is open."""
+
+    def __enter__(self):
+        self.seconds, real = 0.0, base_module.RGBDSequenceDataset._load_frames
+        self._real = real
+
+        def timed(ds, sample):
+            t0 = time.perf_counter()
+            try:
+                return real(ds, sample)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+        base_module.RGBDSequenceDataset._load_frames = timed
+        return self
+
+    def __exit__(self, *exc):
+        base_module.RGBDSequenceDataset._load_frames = self._real
 
 
 def counted(fn):
@@ -3064,34 +3150,43 @@ def _dataset_phase(root: Path, golden) -> tuple:
         f"{DS_W}x{DS_H}, rows cycling through PNG filters {PNG_FILTERS}) in "
         f"{time.perf_counter() - t0:.2f} s")
     seq = tum_root / TUM_SEQUENCE
+    t0 = time.perf_counter()
+    checked = decode_equals_plain((tum_root, icl_root))
+    log(f"dataset: the library's decode bit-equal to the plain numpy codec on all {checked} "
+        f"PNG files of the TUM and ICL trees ({time.perf_counter() - t0:.2f} s)")
     rgb0 = sorted((seq / "rgb").iterdir())[0]
     depth0 = sorted((seq / "depth").iterdir())[0]
     color_ms = decode_times(rgb0, tum_clip[0][0])
     depth_ms = decode_times(depth0, tum_clip[1][0])
-    log(f"dataset: host PNG decode ms a {DS_W}x{DS_H} frame (median of 5): colour "
-        + ", ".join(f"{k} {v:.2f}" for k, v in color_ms.items()) + "; depth "
-        + ", ".join(f"{k} {v:.2f}" for k, v in depth_ms.items()))
+    log(f"dataset: host PNG decode ms a {DS_W}x{DS_H} frame (median of 5; the library unless "
+        "'plain'): colour " + ", ".join(f"{k} {v:.3f}" for k, v in color_ms.items())
+        + "; depth " + ", ".join(f"{k} {v:.3f}" for k, v in depth_ms.items())
+        + f"; a colour and depth pair from disk {color_ms['file'] + depth_ms['file']:.3f} ms "
+        f"(earlier: {EARLIER_HOST['decode']})")
+    before = set(_descendants(os.getpid()))
     loads = {}
     for loader in ("cv2", "native"):
         t0 = time.perf_counter()
         sample = TUM(str(tum_root), seqlen=DS_L, height=DS_H, width=DS_W, loader=loader)[0]
         loads[loader] = (time.perf_counter() - t0, sample)
-    # at the stored size: equal colours; 'native' multiplies depth by 1 / scale
-    # (the native library's arithmetic) where 'cv2' divides, one ulp apart
-    for k, (a, b) in enumerate(zip(loads["cv2"][1], loads["native"][1])):
-        same = (a == b if isinstance(a, str) else
-                torch.allclose(a, b, rtol=2.0 ** -23, atol=0) if k == 1 else torch.equal(a, b))
-        if not same:
-            raise AssertionError("dataset: the 'native' loader's sample differs from 'cv2''s")
+    if new_children(before):
+        raise AssertionError(f"dataset: the loaders left processes {new_children(before)}")
+    # the 'cv2' sample is the arrays written, divided by the depth scale; the
+    # 'native' one the same colours with depth times 1.0f / scale
     want = decoded_arrays(tum_clip, TUM_INTRINSICS)
-    for got, ref in zip(loads["cv2"][1][:4], (want[0][0], want[1][0], want[2][0, 0], want[3][0])):
-        if not (got.dtype == torch.float32 and np.array_equal(got.numpy(), ref)):
-            raise AssertionError("dataset: the TUM sample differs from the arrays written")
+    want_native = decoded_arrays(tum_clip, TUM_INTRINSICS, native=True)
+    for loader, ref in (("cv2", want), ("native", want_native)):
+        for got, arr in zip(loads[loader][1][:4], (ref[0][0], ref[1][0], ref[2][0, 0], ref[3][0])):
+            if not (got.dtype == torch.float32 and np.array_equal(got.numpy(), arr)):
+                raise AssertionError(f"dataset: the {loader!r} TUM sample differs from the "
+                                     "arrays written")
+    ulps = int((loads["cv2"][1][1] != loads["native"][1][1]).sum())
     log(f"dataset: TUM sample of {DS_L} frames ({2 * DS_L} PNGs) loaded in "
-        f"{loads['cv2'][0]:.3f} s (loader 'cv2', one after the other) and "
-        f"{loads['native'][0]:.3f} s (loader 'native', {min(DS_L, os.cpu_count())} worker "
-        "processes), equal colours, depths within one float32 ulp, the 'cv2' sample equal to "
-        "the arrays written")
+        f"{loads['cv2'][0]:.3f} s (loader 'cv2', one after the other; earlier "
+        f"{EARLIER_HOST['cv2']}) and {loads['native'][0]:.3f} s (loader 'native', "
+        f"{min(DS_L, os.cpu_count())} threads; earlier {EARLIER_HOST['native']}); each equal "
+        f"to the arrays written under its own depth arithmetic (colours equal, {ulps} depths "
+        "one float32 ulp apart); no process started")
 
     # (2) pointfusion on the TUM tree, held against the golden and the
     # in-memory run of the same frames
@@ -3100,7 +3195,8 @@ def _dataset_phase(root: Path, golden) -> tuple:
     log(f"dataset: pointfusion at the default capacity {cap}: 'auto' fuses {modes[0]} + "
         f"{modes[1]}")
     argv = DS_POINTFUSION_ARGS + ["--dataset_path", str(tum_root)]
-    with KnnCapture() as knn_cap, ScatterCapture() as new_cap, ScatterIntoCapture() as into_cap:
+    with (KnnCapture() as knn_cap, ScatterCapture() as new_cap, ScatterIntoCapture() as into_cap,
+          LoadTimer() as load_timer):
         (pc, poses), cli_launches, cli_s = counted(lambda: pointfusion_example.main(argv))
     expect = dataset_launches("tum")
     LAUNCHES["dataset_tum_pointfusion"] = cli_launches
@@ -3116,20 +3212,39 @@ def _dataset_phase(root: Path, golden) -> tuple:
     bar = DS_ATE_FACTOR * float(golden["tum_ate_unaligned_m"])
     if not ate <= bar:
         raise AssertionError(f"dataset pointfusion: unaligned ATE {ate} m above {bar} m")
-    frames = rgbdimages_from_numpy(*want, device="cuda")
     slam = PointFusion(odom="gradicp", **DS_POINTFUSION_DEFAULTS)
-    (pc_mem, poses_mem), mem_launches, mem_s = counted(lambda: slam(frames))
-    if mem_launches != cli_launches:
-        raise AssertionError(f"dataset pointfusion: in-memory launches {mem_launches}, "
-                             f"from disk {cli_launches}")
+    runs = {}
+    for tag, arrays in (("memory", want), ("native", tuple(
+            np.asarray(x)[None] for x in loads["native"][1][:4])), ("memory_native", want_native)):
+        if tag == "native":
+            arrays = (arrays[0], arrays[1], arrays[2][None], arrays[3])
+        frames = rgbdimages_from_numpy(*arrays, device="cuda")
+        runs[tag] = counted(lambda frames=frames: slam(frames))
+        LAUNCHES[f"dataset_tum_{tag}"] = runs[tag][1]
+        if runs[tag][1] != cli_launches:
+            raise AssertionError(f"dataset pointfusion: {tag} run's launches {runs[tag][1]}, "
+                                 f"the CLI's {cli_launches}")
     digest = map_digest(pc, poses)
-    if map_digest(pc_mem, poses_mem) != digest:
+    digests = {tag: map_digest(*run[0]) for tag, run in runs.items()}
+    if digests["memory"] != digest:
         raise AssertionError("dataset pointfusion: poses or map differ from the in-memory run")
-    log(f"dataset: pointfusion CLI on the TUM tree {DS_W}x{DS_H}x{DS_L}: wall {cli_s:.3f} s "
-        f"(load + SLAM); the in-memory run {mem_s:.3f} s = {DS_L / mem_s:.4f} frames/s; map "
-        f"{count} points (JAX golden {ref}), 0 dropped, unaligned ATE {ate:.4e} m (bar "
-        f"{bar:.4e} m), launches {cli_launches} in both, SHA-256 of poses and map equal "
-        f"({digest[:16]})")
+    if digests["native"] != digests["memory_native"]:
+        raise AssertionError("dataset pointfusion: the 'native' sample's poses or map differ "
+                             "from the in-memory run of the native arithmetic")
+    (pc_n, poses_n), _, native_s = runs["native"]
+    check_run(pc_n, poses_n, (1, DS_L), "dataset pointfusion (native sample)")
+    gap = float((poses_n - poses).abs().max())
+    log(f"dataset: pointfusion CLI on the TUM tree {DS_W}x{DS_H}x{DS_L}: wall {cli_s:.3f} s, "
+        f"{load_timer.seconds:.3f} s of it loading the sample (loader 'cv2'; earlier "
+        f"{EARLIER_HOST['cli']}); the in-memory run {runs['memory'][2]:.3f} s = "
+        f"{DS_L / runs['memory'][2]:.4f} frames/s; map {count} points (JAX golden {ref}), 0 "
+        f"dropped, unaligned ATE {ate:.4e} m (bar {bar:.4e} m), launches {cli_launches} in "
+        f"every run, SHA-256 of poses and map equal to the in-memory run's ({digest[:16]}); "
+        f"the 'native' sample's run ({native_s:.3f} s) SHA-256-equal to the in-memory run of "
+        f"the native arithmetic ({digests['native'][:16]}), "
+        + ("equal to the 'cv2' run too" if digests["native"] == digest else
+           f"apart from the 'cv2' run by its {ulps} depth ulps: map {int(pc_n.num_points[0])} "
+           f"points against {count}, poses within {gap:.3e}"))
 
     # (3) icpslam on the ICL tree, resized to the ICPSLAM cell's size
     argv = DS_ICPSLAM_ARGS + ["--dataset_path", str(icl_root)]
@@ -3883,14 +3998,12 @@ def loader_phase() -> None:
     ``DS_DIR``, removed after): ``decode_color``/``decode_depth`` at
     ``LOADER_SIZES`` bit-equal to the numpy transcription of the C++
     (:func:`libframeio_color`, :func:`libframeio_depth`) on the samples the
-    codec decodes, normalized and not; ``FrameLoader``'s 30 frames,
+    plain codec decodes, normalized and not; ``FrameLoader``'s 30 frames,
     fetched out of order, bit-equal to the one-shot decoders; the TUM
     loader's ``'native'`` sample bit-equal to them; and the host's ms a
-    frame (colour + depth decoded and resized): serial, and through
-    ``FrameLoader`` with 8 worker processes, two loaders in turn (the log
-    says whether the forkserver was already running). An inflate-only
-    thread pool, measured beside them on the H100's host, was no faster
-    than serial (``PERF.md`` §6) and was dropped."""
+    frame (colour + depth decoded and resized): serially, and through
+    ``FrameLoader`` at ``LOADER_THREADS`` threads, two loaders of each in
+    turn. Fails if a loader leaves a process behind."""
     root = Path(DS_DIR)
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir()
@@ -3902,7 +4015,10 @@ def loader_phase() -> None:
         dpaths = sorted(str(p) for p in (seq / "depth").iterdir())
         for H_, W_ in LOADER_SIZES:
             for i in (0, 17):
-                img, dep = frameio.read_png(cpaths[i]), frameio.read_png(dpaths[i])
+                with open(cpaths[i], "rb") as f:
+                    img = frameio.decode_png_plain(f.read())
+                with open(dpaths[i], "rb") as f:
+                    dep = frameio.decode_png_plain(f.read())
                 for normalize in (False, True):
                     got = frameio.decode_color(cpaths[i], H_, W_, normalize)
                     if not np.array_equal(got, libframeio_color(img, H_, W_, normalize)):
@@ -3911,41 +4027,42 @@ def loader_phase() -> None:
                                       libframeio_depth(dep, H_, W_, DEPTH_UNITS_PER_M)):
                     raise AssertionError(f"loader: decode_depth differs at {H_}x{W_}")
         H_, W_ = LOADER_SIZES[-1]
-        from multiprocessing import forkserver
-
-        forkserver_ran = forkserver._forkserver._forkserver_pid is not None
+        before = set(_descendants(os.getpid()))
         t0 = time.perf_counter()
         serial = [(frameio.decode_color(c, H_, W_), frameio.decode_depth(d, H_, W_, 5000.0))
                   for c, d in zip(cpaths, dpaths)]
         t_serial = time.perf_counter() - t0
-        t_pool = []
+        t_pool = {n: [] for n in LOADER_THREADS}
         for _ in range(2):
-            t0 = time.perf_counter()
-            loader = frameio.FrameLoader(H_, W_, 5000.0, num_threads=8)
-            loader.submit_sequence(cpaths, dpaths)
-            order = list(range(DS_L))[::-1]
-            pooled = {i: loader.fetch(i) for i in order}
-            loader.close()
-            t_pool.append(time.perf_counter() - t0)
-        for i in range(DS_L):
-            if not (np.array_equal(serial[i][0], pooled[i][0])
-                    and np.array_equal(serial[i][1], pooled[i][1])):
-                raise AssertionError(f"loader: frame {i} differs between the loaders")
+            for threads in LOADER_THREADS:
+                t0 = time.perf_counter()
+                loader = frameio.FrameLoader(H_, W_, 5000.0, num_threads=threads)
+                loader.submit_sequence(cpaths, dpaths)
+                pooled = {i: loader.fetch(i) for i in list(range(DS_L))[::-1]}
+                loader.close()
+                t_pool[threads].append(time.perf_counter() - t0)
+                for i in range(DS_L):
+                    if not (np.array_equal(serial[i][0], pooled[i][0])
+                            and np.array_equal(serial[i][1], pooled[i][1])):
+                        raise AssertionError(f"loader: frame {i} differs between the loaders")
         sample = TUM(str(root), sequences=(TUM_SEQUENCE,), seqlen=DS_L, height=H_, width=W_,
                      loader="native", return_pose=False, return_transform=False,
                      return_names=False, return_timestamps=False)[0]
         if not (np.array_equal(sample[0].numpy(), np.stack([c for c, _ in serial]))
                 and np.array_equal(sample[1].numpy()[..., 0], np.stack([d for _, d in serial]))):
             raise AssertionError("loader: TUM(loader='native') differs from the decoders")
-        ms = {k: 1e3 * t / DS_L for k, t in (("serial", t_serial), ("pool_first", t_pool[0]),
-                                             ("pool_next", t_pool[1]))}
+        left = new_children(before)
+        if left:
+            raise AssertionError(f"loader: FrameLoader left processes {sorted(left)}")
+        per_frame = {n: " and ".join(f"{1e3 * t / DS_L:.3f}" for t in ts)
+                     for n, ts in t_pool.items()}
         log(f"loader {DS_L} frames 480x640 read at {H_}x{W_}: decode_color/decode_depth bit-equal "
             f"to the C++ arithmetic's transcription at {LOADER_SIZES}; host ms a frame (colour + "
-            f"depth, decoded and resized): serial {ms['serial']:.2f}, FrameLoader (8 processes) "
-            f"{ms['pool_first']:.2f} "
-            f"and {ms['pool_next']:.2f} on two loaders in turn (the forkserver "
-            f"{'started by the dataset phase' if forkserver_ran else 'starts in the first'}); "
-            f"all bit-equal, TUM(loader='native') too")
+            f"depth, decoded and resized): serial {1e3 * t_serial / DS_L:.3f} (earlier "
+            f"{EARLIER_HOST['serial']}), FrameLoader " + "; ".join(
+                f"{n} threads {v}" for n, v in per_frame.items())
+            + f" on two loaders each, in turn (earlier {EARLIER_HOST['pool']}); all bit-equal, "
+            "TUM(loader='native') too; no process started")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3966,6 +4083,10 @@ def main() -> int:
     load_library()
     log(f"kernel build + load: {time.perf_counter() - t0:.2f} s")
     log("ptxas report:\n" + (_build.build_log.strip() or "(library already built)"))
+    t0 = time.perf_counter()
+    frameio.load_library()
+    log(f"frame decoder library (gradslam_torch/datasets/csrc/frameio.cpp, "
+        f"{' '.join(_build.HOST_FLAGS)}) build + load: {time.perf_counter() - t0:.3f} s")
 
     rgb, depth, K, P = synthetic_sequence(B, L, H, W, seed=0)
     frames = rgbdimages_from_numpy(rgb, depth, K, P, device="cuda")
@@ -4051,8 +4172,7 @@ def main() -> int:
     log(f"grad phase: {time.perf_counter() - t0:.2f} s")
 
     left = stop_child_processes()
-    log(f"child processes: forkserver and resource tracker stopped; "
-        f"{len(left)} other process(es) had to be signalled {left}")
+    log(f"child processes: {len(left)} had to be signalled {left}")
 
     # launches a run on each path, as counted in its last timed run
     knn_per_path = {path: n["knn"] for path, n in LAUNCHES.items()}

@@ -4,8 +4,9 @@ Counterpart of ``gradslam_tpu/datasets/base.py`` (``chunk_sequence`` :19,
 ``resize_color`` :56, ``resize_depth`` :71, ``RGBDSequenceDataset`` :82).
 A dataset here is a ``torch.utils.data.Dataset`` whose samples are CPU
 tensors (pinned where the caller asks); the SLAM entry points put them on
-the card. Frames are read with the port's own codec
-(:mod:`~gradslam_torch.datasets.frameio`) and resized without cv2:
+the card. Frames are read with the port's own decoder
+(:mod:`~gradslam_torch.datasets.frameio`, a C++ library built at first use)
+and resized without cv2:
 
 - depth and labels: cv2's ``INTER_NEAREST``, source index
   ``floor(dst * (1 / (dst / src)))`` clamped to the last pixel, exactly;
@@ -146,14 +147,17 @@ class RGBDSequenceDataset(torch.utils.data.Dataset):
 
     ``loader``: ``'cv2'`` reads and decodes a sample's frames one after the
     other and resizes them as cv2 does (:func:`resize_color`,
-    :func:`resize_depth`); ``'native'`` decodes them on the worker processes
-    of a :class:`~gradslam_torch.datasets.frameio.FrameLoader`, with the
-    JAX package's native library's arithmetic (bilinear colours left
-    unrounded, depth times ``1 / depth_scale``). At the stored size both
-    give the same tensors. Where a frame fails to decode, ``'native'``
-    warns and reads the sample as ``'cv2'`` does, as the JAX package's
-    does. ``pin_memory``: pin the returned tensors (needs a CUDA build of
-    torch).
+    :func:`resize_depth`); ``'native'`` decodes them on the threads of a
+    :class:`~gradslam_torch.datasets.frameio.FrameLoader`, with the JAX
+    package's native library's arithmetic (bilinear colours left unrounded,
+    depth times ``1 / depth_scale``). Both decode PNG through the port's
+    C++ library, built at first use; at the stored size both give the same
+    colours. Where a frame fails to decode, ``'native'`` warns and reads the
+    sample as ``'cv2'`` does, as the JAX package's does. Where the library
+    cannot be built, both raise: unlike the JAX package, which warns and
+    reads through cv2 when its native library is missing, nothing falls
+    back to a slower decoder. ``pin_memory``: pin the returned tensors
+    (needs a CUDA build of torch).
     """
 
     def __init__(
@@ -197,8 +201,8 @@ class RGBDSequenceDataset(torch.utils.data.Dataset):
 
     def _load_native(self, sample: dict):
         """The sample's ``(colors, depths)`` through a
-        :class:`~gradslam_torch.datasets.frameio.FrameLoader`, or None when
-        a frame fails to decode."""
+        :class:`~gradslam_torch.datasets.frameio.FrameLoader` (a thread a
+        frame, up to one a core), or None when a frame fails to decode."""
         cpaths, dpaths = list(sample["color_paths"]), list(sample["depth_paths"])
         loader = FrameLoader(self.height, self.width, self.depth_scale,
                              normalize_color=self.normalize_color,

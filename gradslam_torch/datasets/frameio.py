@@ -1,6 +1,7 @@
-r"""Frame file IO of the PyTorch port: a PNG codec built from ``zlib`` and
-numpy, the image reader the dataset loaders use, and the frame loader API of
-the JAX package's native library.
+r"""Frame file IO of the PyTorch port: a PNG decoder in the port's own C++
+host library, a PNG encoder in ``zlib`` and numpy, the image reader the
+dataset loaders use, and the frame loader API of the JAX package's native
+library.
 
 Counterpart of the role that ``imageio`` and the native loader
 (``gradslam_tpu/datasets/frameio.py``, ``native/``) play for the JAX
@@ -17,37 +18,47 @@ non-interlaced or Adam7-interlaced. It returns what cv2's
 palette indices are looked up in ``PLTE`` (to RGB; a ``tRNS`` alpha would
 only be stripped), grey below 8 bits is scaled to 8 bits (``v * 255 / (2^d
 - 1)``), 16-bit samples are big-endian in the file and come out as native
-``uint16``. Rows are unfiltered as the PNG specification defines: None, Sub
-and Up are whole-row numpy operations; Average and Paeth read the pixel to
-the left, so an image that uses them is unfiltered along anti-diagonals (a
-wavefront: pixel ``(y, x)`` needs ``(y, x-1)``, ``(y-1, x)`` and
-``(y-1, x-1)``, all on earlier diagonals), ``H + W - 1`` vectorised steps
-instead of ``H * W`` scalar ones. An Adam7 file's seven passes are
-unfiltered one by one, each as an image of its own, and scattered into the
-grid. Colour type and bit depth pairs that PNG does not define, and
+``uint16``. Colour type and bit depth pairs that PNG does not define, and
 compression or filter methods other than 0, are refused.
+
+:func:`decode_png` checks the chunks and inflates the image data here
+(``zlib`` releases the interpreter lock) and unfilters the rows in the
+library (``csrc/frameio.cpp``, one ``ctypes`` call, which releases the lock
+too). The library is built from the checkout at first use, never at import,
+with the host's C++ compiler (``$CXX``, else ``g++``) into
+``gradslam_torch/_build/`` (``ops/_build.py:build_host_library``); a
+missing compiler or a failed build raises with the compiler's output, and
+nothing falls back to the numpy decoder. :func:`decode_png_plain` is that
+decoder, the library's plain version, which the tests hold it against: rows
+unfiltered as the PNG specification defines, None, Sub and Up as whole-row
+numpy operations, Average and Paeth along anti-diagonals (a wavefront:
+pixel ``(y, x)`` needs ``(y, x-1)``, ``(y-1, x)`` and ``(y-1, x-1)``, all
+on earlier diagonals), an Adam7 file's seven passes one by one, each as an
+image of its own, scattered into the grid.
 
 JPEG (ScanNet's ``color/*.jpg``) is read through Pillow, imported only when a
 JPEG is read; where Pillow is missing that read raises ``ImportError``.
 
 The frame loader API (:func:`is_available`, :func:`decode_color`,
 :func:`decode_depth`, :class:`FrameLoader`) gives the tensors of
-``native/frameio/frameio.cpp`` bit for bit on PNG frames: the library's
-bilinear colour resize left unrounded in float32 and its nearest depth
-resize times ``1 / depth_scale``, as numpy float32 operations in the C++
-order (x86-64 g++ without ``-ffast-math`` or ``-march`` contracts no FMAs,
-so each operation rounds as the C++ one does). :class:`FrameLoader` decodes
-on a pool of worker processes started by a ``forkserver`` (never forked
-from a process that may hold CUDA state): the decoder is bound to the
-interpreter, so threads would slow each other down.
+``native/frameio/frameio.cpp`` bit for bit on PNG frames: the library
+copies its bilinear colour resize, left unrounded in float32, and its
+nearest depth resize times ``1 / depth_scale``, operation for operation
+(built with ``-ffp-contract=off`` and without ``-ffast-math`` or
+``-march``, so each operation rounds as the JAX package's default x86-64
+build rounds it). :func:`_color_arithmetic` and :func:`_depth_arithmetic`
+are the same arithmetic in numpy float32, their plain versions.
+:class:`FrameLoader` decodes on a pool of threads and starts no process.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 import struct
 import zlib
+from pathlib import Path
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -57,8 +68,10 @@ __all__ = [
     "decode_color",
     "decode_depth",
     "decode_png",
+    "decode_png_plain",
     "encode_png",
     "is_available",
+    "load_library",
     "read_image",
     "read_png",
     "write_png",
@@ -195,12 +208,12 @@ def _passes(header: tuple) -> List[tuple]:
     return out
 
 
-def _inflate(data: bytes) -> tuple:
-    """Parse and inflate PNG bytes: ``(header, palette, raw)`` with the
-    IHDR fields, the ``PLTE`` entries (``(n, 3)`` uint8, or None) and the
-    inflated bytes ``raw`` (uint8): each pass's filtered rows, each row's
-    filter type first. ``zlib`` releases the interpreter lock while it
-    inflates."""
+def _read_chunks(data: bytes) -> tuple:
+    """Parse PNG bytes and inflate their image data: ``(header, palette,
+    raw)`` with the IHDR fields, the ``PLTE`` entries (``(n, 3)`` uint8, or
+    None) and the inflated bytes ``raw`` (``bytes``): each pass's filtered
+    rows, each row's filter type first. ``zlib`` releases the interpreter
+    lock while it inflates."""
     header, palette, idat = None, None, []
     for kind, payload in _chunks(data):
         if kind == b"IHDR":
@@ -222,12 +235,27 @@ def _inflate(data: bytes) -> tuple:
                          f"{filtering} or interlace method {interlace}")
     if color == 3 and palette is None:
         raise ValueError("palette (colour type 3) PNG file has no PLTE chunk")
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), dtype=np.uint8)
+    return header, palette, zlib.decompress(b"".join(idat))
+
+
+def _size_error(header: tuple, size: int) -> Optional[ValueError]:
+    """The refusal of ``size`` inflated bytes under ``header``, or None
+    where the size is the header's."""
+    width, height, depth, color = header[:4]
     want = sum(h * (_stride(w, depth, color) + 1) for *_, w, h in _passes(header))
-    if raw.size != want:
-        raise ValueError(f"PNG image data holds {raw.size} bytes, expected "
-                         f"{want} for {width}x{height}")
-    return header, palette, raw
+    if size == want:
+        return None
+    return ValueError(f"PNG image data holds {size} bytes, expected {want} for {width}x{height}")
+
+
+def _inflate(data: bytes) -> tuple:
+    """:func:`_read_chunks` with the inflated bytes as a uint8 array,
+    refused unless their size is the header's."""
+    header, palette, raw = _read_chunks(data)
+    error = _size_error(header, len(raw))
+    if error is not None:
+        raise error
+    return header, palette, np.frombuffer(raw, dtype=np.uint8)
 
 
 def _samples(rows: np.ndarray, width: int, depth: int, samples: int) -> np.ndarray:
@@ -288,10 +316,83 @@ def _unfilter(header: tuple, palette: Optional[np.ndarray], raw: np.ndarray) -> 
     return image[..., 0] if kept == 1 else image
 
 
+def decode_png_plain(data: bytes) -> np.ndarray:
+    r"""The plain version of :func:`decode_png`: the same contract in
+    ``zlib`` and numpy alone (the wavefront unfilter). The tests and
+    ``chip_smoke.py`` hold the library against it; no loader calls it."""
+    return _unfilter(*_inflate(data))
+
+
+# --------------------------------------------------------------------------- #
+# The host library (``csrc/frameio.cpp``), built at first use
+# --------------------------------------------------------------------------- #
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+# the library's refusals (csrc/frameio.cpp)
+_BAD_FILTER, _BAD_SIZE, _EMPTY = -1, -2, -4
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the frame decoder's library
+    (``csrc/frameio.cpp``, with the host's C++ compiler into
+    ``gradslam_torch/_build/``); declare its entry points' types. A missing
+    compiler or a failed build raises ``RuntimeError`` with the compiler's
+    output."""
+    from ..ops._build import build_host_library
+
+    lib = ctypes.CDLL(str(build_host_library("gradslam_frameio", [_CSRC / "frameio.cpp"])))
+    ci, i64, vp, cp = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_char_p
+    png = [cp, i64, i64, i64, ci, ci, ci, cp, ci]  # inflated rows, IHDR fields, PLTE
+    lib.gradslam_png_decode.argtypes = png + [vp, vp]
+    lib.gradslam_png_color.argtypes = png + [ci, ci, ci, vp, vp]
+    lib.gradslam_png_depth.argtypes = png + [ci, ci, ctypes.c_float, vp, vp]
+    for fn in (lib.gradslam_png_decode, lib.gradslam_png_color, lib.gradslam_png_depth):
+        fn.restype = ci
+    lib.gradslam_resize_color.argtypes = [vp, i64, i64, ci, ci, ci, ci, vp]
+    lib.gradslam_resize_depth.argtypes = [vp, ci, i64, i64, ci, ci, ctypes.c_float, vp]
+    lib.gradslam_resize_color.restype = lib.gradslam_resize_depth.restype = None
+    return lib
+
+
+def _png_call(entry, data: bytes, new_out, *args) -> np.ndarray:
+    """Parse and inflate PNG ``data`` here, then decode it with the library's
+    ``entry`` into ``new_out(header)``'s array (``args`` go between the PNG
+    fields and the array) and return the array; raises as
+    :func:`decode_png_plain` raises."""
+    header, palette, raw = _read_chunks(data)
+    width, height, depth, color, _, _, interlace = header
+    out = new_out(header)
+    pal = b"" if palette is None else palette.tobytes()
+    info = (ctypes.c_int64 * 1)()
+    code = entry(raw, len(raw), width, height, depth, color, interlace, pal, len(pal) // 3,
+                 *args, out.ctypes.data, info)
+    if code == _BAD_FILTER:
+        raise ValueError(f"bad PNG row filter type {info[0]}")
+    if code == _BAD_SIZE:
+        raise _size_error(header, len(raw))
+    if code == _EMPTY:
+        raise ValueError(f"PNG image is empty ({width}x{height}): nothing to resize")
+    if code != 0:
+        raise ValueError(f"the frame decoder refused PNG header {header} (code {code})")
+    return out
+
+
+def _samples_out(header: tuple) -> np.ndarray:
+    """The decoded image's array: ``(H, W)`` or ``(H, W, 3)``, uint8 or
+    uint16."""
+    width, height, depth, color = header[:4]
+    kept = _COLOR_TYPES[color][1]
+    return np.empty((height, width) if kept == 1 else (height, width, kept),
+                    dtype=np.uint16 if depth == 16 else np.uint8)
+
+
 def decode_png(data: bytes) -> np.ndarray:
     r"""Decode PNG bytes to ``(H, W)`` (grey) or ``(H, W, 3)`` (colour)
-    ``uint8``/``uint16`` samples, the alpha channel stripped."""
-    return _unfilter(*_inflate(data))
+    ``uint8``/``uint16`` samples, the alpha channel stripped: the chunks
+    checked and the image data inflated here, the rows unfiltered by the
+    library."""
+    return _png_call(load_library().gradslam_png_decode, data, _samples_out)
 
 
 def read_png(path: str) -> np.ndarray:
@@ -395,22 +496,15 @@ _DECODE_ERRORS = (OSError, ValueError, EOFError, struct.error, zlib.error)
 
 
 def is_available() -> bool:
-    """True: the port's loader needs no native library (the JAX package's
-    needs ``native/libframeio.so`` built)."""
-    return True
-
-
-def _decode_frame_file(path: str) -> Optional[np.ndarray]:
-    """A frame file's samples as ``libframeio`` decodes it, or None where
-    decoding fails: JPEG (a ``.jpg``/``.jpeg`` suffix, any case) through
-    Pillow, anything else as PNG."""
+    """True when the frame decoder's library is built and loads. It is built
+    here at first use, so this may take the compiler's few seconds; a
+    missing compiler or a failed build gives False (and
+    :func:`load_library` the compiler's output)."""
     try:
-        if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg"):
-            return read_image(path)
-        with open(path, "rb") as f:
-            return decode_png(f.read())
-    except _DECODE_ERRORS:
-        return None
+        load_library()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def _f32(x) -> np.float32:
@@ -481,48 +575,73 @@ def _depth_arithmetic(image: np.ndarray, height: int, width: int,
     return values * (_f32(1.0) / _f32(depth_scale))
 
 
+def _resized(path: str, shape: tuple, color: bool, arg) -> Optional[np.ndarray]:
+    """Frame file ``path`` decoded and resized by the library to a new
+    float32 array of ``shape``, or None where decoding fails: PNG in one
+    library call (colour: ``arg`` is ``normalize``; depth: the depth scale),
+    JPEG (a ``.jpg``/``.jpeg`` suffix, any case) decoded by Pillow and its
+    samples resized by the library. A library that cannot be built raises."""
+    lib = load_library()
+    H, W = shape[:2]
+    arg = int(arg) if color else float(arg)
+    try:
+        if os.path.splitext(path)[1].lower() not in (".jpg", ".jpeg"):
+            with open(path, "rb") as f:
+                data = f.read()
+            entry = lib.gradslam_png_color if color else lib.gradslam_png_depth
+            return _png_call(entry, data, lambda header: np.empty(shape, dtype=np.float32),
+                             H, W, arg)
+        image = np.asarray(read_image(path))
+        h, w = image.shape[:2]
+        if h < 1 or w < 1:
+            return None
+        is16 = image.dtype == np.uint16
+        data = np.ascontiguousarray(image, dtype="<u2" if is16 else np.uint8)
+        out = np.empty(shape, dtype=np.float32)
+        if color:
+            ch = 1 if image.ndim == 2 else image.shape[2]
+            lib.gradslam_resize_color(data.ctypes.data, h, w, ch, H, W, arg, out.ctypes.data)
+        else:
+            lib.gradslam_resize_depth(data.ctypes.data, int(is16), h, w, H, W, arg,
+                                      out.ctypes.data)
+        return out
+    except _DECODE_ERRORS:
+        return None
+
+
 def decode_color(path: str, height: int, width: int,
                  normalize: bool = False) -> Optional[np.ndarray]:
     """Decode and bilinear-resize a PNG/JPEG colour image to ``(H, W, 3)``
-    float32 with ``libframeio``'s arithmetic (:func:`_color_arithmetic`);
-    None when decoding fails."""
-    image = _decode_frame_file(path)
-    return None if image is None else _color_arithmetic(image, height, width, normalize)
+    float32 with ``libframeio``'s arithmetic, in the library
+    (:func:`_color_arithmetic` is its plain version); None when decoding
+    fails."""
+    return _resized(path, (height, width, 3), True, normalize)
 
 
 def decode_depth(path: str, height: int, width: int,
                  depth_scale: float) -> Optional[np.ndarray]:
     """Decode and nearest-resize a 16-bit (or 8-bit) depth image to ``(H,
-    W)`` float32 metres with ``libframeio``'s arithmetic
-    (:func:`_depth_arithmetic`); None when decoding fails."""
-    image = _decode_frame_file(path)
-    return None if image is None else _depth_arithmetic(image, height, width, depth_scale)
+    W)`` float32 metres with ``libframeio``'s arithmetic, in the library
+    (:func:`_depth_arithmetic` is its plain version); None when decoding
+    fails."""
+    return _resized(path, (height, width), False, depth_scale)
 
 
 def _decode_frame(color_path: str, depth_path: str, height: int, width: int,
                   depth_scale: float, normalize: bool):
-    """One frame on a worker: ``(rgb, depth)``, or None if either file
-    fails to decode."""
+    """One frame on a loader thread: ``(rgb, depth)``, or None if either
+    file fails to decode."""
     rgb = decode_color(color_path, height, width, normalize)
     depth = decode_depth(depth_path, height, width, depth_scale)
     return None if rgb is None or depth is None else (rgb, depth)
 
 
-def _pool_context():
-    """The worker processes' start method: a ``forkserver`` that has
-    imported this module once, so a worker starts without importing torch
-    and without forking a process that may hold CUDA state."""
-    import multiprocessing
-
-    ctx = multiprocessing.get_context("forkserver")
-    ctx.set_forkserver_preload([__name__])
-    return ctx
-
-
 class FrameLoader:
-    r"""Prefetching frame loader over a pool of ``num_threads`` worker
-    processes (the name is the JAX package's, whose native loader runs
-    threads).
+    r"""Prefetching frame loader over a pool of ``num_threads`` threads, as
+    the JAX package's native loader (4 by default). Each thread reads a
+    file, inflates it with ``zlib`` and decodes and resizes it in one call
+    into the library; all three release the interpreter lock, so the
+    threads decode in parallel. It starts no process.
 
     Example::
 
@@ -542,13 +661,14 @@ class FrameLoader:
     ):
         import concurrent.futures
 
+        load_library()  # a library that cannot be built raises here
         self.height = height
         self.width = width
         self.depth_scale = float(depth_scale)
         self.normalize_color = bool(normalize_color)
         self._futures = {}
-        self._pool = concurrent.futures.ProcessPoolExecutor(
-            max_workers=num_threads if num_threads > 0 else 4, mp_context=_pool_context())
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=num_threads if num_threads > 0 else 4, thread_name_prefix="frameio")
 
     def submit(self, index: int, color_path: str, depth_path: str):
         """Queue one frame (color+depth paths) for background decoding."""
@@ -575,7 +695,8 @@ class FrameLoader:
         return result
 
     def close(self):
-        """Shut the worker processes down; safe to call more than once."""
+        """Stop the threads (queued frames are dropped); safe to call more
+        than once."""
         pool, self._pool = getattr(self, "_pool", None), None
         if pool is not None:
             pool.shutdown(wait=True, cancel_futures=True)

@@ -10,7 +10,9 @@ colour and depth, normalized or not. JPEG: the port decodes through
 Pillow, the library through libjpeg; both decode with the same defaults
 here and the frames are equal too (the gap measured is 0)."""
 
+import concurrent.futures
 import ctypes
+import multiprocessing
 import os
 import subprocess
 
@@ -172,14 +174,13 @@ def test_decode_failures_return_none(jax_native, tmp_path):
 def test_frame_loader_equals_the_library_loader(jax_native, frames_480):
     """Out-of-order fetches equal the library's loader and the one-shot
     decoders; a failed frame raises ``IOError``; ``close`` twice is safe;
-    the workers are forkserver processes (never forked from a process that
-    may hold CUDA state)."""
+    the loader decodes on threads and starts no process."""
     colors = [frames_480["rgb"], frames_480["grey"], frames_480["rgb"], frames_480["rgb16"]]
     depths = [frames_480["depth16"], frames_480["depth8"], frames_480["depth16"],
               frames_480["depth16"]]
     ours = frameio.FrameLoader(240, 320, 5000.0, normalize_color=True, num_threads=3)
     theirs = jax_native.FrameLoader(240, 320, 5000.0, normalize_color=True, num_threads=3)
-    assert ours._pool._mp_context.get_start_method() == "forkserver"
+    assert isinstance(ours._pool, concurrent.futures.ThreadPoolExecutor)
     ours.submit_sequence(colors, depths)
     theirs.submit_sequence(colors, depths)
     ours.submit(9, frames_480["rgb"], frames_480["rgb"] + ".missing")
@@ -200,6 +201,7 @@ def test_frame_loader_equals_the_library_loader(jax_native, frames_480):
     theirs.close()
     with pytest.raises(RuntimeError, match="closed"):
         ours.submit(0, colors[0], depths[0])
+    assert multiprocessing.active_children() == []
 
 
 def _write_tum(root, n, h, w, seed):
