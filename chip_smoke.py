@@ -71,6 +71,27 @@ Phases (each raises on failure; nothing is caught):
     twice the JAX package's CPU run of the same configuration
     (``tests/port/data/icpslam_320x240_jax_cpu.npz``); then profile one flat
     run;
+11b. the graph phase (``graph_phase``, PR 13): ``use_jit`` on the card.
+    Tracked ``PointFusion(odom='gradicp', dsratio=4, numiters=10)``, gt and
+    the production recipe at 640x480x30, ICPSLAM flat and window + pyramid
+    at 320x240x30 and the tracked ``step`` loop (constant velocity, at
+    ``ONLINE_CAP``), each with ``use_jit=False`` and then ``use_jit=True``
+    on the same frames, a fresh pipeline each: a first call (with the
+    warm-ups under ``torch.cuda.set_sync_debug_mode("error")`` and the
+    captures) and a steady-state call, both kernels' launches counted from 0
+    in each and held to the path's counts; poses and map SHA-256-equal
+    between the modes and the calls; ``last_call_captured`` equal to
+    ``use_jit``; the first call's result unchanged after later calls
+    replayed its graphs; frames/s of both calls, device busy share and
+    events (a device-only profile), capture seconds, graphs and peak memory
+    of each mode. A gradient row and an armed row run eagerly
+    (``last_call_captured`` False), and one 1-NN call (three kernels) is
+    captured, replayed after other allocations and on new points, and held
+    bit for bit to its eager call. Every other phase runs its pipelines
+    with the default ``use_jit=True`` (captured where unarmed and
+    gradient-free), except the armed rows and the semantic rows, which
+    spy on each kernel call or read back inside a frame and so run with
+    ``use_jit=False``;
 12. the differentiability slice: gradients of ``sum(points^2)`` of the map
     to the depth images and the intrinsics (``scripts/bench_all.py:682-840``).
     (a) On a B=2 64x48x4 clip, gt sort_full, gt windowed + scatter, gradICP
@@ -1514,14 +1535,19 @@ def device_busy_s(prof) -> float:
     twice."""
     from torch.autograd import DeviceType
 
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for start, stop in spans:
+    return union_s([(e.time_range.start, e.time_range.end) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA], 1e-6)
+
+
+def union_s(spans, unit_s: float) -> float:
+    """Seconds covered by the union of ``(start, stop)`` spans given in
+    units of ``unit_s`` seconds."""
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted(spans):
         if stop > end:
-            busy_us += stop - max(start, end)
+            busy += stop - max(start, end)
             end = stop
-    return busy_us / 1e6
+    return busy * unit_s
 
 
 def check_profile(tag: str, busy: float, events: int) -> None:
@@ -2293,8 +2319,12 @@ def device_events(run) -> tuple:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    busy = device_busy_s(prof)
-    events = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    # the raw trace: the profiler's own parse into a tree of events takes
+    # seconds a run at 100,000 events
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    busy, events = union_s(spans, 1e-9), len(spans)
     check_profile("device_events", busy, events)
     return busy, events
 
@@ -2331,7 +2361,9 @@ def armed_phase(frames) -> dict:
     next to each other."""
     shape = (B, L, H, W)
     names = (*ARMED_ROWS, "unarmed_read_back")
-    slams = {name: PointFusion(**ARMED_BASE, **ARMED_ROWS.get(name, {})) for name in names}
+    # all eager: the armed rows are, and the read back would break a capture
+    slams = {name: PointFusion(**ARMED_BASE, **ARMED_ROWS.get(name, {}), use_jit=False)
+             for name in names}
 
     def run(name, counted):
         slam = slams[name]
@@ -2583,7 +2615,8 @@ def semantic_row(name: str, golden) -> dict:
     cls, shape, kw = SEMANTIC_ROWS[name]
     plain, sem, P = semantic_frames(shape)
     frames = {0: plain, SEM_F: sem}
-    slams = {nf: globals()[cls](**kw, feature_channels=nf) for nf in frames}
+    # eager: the spies below read each call's inputs, which a replay skips
+    slams = {nf: globals()[cls](**kw, feature_channels=nf, use_jit=False) for nf in frames}
     for nf, slam in slams.items():
         slam(frames[nf])
     runs, secs, peaks = {}, {0: [], SEM_F: []}, {0: 0, SEM_F: 0}
@@ -4067,6 +4100,159 @@ def loader_phase() -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# use_jit (PR 13): each path run with use_jit=False (eager) and use_jit=True
+# (each frame's body replayed from its CUDA graph) on the same frames:
+# path -> (pipeline, constructor arguments, clip, launches a run). The step
+# loop is the online tracked row at ONLINE_CAP (constant velocity).
+GRAPH_PATHS = {
+    "tracked": ("PointFusion", dict(odom="gradicp", dsratio=DSRATIO, numiters=NUMITERS,
+                                    map_capacity=SCHEDULE), "easy",
+                {"knn": KNN_LAUNCHES_PER_RUN, "scatter": SCATTER_LAUNCHES["tracked_easy"]}),
+    "gt": ("PointFusion", dict(odom="gt", map_capacity=SCHEDULE), "easy",
+           {"knn": 0, "scatter": SCATTER_LAUNCHES["gt_easy"]}),
+    "production": ("PointFusion", PRODUCTION, "hard",
+                   {"knn": PROD_LAUNCHES_PER_RUN, "scatter": SCATTER_LAUNCHES["production_hard"]}),
+    "icpslam_flat": ("ICPSLAM", dict(ICPSLAM_CONFIGS["flat"], map_capacity=ICP_SCHEDULE), "icp",
+                     {"knn": ICP_KNN_LAUNCHES["flat"], "scatter": SCATTER_LAUNCHES["icpslam_flat"]}),
+    "icpslam_window_pyramid": (
+        "ICPSLAM", dict(ICPSLAM_CONFIGS["window_pyramid"], map_capacity=ICP_SCHEDULE), "icp",
+        {"knn": ICP_KNN_LAUNCHES["window_pyramid"],
+         "scatter": SCATTER_LAUNCHES["icpslam_window_pyramid"]}),
+    "step_tracked": ("PointFusion", dict(ONLINE_ROWS["tracked"], map_capacity=ONLINE_CAP), "easy",
+                     {"knn": KNN_LAUNCHES_PER_RUN, "scatter": SCATTER_LAUNCHES["tracked_easy"]}),
+}
+GRAPH_ROWS = {}  # path -> {"eager" | "jit": its measurements}
+
+
+def knn_graph_check(src, tgt, mask) -> None:
+    """One 1-NN call (its three kernels from one C call) captured in a CUDA
+    graph and replayed: the replay rewrites both outputs (set to all-ones
+    bits first) with the eager call's bits, also after 64 MB of other
+    allocations churned the caching allocator (the scratch the call took
+    inside the capture lives in the graph's pool, which nothing else takes),
+    and a replay after new points are copied into the captured inputs gives
+    the eager call's bits on the new points."""
+    src, tgt, mask = src.clone(), tgt.clone(), mask.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as for capture
+        knn_cuda.nn_points_cuda(src, tgt, mask)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        d, i = knn_cuda.nn_points_cuda(src, tgt, mask)
+    churn = torch.full((16 * 2**20,), float("nan"), device=src.device)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    for step in ("capture", "new points"):
+        if step == "new points":
+            src.copy_(src.flip(1) + 0.01 * torch.randn(src.shape, generator=g).to(src.device))
+            tgt.copy_(tgt + 0.01 * torch.randn(tgt.shape, generator=g).to(tgt.device))
+        d.view(torch.int32).fill_(-1)
+        i.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        de, ie = knn_cuda.nn_points_cuda(src, tgt, mask)
+        if not (torch.equal(d.view(torch.int32), de.view(torch.int32)) and torch.equal(i, ie)):
+            raise AssertionError(f"knn graph: replay ({step}) differs from the eager call")
+    del churn
+    log(f"knn graph {tuple(src.shape)} against {tuple(tgt.shape)}: one captured call (three "
+        "kernels), replayed twice (the second on new points), gives the eager call's bits")
+
+
+def graph_phase(clips: dict) -> None:
+    """use_jit on the card: each GRAPH_PATHS path run with use_jit=False and
+    then use_jit=True on the same frames, a fresh pipeline each: the first
+    call (for use_jit=True the warm-up frames, run under the sync debug
+    mode "error", and the captures) and a steady-state call, each with both
+    kernels' counts set to 0 just before it and held against the path's
+    launches; then a device-only profile. Holds the map and poses SHA-256-
+    equal between the modes and between calls, ``last_call_captured`` equal
+    to ``use_jit``, and the first call's result (held by the caller)
+    unchanged after the later calls replayed its graphs. Then a gradient
+    row and an armed row run eagerly, and one 1-NN call captured and
+    replayed against its eager call."""
+    for name, (cls, kw, clip, expect) in GRAPH_PATHS.items():
+        t_path = time.perf_counter()
+        frames = clips[clip]
+        rows = {}
+        for mode, use_jit in (("eager", False), ("jit", True)):
+            slam = globals()[cls](use_jit=use_jit, **kw)
+            if name == "step_tracked":
+                def run(slam=slam):
+                    return step_loop(slam, frames, cv=True)
+            else:
+                def run(slam=slam):
+                    return slam(frames)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()  # held by earlier phases' pipelines
+            secs, digests = [], []
+            for call in ("first", "steady"):
+                knn_cuda.launches = 0
+                scatter_cuda.launches = 0
+                t0 = time.perf_counter()
+                pc, poses = run()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                got = {"knn": knn_cuda.launches, "scatter": scatter_cuda.launches}
+                LAUNCHES[f"graph_{name}_{mode}"] = got
+                if got != expect:
+                    raise AssertionError(f"graph {name} {mode} ({call} call): launches {got}, "
+                                         f"expected {expect}")
+                if slam.last_call_captured != use_jit:
+                    raise AssertionError(f"graph {name} {mode}: last_call_captured "
+                                         f"{slam.last_call_captured} ({slam.last_eager_reason})")
+                digests.append(map_digest(pc, poses))
+                if call == "first":
+                    held = (pc, poses)
+            peak = torch.cuda.max_memory_allocated() - base
+            busy, events = device_events(run)
+            if map_digest(*held) != digests[0]:
+                raise AssertionError(f"graph {name} {mode}: the first call's result changed "
+                                     "when later calls replayed its graphs")
+            n_graphs = len(getattr(slam, "frame_graphs", ()))
+            rows[mode] = dict(first_s=secs[0], steady_s=secs[1], busy_s=busy, events=events,
+                              peak_b=peak, digests=digests, graphs=n_graphs,
+                              capture_s=slam.frame_graphs.capture_s, count=int(pc.num_points[0]))
+            del slam, run, pc, poses, held
+        if len({*rows["eager"]["digests"], *rows["jit"]["digests"]}) != 1:
+            raise AssertionError(f"graph {name}: map or poses differ between the modes or calls: "
+                                 f"{ {m: r['digests'] for m, r in rows.items()} }")
+        if rows["eager"]["graphs"] != 0 or rows["jit"]["graphs"] < 1:
+            raise AssertionError(f"graph {name}: graphs {rows['eager']['graphs']} eager, "
+                                 f"{rows['jit']['graphs']} jit")
+        GRAPH_ROWS[name] = rows
+        _, L_, H_, W_ = frames.shape
+        log(f"graph {name} {W_}x{H_}x{L_}: SHA-256-equal eager and captured "
+            f"({rows['jit']['digests'][0][:16]}, map {rows['jit']['count']}), launches {expect} "
+            "in every call, the held result unchanged; " + "; ".join(
+                f"{mode}: first {L_ / r['first_s']:.4f} frames/s ({r['first_s']:.4f} s), steady "
+                f"{L_ / r['steady_s']:.4f} frames/s ({r['steady_s']:.4f} s), device busy "
+                f"{r['busy_s']:.4f} s ({100 * r['busy_s'] / r['steady_s']:.1f}% of the steady "
+                f"call), {r['events']} device events, {r['graphs']} graphs captured in "
+                f"{r['capture_s']:.4f} s, peak {r['peak_b']} B above the memory allocated before "
+                f"the first call" for mode, r in rows.items())
+            + f"; {time.perf_counter() - t_path:.2f} s for the path's checks")
+
+    # a gradient row and an armed row stay eager
+    rgb, depth, K, P = synthetic_sequence(1, 4, 120, 160, seed=0)
+    small = rgbdimages_from_numpy(rgb, depth, K, P, device="cuda")
+    d = small.depth_image.clone().requires_grad_()
+    grad_slam = PointFusion(odom="gt")
+    pc, _ = grad_slam(RGBDImages(small.rgb_image, d, small.intrinsics, small.poses))
+    pc.points.sum().backward()
+    armed = PointFusion(**dict(ARMED_BASE, map_capacity=4 * 120 * 160), relocalize_below=0.2)
+    armed(small)
+    for tag, slam in (("gradient", grad_slam), ("armed", armed)):
+        if slam.last_call_captured or len(slam.frame_graphs):
+            raise AssertionError(f"graph {tag} row: captured ({len(slam.frame_graphs)} graphs)")
+    if not bool(torch.isfinite(d.grad).all()):
+        raise AssertionError("graph gradient row: non-finite gradient")
+    log(f"graph: the gradient row ran eagerly ({grad_slam.last_eager_reason}), the armed row "
+        f"too ({armed.last_eager_reason})")
+    knn_graph_check(*level_pair(clips["easy"], DSRATIO))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4133,6 +4319,10 @@ def main() -> int:
     icp_frames, icp_runs = icpslam_phase()
     flat_slam, flat_secs = icp_runs["flat"]
     profile_run(lambda: flat_slam(icp_frames), "icpslam flat", flat_secs)
+
+    t0 = time.perf_counter()
+    graph_phase({"easy": frames, "hard": hard_frames, "icp": icp_frames})
+    log(f"graph phase: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     knn_new, knn_err, scatter_new = recovery_phase(frames)

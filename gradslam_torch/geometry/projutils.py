@@ -47,10 +47,14 @@ def _zdiv(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return x / torch.where(z == 0, torch.ones_like(z), z)
 
 
-def project_points(cam_coords: torch.Tensor, proj_mat: torch.Tensor) -> torch.Tensor:
+def project_points(
+    cam_coords: torch.Tensor, proj_mat: torch.Tensor, eps: float = 1e-6
+) -> torch.Tensor:
     r"""Project camera-frame points ``(*, 3)`` (or homogeneous ``(*, 4)``)
     through ``(4, 4)`` or batched ``(B, 4, 4)`` matrices to pixel
-    coordinates ``(*, 2)`` = ``(u, v)``, with the z == 0 divide guard."""
+    coordinates ``(*, 2)`` = ``(u, v)``, with the z == 0 divide guard.
+    ``eps`` is accepted as in the JAX signature; there too the guard tests
+    z == 0 exactly and ``eps`` changes nothing."""
     if cam_coords.ndim < 2:
         raise ValueError(
             f"Input cam_coords must have at least 2 dims. Got {cam_coords.ndim}."

@@ -260,7 +260,9 @@ class MapShardedPointFusion:
             sized so even a maximally imbalanced shard fits its actives; the
             K ranks therefore hold up to K times the single-device window).
         motion_model: ``'static'`` (default) or ``'constant_velocity'``.
-        use_jit: accepted and ignored (eager PyTorch compiles nothing).
+        use_jit: accepted as in the JAX constructor; this pipeline runs
+            eagerly whatever its value (its collectives are not captured in
+            CUDA graphs), and ``last_call_captured`` stays False.
         dist_th / angle_th / sigma and the solver parameters match
             :class:`gradslam_torch.PointFusion` defaults.
     """
@@ -301,6 +303,9 @@ class MapShardedPointFusion:
         prune_min_confidence: float = 1.5,
         use_jit: bool = True,
     ):
+        self.use_jit = bool(use_jit)
+        self.last_call_captured = False
+        self.last_eager_reason = "map-sharded: collectives run eagerly"
         if odom not in ("gt", "icp", "gradicp"):
             raise ValueError(f"Odometry method ({odom}) not supported.")
         if isinstance(odom_assoc, (list, tuple)):

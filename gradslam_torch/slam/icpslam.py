@@ -17,7 +17,11 @@ per-frame body.
 
 The JAX ``lax.scan`` over frames is a Python loop here. The capacity
 schedule is static and host-side. An unarmed pipeline reads nothing back
-from the device inside the frame or solver loops. Armed
+from the device inside the frame or solver loops, so with ``use_jit`` (the
+default, as in JAX) its frame body runs on the card as a CUDA graph,
+captured once for each capacity segment and replayed for each frame
+(:mod:`gradslam_torch.utils.graphs`), as ``jax.jit`` compiles the scan body
+once. Armed
 (``relocalize_below > 0``), each tracked frame reads one value back to
 decide the JAX ``lax.cond`` as a Python ``if``: whether any sequence is
 unhealthy; with ``anchor_every`` also whether any is drifting, one more
@@ -31,6 +35,7 @@ so takes the same branches.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import warnings
 from typing import Optional, Tuple
@@ -55,6 +60,7 @@ from ..odometry.icputils import (
 from ..odometry.projective import ProjectiveOdometryProvider, pack_frame_geom
 from ..structures.pointclouds import Pointclouds, compact_masked, gather_rows
 from ..structures.rgbdimages import RGBDImages
+from ..utils.graphs import FrameGraphs, clone_tree, eager_reason_for
 from ..utils.precision import disable_tf32
 from .fusionutils import find_active_map_points, prune_map, update_map_aggregate
 from .health import (
@@ -146,8 +152,31 @@ class ICPSLAM(nn.Module):
             frames must carry exactly this many.
         normal_pitch: finite-difference baseline of the frames' normal maps
             (None keeps the frames' own).
-        use_jit: accepted for the JAX constructor's signature; eager
-            PyTorch has nothing to compile, so it has no effect.
+        use_jit: run each frame's body as a CUDA graph, the counterpart of
+            the JAX package's jitted scan body: ``forward``'s frame body
+            (the map update for ``odom='gt'``, the tracked frame otherwise:
+            prediction, localization, map update and motion), ``step``,
+            ``localize`` and ``map_update`` are captured once for each key
+            (the path, its options, and the shapes, dtypes and device of its
+            inputs: one graph for each capacity segment) in
+            ``frame_graphs`` (:class:`~gradslam_torch.utils.graphs.
+            FrameGraphs`) and replayed for every later frame; frame 0's
+            bootstrap, the prune between segments and ``step``'s one read
+            back of the map count stay eager. A replay gives the eager bits,
+            and the kernels' launch counters read the same. After each call
+            ``last_call_captured`` says whether it ran so and
+            ``last_eager_reason`` why not. These run eagerly:
+
+            - ``use_jit=False``;
+            - inputs on the CPU: there is no graph to capture;
+            - gradients (grad mode with an input that requires grad, with
+              or without ``remat``): autograd records the eager ops;
+            - armed recovery (``relocalize_below > 0``): its reads back
+              decide Python branches inside the frame.
+
+            The map-sharded pipeline runs eagerly too
+            (:class:`~gradslam_torch.parallel.MapShardedPointFusion`: its
+            collectives are not captured).
         remat: recompute each frame's activations in the backward instead
             of keeping them (per-frame checkpointing, as ``jax.checkpoint``
             of the JAX scan body): the gt body is one frame's map update,
@@ -343,6 +372,10 @@ class ICPSLAM(nn.Module):
         self.feature_channels = feature_channels
         self.normal_pitch = normal_pitch
         self.remat = bool(remat)
+        self.use_jit = bool(use_jit)
+        self.frame_graphs = FrameGraphs()
+        self.last_call_captured = False
+        self.last_eager_reason = None
         # the finest level's association decides the health statistic's
         self._finest_assoc = levels[-1]
         self.relocalize_below = float(relocalize_below)
@@ -671,6 +704,13 @@ class ICPSLAM(nn.Module):
     # ------------------------------------------------------------------ #
     # Forward
     # ------------------------------------------------------------------ #
+    def _plan(self, *trees, armed: bool = False) -> bool:
+        """Whether this call runs as CUDA graphs (``use_jit``); records the
+        answer in ``last_call_captured`` and ``last_eager_reason``."""
+        reason = eager_reason_for(self.use_jit, *trees, armed=armed)
+        self.last_call_captured, self.last_eager_reason = reason is None, reason
+        return reason is None
+
     def _frame(self, body, *args):
         """One frame's ``body(*args)``, under per-frame checkpointing when
         ``remat`` is set. Non-reentrant: the body takes and returns
@@ -738,6 +778,20 @@ class ICPSLAM(nn.Module):
                 for new, old in zip(self._anchor_snapshot(live), anchor))
         return map_pc, pose[:, 0], prev_delta, anchor, events
 
+    def _track_unarmed(self, cv: bool, map_pc: Pointclouds, prev_pose: torch.Tensor,
+                       prev_delta: Optional[torch.Tensor], frame: RGBDImages):
+        """The unarmed tracked frame a graph captures: ``(map, pose,
+        motion)`` of :meth:`_track`."""
+        map_pc, pose, prev_delta, _, _ = self._track(
+            map_pc, prev_pose, prev_delta, None, 0, frame, cv, False)
+        return map_pc, pose, prev_delta
+
+    def _localize_step(self, map_pc: Pointclouds, live: RGBDImages, prev_pose: torch.Tensor,
+                       prev_transform: Optional[torch.Tensor]) -> torch.Tensor:
+        """:meth:`localize`'s body: predict, then solve unarmed."""
+        pred = prev_pose if prev_transform is None else self._predict(prev_pose, prev_transform)
+        return self._solve(map_pc, live.with_poses(pred[:, None]), None, False)[0]
+
     @staticmethod
     def _predict(prev_pose: torch.Tensor, prev_delta: torch.Tensor) -> torch.Tensor:
         """The constant-velocity prediction ``prev_delta @ prev_pose``,
@@ -771,6 +825,10 @@ class ICPSLAM(nn.Module):
         :meth:`forward`. A step runs no recovery branch and no
         ``prune_every`` (there is no frame counter): a step loop calls
         :func:`~gradslam_torch.slam.fusionutils.prune_map` itself.
+
+        With ``use_jit`` on the card the step replays the CUDA graph of its
+        key (the map update, or the tracked frame); the result is a copy
+        that later steps leave alone.
         """
         if not isinstance(live_frame, RGBDImages):
             raise TypeError(
@@ -786,6 +844,8 @@ class ICPSLAM(nn.Module):
         _check_prev_transform(prev_transform, live_frame)
         self._check_features(live_frame, "live_frame carries")
         live_frame = self._with_normal_pitch(live_frame.to_channels_last())
+        prev_pose = None if prev_frame is None else prev_frame.poses
+        captured = self._plan(pointclouds, live_frame, prev_pose, prev_transform)
         if prev_frame is None or self.odom == "gt":
             if prev_frame is None and self.odom != "gt":
                 # frame 0's bootstrap passes no prev_frame into an empty map;
@@ -798,11 +858,17 @@ class ICPSLAM(nn.Module):
                         "step() to enable tracking.", stacklevel=2)
             elif prev_frame is not None:
                 warnings.warn("`prev_frame` is not used when `odom='gt'`.", stacklevel=2)
+            if captured:
+                return (clone_tree(self.frame_graphs("map", self._map, (pointclouds, live_frame))),
+                        live_frame.poses)
             return self._frame(self._map, pointclouds, live_frame), live_frame.poses
         cv = prev_transform is not None
-        map_pc, pose, _, _, _ = self._frame(
-            self._track, pointclouds, prev_frame.poses[:, 0], prev_transform, None, 0,
-            live_frame, cv, False)
+        args = (pointclouds, prev_frame.poses[:, 0], prev_transform, live_frame)
+        if captured:
+            map_pc, pose, _ = clone_tree(self.frame_graphs(
+                "track", functools.partial(self._track_unarmed, cv), args, (cv,)))
+        else:
+            map_pc, pose, _ = self._frame(functools.partial(self._track_unarmed, cv), *args)
         return map_pc, pose[:, None]
 
     def localize(
@@ -838,11 +904,10 @@ class ICPSLAM(nn.Module):
             raise ValueError("`prev_frame` should have poses, but did not.")
         _check_prev_transform(prev_transform, live_frame)
         live = self._with_normal_pitch(live_frame.to_channels_last())
-        pred = prev_frame.poses[:, 0]
-        if prev_transform is not None:
-            pred = self._predict(pred, prev_transform)
-        pose, _, _, _ = self._solve(pointclouds, live.with_poses(pred[:, None]), None, False)
-        return pose
+        args = (pointclouds, live, prev_frame.poses[:, 0], prev_transform)
+        if self._plan(*args):
+            return self.frame_graphs("localize", self._localize_step, args).clone()
+        return self._localize_step(*args)
 
     def map_update(self, pointclouds: Pointclouds, live_frame: RGBDImages) -> Pointclouds:
         r"""The map half of :meth:`step`: fuse ``live_frame`` at its own
@@ -852,11 +917,16 @@ class ICPSLAM(nn.Module):
                 f"Expected live_frame to be of type RGBDImages. Got {type(live_frame)}.")
         if live_frame.poses is None:
             raise ValueError("live_frame must carry poses to fuse at.")
-        return self._map(pointclouds, self._with_normal_pitch(live_frame.to_channels_last()))
+        live = self._with_normal_pitch(live_frame.to_channels_last())
+        if self._plan(pointclouds, live):
+            return clone_tree(self.frame_graphs("map", self._map, (pointclouds, live)))
+        return self._map(pointclouds, live)
 
     def forward(self, frames: RGBDImages) -> Tuple[Pointclouds, torch.Tensor]:
         r"""Run SLAM over a batch of sequences. Returns ``(pointclouds,
-        poses (B, L, 4, 4))``."""
+        poses (B, L, 4, 4))``. With ``use_jit`` on the card each frame
+        replays its capacity segment's CUDA graph; the results are copies
+        that later calls leave alone."""
         if not isinstance(frames, RGBDImages):
             raise TypeError(f"Expected frames to be of type RGBDImages. Got {type(frames)}.")
         if self.odom == "gt" and frames.poses is None:
@@ -866,6 +936,8 @@ class ICPSLAM(nn.Module):
         B, L, _, _ = frames.shape
         schedule = self._capacity_schedule(frames)
         map_pc = self.empty_map(B, schedule[0][1], device=frames.device, dtype=frames.dtype)
+        armed = self.relocalize_below > 0
+        captured = self._plan(frames, armed=armed)
 
         if self.odom == "gt":
             start = 0
@@ -873,11 +945,14 @@ class ICPSLAM(nn.Module):
                 map_pc = map_pc.with_capacity(cap_seg)
                 for sub_n, prune_after in split_prune_segments(start, n, self.prune_every):
                     for i in range(start, start + sub_n):
-                        map_pc = self._frame(self._map, map_pc, frames[:, i])
+                        if captured:
+                            map_pc = self.frame_graphs("map", self._map, (map_pc, frames[:, i]))
+                        else:
+                            map_pc = self._frame(self._map, map_pc, frames[:, i])
                     if prune_after:
                         map_pc = self._prune(map_pc)
                     start += sub_n
-            return map_pc, frames.poses
+            return (clone_tree(map_pc) if captured else map_pc), frames.poses
 
         # Tracked: bootstrap frame 0 at the provided (or identity) pose,
         # then track frame to map, each solve starting at the prediction.
@@ -890,17 +965,23 @@ class ICPSLAM(nn.Module):
         map_pc = self._map(map_pc, live0)
         if self.prune_every == 1:  # (0 + 1) % prune_every == 0 only then
             map_pc = self._prune(map_pc)
-        armed = self.relocalize_below > 0
         log = self.recovery_log = {"health": [], "relocalize": [], "anchor": []}
         prev_delta = torch.eye(4, dtype=frames.dtype, device=frames.device).expand(B, 4, 4)
         # the drift anchor starts from the (trusted) bootstrap frame
         anchor = self._anchor_snapshot(live0) if self.anchor_every > 0 else None
+        cv = self.motion_model == "constant_velocity"
+        track = functools.partial(self._track_unarmed, cv)
         start = 0  # tracked frames done; global frame = start + 1
         for i, (n, cap_seg) in enumerate(schedule):
             n_track = n - 1 if i == 0 else n  # frame 0 was mapped above
             map_pc = map_pc.with_capacity(cap_seg)
             for sub_n, prune_after in split_prune_segments(start + 1, n_track, self.prune_every):
                 for f in range(start + 1, start + 1 + sub_n):
+                    if captured:  # a replay's outputs are the graph's: keep a copy
+                        map_pc, prev_pose, prev_delta = self.frame_graphs(
+                            "track", track, (map_pc, prev_pose, prev_delta, frames[:, f]), (cv,))
+                        poses.append(prev_pose.clone())
+                        continue
                     map_pc, prev_pose, prev_delta, anchor, events = self._frame(
                         self._track, map_pc, prev_pose, prev_delta, anchor, f, frames[:, f])
                     poses.append(prev_pose)
@@ -912,4 +993,4 @@ class ICPSLAM(nn.Module):
                 if prune_after:
                     map_pc = self._prune(map_pc)
                 start += sub_n
-        return map_pc, torch.stack(poses, dim=1)
+        return (clone_tree(map_pc) if captured else map_pc), torch.stack(poses, dim=1)

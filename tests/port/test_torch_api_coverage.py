@@ -15,6 +15,13 @@ assigned or imported.
 
 ``ALLOWED`` is the only exception: what is deliberately not ported, each
 with why. What it lists is what is left of the port.
+
+The signatures too: each public function and method the JAX module defines
+with ``def`` is defined in the port module, and every parameter name of the
+JAX definition is a parameter of the port's (the port may add its own, such
+as ``device``); a JAX ``*args`` or ``**kwargs`` needs one in the port. A
+port ``**kwargs`` passes names through only where ``PASS_THROUGH`` names the
+definition that takes them.
 """
 
 import ast
@@ -47,6 +54,12 @@ ALLOWED = {
     "slam/icpslam.py": {
         "ICPSLAM.__call__": "inherited from torch.nn.Module, which calls forward()",
     },
+}
+
+
+# port definition with **kwargs -> (module, definition) its kwargs reach
+PASS_THROUGH = {
+    ("slam/pointfusion.py", "PointFusion.__init__"): ("slam/icpslam.py", "ICPSLAM.__init__"),
 }
 
 
@@ -147,3 +160,45 @@ def test_the_port_reports_the_jax_packages_version():
     (assign,) = [n for n in tree.body if isinstance(n, ast.Assign)]
     assert gradslam_torch.__version__ == ast.literal_eval(assign.value)
     assert "__version__" in gradslam_torch.__all__
+
+
+def definitions(path: Path) -> dict:
+    """The module's top-level functions and its classes' methods, as
+    ``Class.method``, each with its argument node."""
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = node.args
+        elif isinstance(node, ast.ClassDef):
+            out.update({f"{node.name}.{m.name}": m.args for m in node.body
+                        if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))})
+    return out
+
+
+def _names(args) -> set:
+    return {a.arg for a in args.posonlyargs + args.args + args.kwonlyargs}
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_every_public_jax_signature_is_accepted_by_the_port(module):
+    port = PORT_PKG / module
+    if "*" in ALLOWED.get(module, {}):
+        return
+    ours = definitions(port)
+    gaps = []
+    for name, theirs in definitions(JAX_PKG / module).items():
+        if not _public(name) or name not in ours:
+            continue  # a missing name is the test above's to report
+        mine = ours[name]
+        accepted = _names(mine)
+        if mine.kwarg is not None and (module, name) in PASS_THROUGH:
+            target_module, target = PASS_THROUGH[(module, name)]
+            accepted |= _names(definitions(PORT_PKG / target_module)[target])
+        missing = sorted(_names(theirs) - accepted)
+        if theirs.vararg is not None and mine.vararg is None:
+            missing.append("*" + theirs.vararg.arg)
+        if theirs.kwarg is not None and mine.kwarg is None:
+            missing.append("**" + theirs.kwarg.arg)
+        if missing:
+            gaps.append(f"{name} lacks {missing}")
+    assert not gaps, f"gradslam_torch/{module}: " + "; ".join(gaps)

@@ -112,6 +112,21 @@ def test_projection_ops_match_jax():
            G.unproject_points(pix, kinv, depth), atol=1e-5)
 
 
+@pytest.mark.parametrize("eps", [1e-6, 0.5])
+def test_project_points_accepts_eps_as_jax_does(eps):
+    """JAX's ``project_points(cam_coords, proj_mat, eps=1e-6)`` takes
+    ``eps`` (its guard tests z == 0 exactly); the port takes it by name and
+    by position and agrees with JAX."""
+    rng = np.random.RandomState(7)
+    K = np.eye(4, dtype=np.float32)
+    K[0, 0], K[1, 1], K[0, 2], K[1, 2] = 525.0, 525.0, 319.5, 239.5
+    cam = rng.randn(2, 20, 3).astype(np.float32)
+    cam[0, :3, 2] = 0.0
+    want = G.project_points(cam, K, eps=eps)
+    _close(T.project_points(_t(cam), _t(K), eps=eps), want, atol=1e-3)
+    _close(T.project_points(_t(cam), _t(K), eps), want, atol=1e-3)
+
+
 def test_geometry_keeps_input_dtype():
     xi = torch.from_numpy(_twists(5).astype(np.float64))
     T64 = T.se3_exp(xi)
