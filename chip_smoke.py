@@ -101,10 +101,15 @@ Phases (each raises on failure; nothing is caught):
     SHA-256 digests of poses and map points, gradients within the same bars;
     ``chamfer_distance`` card against CPU, and the gradient example's
     ``refine()`` on the card at its CPU test's settings and bars.
-    (b) The bench_all rows at full width (``GRAD_ROWS``), one warm-up and one
-    timed step each: frames/s, peak memory, finite nonzero max |g|, both
-    kernels' launches in the forward and in the backward phase (recompute
-    and backward) against ``grad_launches``; the scatter kernel against its
+    (b) The bench_all rows at full width (``GRAD_ROWS``), each with
+    ``use_jit=False`` and then captured (``grad_row``): s/step first and
+    steady, device busy share and events, graphs, capture s, peak memory
+    (the captured steady step's own peak within ``GRAD_PEAK_SLACK`` of
+    eager's) and what the graphs keep resident, finite nonzero max |g|,
+    map, poses and gradients captured against eager, both kernels'
+    launches in the forward and in the backward phase (recompute and
+    backward) against ``grad_launches`` (the profiled step's device trace
+    showing none more); the scatter kernel against its
     plain version on the warm-up's own scatter inputs (forward tables, the
     scatter merge and its buffer gradient in the backward) and on
     batch-distinct payloads at the same shapes; the B=8 rows' gradients and
@@ -251,6 +256,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import hashlib
 import json
 import math
@@ -442,7 +448,19 @@ def grad_launches(name: str) -> dict:
 # (tests/port/make_grad_golden.py): golden name -> row.
 GRAD_GOLDEN = Path(__file__).resolve().parent / "tests/port/data/grad_jax_cpu.npz"
 GRAD_GOLDEN_ROWS = {"gt": "gt_640x480x30", "knn": "knn_320x240x30"}
-GRAD_LAUNCHES = {}  # "<row> remat=<on|off>" -> {"forward"|"backward": {kernel: n}}
+# "<row> remat=<on|off>" -> {"forward"|"backward": {kernel: n}}: the eager
+# step's launches, counted where the wrappers launch
+GRAD_LAUNCHES = {}
+# A captured steady step's own peak memory (its peak less what was allocated
+# when it started: the graphs, the results held) may exceed eager's by this
+# share (allocator rounding of the arenas and per-call copies).
+GRAD_PEAK_SLACK = 0.02
+# Captured gradients against eager: the intrinsics gradient sums each
+# frame's contribution inside its graph, then across frames in autograd,
+# where eager adds every contribution to one buffer: the same terms in
+# another order. Where the card's atomic adds make two eager steps' depth
+# gradients differ, the captured one is held to the same bar.
+GRAD_SUM_ORDER_BAR = 1e-6
 # Bars of (c), relative (see gradient_gaps and PERF.md §2). The port's map
 # parts from the JAX CPU run's at near-tie merges on either device (gt
 # 640x480x30: JAX 516,221, the port's CPU run 516,216, the card 516,230;
@@ -1614,27 +1632,76 @@ def grad_inputs(shape, device):
     return tuple(torch.from_numpy(a).to(device) for a in grad_arrays(shape))
 
 
-def grad_step(slam, inputs, spy=None):
+def grad_step(slam, inputs, spy=None, phase=contextlib.nullcontext):
     """One gradient step: the forward, ``sum(points^2)`` of the final map,
     its backward to the depth images and the intrinsics. Both kernels'
     counts are set to 0 just before the forward and read just after it,
     then set to 0 just before the backward and read just after it (the
     backward phase: the remat recompute and the backward's own launches).
-    A :class:`ScatterSpy` is told where the backward starts. Returns
-    ``(pointclouds, poses, g_depth, g_K, launches)``."""
+    A :class:`ScatterSpy` is told where the backward starts; each phase
+    runs inside ``phase("forward")`` and ``phase("backward")`` (a
+    :class:`PhaseTrace`). Returns ``(pointclouds, poses, g_depth, g_K,
+    launches)``."""
     rgb, depth, K, P = inputs
     d = depth.clone().requires_grad_()
     k = K.clone().requires_grad_()
     knn_cuda.launches = scatter_cuda.launches = 0
-    pc, poses = slam(RGBDImages(rgb, d, k, P))
-    loss = (pc.points ** 2).sum()
+    with phase("forward"):
+        pc, poses = slam(RGBDImages(rgb, d, k, P))
+        loss = (pc.points ** 2).sum()
     fwd = {"knn": knn_cuda.launches, "scatter": scatter_cuda.launches}
     knn_cuda.launches = scatter_cuda.launches = 0
     if spy is not None:
         spy.forward_done = True
-    loss.backward()
+    with phase("backward"):
+        loss.backward()
     bwd = {"knn": knn_cuda.launches, "scatter": scatter_cuda.launches}
     return pc, poses, d.grad, k.grad, {"forward": fwd, "backward": bwd}
+
+
+# the kernel that each counted launch of a wrapper runs once
+COUNTED_KERNELS = {"knn": "knn1_search", "scatter": "scatter_rows<"}
+
+
+class PhaseTrace:
+    """Device-only profiles (``torch.profiler``, no host op records) of a
+    :func:`grad_step`'s phases, one session each: the device's busy seconds
+    and events summed over the phases, the memory allocated at the end of
+    the forward, and for each phase the launches of the port's kernels that
+    the trace shows (``kernels``: ``knn1_search`` events for the 1-NN,
+    ``scatter_rows<...>`` events for the scatter; a replayed graph's kernels
+    are in the trace like any other), measured apart from the wrappers'
+    counters. The trace can miss a few events of a long phase (PERF.md §7),
+    so a count it shows is at most the launches made. Each session starts
+    with a marker kernel (``torch.cuda._sleep``) and a synchronize, left out
+    of the numbers."""
+
+    MARKER = "spin_kernel"
+
+    def __init__(self):
+        self.busy, self.events, self.forward_b, self.kernels = 0.0, 0, None, {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+            yield
+            torch.cuda.synchronize()
+        if name == "forward":
+            self.forward_b = torch.cuda.memory_allocated()
+        device = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA and self.MARKER not in e.name()]
+        busy = union_s([(e.start_ns(), e.start_ns() + e.duration_ns()) for e in device], 1e-9)
+        check_profile(f"grad {name} phase", busy, len(device))
+        self.busy += busy
+        self.events += len(device)
+        self.kernels[name] = {k: sum(kernel in e.name() for e in device)
+                              for k, kernel in COUNTED_KERNELS.items()}
 
 
 class ScatterSpy:
@@ -1762,57 +1829,188 @@ def grad_small_phase() -> None:
             f"{remat_gap[1]:.3e}; bar {bar:g}")
 
 
+def grad_expect(name: str, remat: bool) -> dict:
+    """A row's launches in the forward and the backward phase of a step
+    (:func:`grad_launches`; with remat the backward phase adds the
+    recompute)."""
+    fwd, bwd, rec = zip(*grad_launches(name).values())
+    return {"forward": dict(zip(("knn", "scatter"), fwd)),
+            "backward": {k: b + (r if remat else 0) for k, b, r in zip(("knn", "scatter"), bwd, rec)}}
+
+
+def grad_digests(result) -> tuple:
+    """SHA-256 digests of a step's ``(poses and map, depth gradient,
+    intrinsics gradient)``."""
+    pc, poses, gd, gk, _ = result
+    return sha256_of(poses, pc.points, pc.num_points), sha256_of(gd), sha256_of(gk)
+
+
+def rel_gap(a, b) -> float:
+    """max |a - b| / max |b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
 def grad_row(name: str, remat: bool):
-    """One warm-up and one timed gradient step of a row: frames/s (B * L
-    over the host-clock seconds of forward plus backward, ending in a
-    synchronize), peak memory, max |g| to depth and intrinsics (finite and
-    nonzero), and both kernels' launches in the forward and the backward
-    phase against :func:`grad_launches`. The warm-up's scatter inputs go
-    through the kernel and the plain version (:class:`ScatterSpy`); on the
-    B=8 rows (``GRAD_CPU_ROWS``) the timed step's gradients and map counts
-    are held against the CPU run of the same code. Returns the gradients
-    and the timed step's seconds and peak."""
+    """A row's gradient steps with ``use_jit=False`` and then ``True``, a
+    fresh pipeline each. Eager: a first step (its scatter inputs through
+    the kernel and the plain version, :class:`ScatterSpy`), a steady step
+    and a profiled one. Captured: a first step (the warm-ups and the
+    forward captures), a second (the backward captures of the warm-up
+    frames' keys), a steady step (every frame's forward and backward
+    replayed) and a profiled one. Every step's launches in the forward and
+    the backward phase equal :func:`grad_launches`'. Captured against eager:
+    map, poses and depth gradients SHA-256-equal, the intrinsics gradient
+    bit-equal or within ``GRAD_SUM_ORDER_BAR`` of its largest magnitude
+    (the frames' contributions summed in another order); where the two
+    eager steps' depth gradients differ (atomic adds on the card), the
+    captured one within ``GRAD_SUM_ORDER_BAR`` too. The first captured
+    step's results unchanged by the later steps, ``last_call_captured``
+    True. Reports s/step first and steady (host clock, ending in a
+    synchronize), the steady step's peak memory, device busy time and
+    events, graphs and capture s for both modes. Returns ``({mode:
+    (g_depth, g_K)}, {mode: measurements})``."""
     shape, cap, kw, _ = GRAD_ROWS[name]
     tag = f"{name} remat={'on' if remat else 'off'}"
     inputs = grad_inputs(shape, "cuda")
-    slam = PointFusion(map_capacity=cap, remat=remat, **kw)
-    with ScatterSpy() as spy:
-        grad_step(slam, inputs, spy)
-    kinds = spy.check(tag)
-    merge_kinds = {"forward into buffer", "backward buffer gradient"}
-    if fusion_modes(name)[1] == "scatter" and not merge_kinds <= set(kinds):
-        raise AssertionError(f"grad {tag}: the scatter merge's calls were not seen: {kinds}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    pc, poses, gd, gk, launches = grad_step(slam, inputs)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    if not tf32_disabled():
-        raise AssertionError(f"grad {name}: TF32 was turned on during the step")
-    fwd, bwd, rec = zip(*grad_launches(name).values())
-    expect = {"forward": dict(zip(("knn", "scatter"), fwd)),
-              "backward": {k: b + (r if remat else 0)
-                           for k, b, r in zip(("knn", "scatter"), bwd, rec)}}
-    if launches != expect:
-        raise AssertionError(f"grad {tag}: launches {launches}, expected {expect}")
-    GRAD_LAUNCHES[tag] = launches
-    LAUNCHES[f"grad_{name}_remat_{'on' if remat else 'off'}"] = {
-        k: launches["forward"][k] + launches["backward"][k] for k in ("knn", "scatter")}
-    gmax = (float(gd.abs().max()), float(gk.abs().max()))
-    if not all(math.isfinite(g) and g > 0 for g in gmax):
-        raise AssertionError(f"grad {tag}: max |g| depth, intrinsics {gmax}")
+    expect = grad_expect(name, remat)
     B, L = shape[:2]
-    log(f"grad {tag} {shape} capacity {cap}: {B * L / secs:.4f} frames/s ({secs:.4f} s a "
-        f"step), peak memory {peak} B, map {int(pc.num_points.sum())} points, max |g| depth "
-        f"{gmax[0]:.6e}, intrinsics {gmax[1]:.6e}; launches: forward {launches['forward']}, "
-        f"backward phase {launches['backward']} (recompute "
-        f"{dict(zip(('knn', 'scatter'), rec)) if remat else 'none'}, backward's own "
-        f"{dict(zip(('knn', 'scatter'), bwd))})")
+    rows, grads, results = {}, {}, {}
+    for mode, use_jit in (("eager", False), ("captured", True)):
+        slam = PointFusion(map_capacity=cap, remat=remat, use_jit=use_jit, **kw)
+        steps, secs = [], []
+        for i in range(2 if mode == "eager" else 3):
+            spy = ScatterSpy() if mode == "eager" and i == 0 else contextlib.nullcontext()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            with spy:
+                out = grad_step(slam, inputs, spy if isinstance(spy, ScatterSpy) else None)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if out[4] != expect:
+                raise AssertionError(f"grad {tag} {mode} step {i}: launches {out[4]}, expected "
+                                     f"{expect}")
+            if slam.last_call_captured != use_jit:
+                raise AssertionError(f"grad {tag} {mode}: last_call_captured "
+                                     f"{slam.last_call_captured} ({slam.last_eager_reason})")
+            if isinstance(spy, ScatterSpy):
+                kinds = spy.check(tag)
+                merge_kinds = {"forward into buffer", "backward buffer gradient"}
+                if fusion_modes(name)[1] == "scatter" and not merge_kinds <= set(kinds):
+                    raise AssertionError(f"grad {tag}: the scatter merge's calls were not seen: "
+                                         f"{kinds}")
+            steps.append((grad_digests(out), out[2].detach().clone(), out[3].detach().clone()))
+            if i == 0:
+                held = out
+        peak = torch.cuda.max_memory_allocated()  # the last (steady) step's
+        if not tf32_disabled():
+            raise AssertionError(f"grad {name}: TF32 was turned on during the step")
+        if grad_digests(held) != steps[0][0]:
+            raise AssertionError(f"grad {tag} {mode}: the first step's results changed in the "
+                                 "later steps")
+        trace, kept = PhaseTrace(), slam.frame_graphs.kept_bytes
+        out = grad_step(slam, inputs, phase=trace)
+        kept = slam.frame_graphs.kept_bytes - kept
+        # the trace may miss an event but never shows one more: a kernel
+        # that a graph held twice would show here (one it lost would change
+        # the results, held SHA-256-equal to eager's below)
+        over = [(ph, k) for ph in expect for k in expect[ph]
+                if trace.kernels[ph][k] > expect[ph][k]]
+        if out[4] != expect or over:
+            raise AssertionError(f"grad {tag} {mode} profiled step: launches {out[4]}, the "
+                                 f"device trace's kernels {trace.kernels}, expected {expect}")
+        busy, events = trace.busy, trace.events
+        launches = out[4]
+        if not use_jit:  # counted where the wrappers launch (a replay runs none)
+            GRAD_LAUNCHES[tag] = launches
+            LAUNCHES[f"grad_{name}_remat_{'on' if remat else 'off'}"] = {
+                k: launches["forward"][k] + launches["backward"][k] for k in ("knn", "scatter")}
+        graphs = slam.frame_graphs.counts()
+        results[mode] = steps
+        grads[mode] = (out[2], out[3])
+        counts = out[0].num_points
+        gmax = (float(out[2].abs().max()), float(out[3].abs().max()))
+        if not all(math.isfinite(g) and g > 0 for g in gmax):
+            raise AssertionError(f"grad {tag} {mode}: max |g| depth, intrinsics {gmax}")
+        points = int(out[0].num_points.sum())
+        capture_s = slam.frame_graphs.capture_s
+        del out, held
+        memory = graph_memory(slam.frame_graphs)
+        rows[mode] = dict(first_s=secs[0], steady_s=secs[-1], peak_b=peak, start_b=start,
+                          busy_s=busy,
+                          events=events, graphs=graphs, capture_s=capture_s,
+                          forward_b=trace.forward_b, kept_b=kept, **memory)
+        log(f"grad {tag} {mode} {shape} capacity {cap}: first step {secs[0]:.4f} s, steady "
+            f"{B * L / secs[-1]:.4f} frames/s ({secs[-1]:.4f} s a step), device busy "
+            f"{busy:.4f} s ({100 * busy / secs[-1]:.1f}% of the steady step), {events} device "
+            f"events, peak memory {peak} B ({peak - start} B over the step's start), graphs "
+            f"{graphs} captured in "
+            f"{capture_s:.4f} s, map {points} points, "
+            f"max |g| depth {gmax[0]:.6e}, intrinsics {gmax[1]:.6e}; launches in every step "
+            f"(counters): forward {launches['forward']}, backward phase "
+            f"{launches['backward']}; the profiled step's device trace shows "
+            f"{trace.kernels} ({'all' if trace.kernels == expect else 'not all'} of them); "
+            f"memory: allocated "
+            f"after the profiled forward {trace.forward_b} B, its arenas {kept} B, the "
+            f"forwards' saved tensors {memory['saved_b']} B over the keys, resident in the "
+            f"graphs {memory['resident_b']} B, pool reserved {memory['pool_b']} B")
+        del slam
+        gc.collect()  # a pipeline's autograd nodes and graphs free in cycles
+    eager, captured = results["eager"], results["captured"]
+    own = {mode: r["peak_b"] - r["start_b"] for mode, r in rows.items()}
+    if own["captured"] > own["eager"] * (1 + GRAD_PEAK_SLACK):
+        raise AssertionError(f"grad {tag}: the captured steady step's own peak {own['captured']} "
+                             f"B is above eager's {own['eager']} B plus {GRAD_PEAK_SLACK:.0%}")
+    if len({d[0][0] for d in eager + captured}) != 1:
+        raise AssertionError(f"grad {tag}: map or poses differ between the modes or steps")
+    eager_same = eager[0][0][1] == eager[1][0][1]
+    eager_gap = rel_gap(eager[1][1], eager[0][1])
+    for i, (dig, gd, gk) in enumerate(captured):
+        depth_gap, k_gap = rel_gap(gd, eager[0][1]), rel_gap(gk, eager[0][2])
+        if eager_same and dig[1] != eager[0][0][1]:
+            raise AssertionError(f"grad {tag}: captured step {i}'s depth gradient is not the "
+                                 f"eager bits (gap {depth_gap:.3e} of max |g|)")
+        if not (depth_gap <= GRAD_SUM_ORDER_BAR and k_gap <= GRAD_SUM_ORDER_BAR):
+            raise AssertionError(f"grad {tag}: captured step {i} against eager: depth "
+                                 f"{depth_gap:.3e}, intrinsics {k_gap:.3e} of max |g|")
+    k_same = all(dig[2] == eager[0][0][2] for dig, _, _ in captured)
+    log(f"grad {tag}: captured against eager: map and poses SHA-256-equal "
+        f"({eager[0][0][0][:16]}); depth gradient "
+        + ("SHA-256-equal" if eager_same else
+           f"within {max(rel_gap(gd, eager[0][1]) for _, gd, _ in captured):.3e} of max |g| "
+           f"(the two eager steps differ by {eager_gap:.3e}: atomic adds)")
+        + "; intrinsics gradient " + ("SHA-256-equal" if k_same else
+           f"within {max(rel_gap(gk, eager[0][2]) for _, _, gk in captured):.3e} of max |g| "
+           "(the frames' contributions summed in another order)")
+        + f"; launches {expect} in every step of both modes; the first step's results "
+        "unchanged by the later steps")
     if name in GRAD_CPU_ROWS:
-        check_row_against_cpu(name, tag, pc.num_points, gd, gk)
-    return gd, gk, secs, peak
+        check_row_against_cpu(name, tag, counts, grads)
+    return grads, rows
+
+
+def graph_memory(frame_graphs) -> dict:
+    """What a pipeline's graphs hold, read before they are freed:
+    ``saved_b``, the storages their captured forwards keep saved tensors in
+    (:meth:`FrameGraphs.saved_bytes`); ``pool_b``, the bytes reserved in
+    their pool's segments (``torch.cuda.memory_snapshot``; None where the
+    snapshot does not name pools); ``resident_b``, the bytes allocated that
+    clearing them frees (their static inputs and outputs, saved tensors and
+    the backwards' buffers). Clears them."""
+    pool = frame_graphs._pool
+    pool_b = None
+    segments = torch.cuda.memory_snapshot() if pool is not None else []
+    if segments and "segment_pool_id" in segments[0]:
+        pool_b = sum(seg["total_size"] for seg in segments
+                     if tuple(seg["segment_pool_id"]) == tuple(pool))
+    saved_b = frame_graphs.saved_bytes()
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    frame_graphs.clear()
+    gc.collect()
+    return dict(saved_b=saved_b, pool_b=pool_b,
+                resident_b=before - torch.cuda.memory_allocated())
 
 
 def gradient_gaps(gd, gk, ref: dict) -> dict:
@@ -1864,10 +2062,11 @@ def hold_gaps(what: str, gaps: dict, bars: dict) -> None:
         raise AssertionError(f"grad {what}: above the bars: {bad}")
 
 
-def check_row_against_cpu(name: str, tag: str, counts, gd, gk) -> None:
-    """A row's card gradients against the CPU run of the same code (remat
-    off) at every pixel (bars ``GRAD_CPU_BARS``), and each clip's map count
-    within ``GRAD_CPU_COUNT_REL`` of the CPU's."""
+def check_row_against_cpu(name: str, tag: str, counts, grads: dict) -> None:
+    """A row's card gradients (``{mode: (g_depth, g_K)}``) against the CPU
+    run of the same code (remat off) at every pixel (bars
+    ``GRAD_CPU_BARS``), and each clip's map count within
+    ``GRAD_CPU_COUNT_REL`` of the CPU's."""
     shape, cap, kw, _ = GRAD_ROWS[name]
     t0 = time.perf_counter()
     pc, _, cd, ck, _ = grad_step(PointFusion(map_capacity=cap, **kw), grad_inputs(shape, "cpu"))
@@ -1878,15 +2077,16 @@ def check_row_against_cpu(name: str, tag: str, counts, gd, gk) -> None:
         raise AssertionError(f"grad {tag}: map counts {card_n} on the card, {cpu_n} on the CPU")
     log(f"grad {tag}: map counts card {card_n.tolist()}, CPU {cpu_n.tolist()} "
         f"(CPU step {time.perf_counter() - t0:.2f} s)")
-    hold_gaps(f"{tag} against the CPU run of the same code, every pixel",
-              gradient_gaps(gd, gk, ref), GRAD_CPU_BARS)
+    for mode, (gd, gk) in grads.items():
+        hold_gaps(f"{tag} {mode} against the CPU run of the same code, every pixel",
+                  gradient_gaps(gd, gk, ref), GRAD_CPU_BARS)
 
 
-def check_grad_golden(key: str, gd, gk) -> None:
+def check_grad_golden(key: str, gd, gk, mode: str = "eager") -> None:
     """(c) A row's card gradients against the JAX package's CPU run
     (``tests/port/make_grad_golden.py``) at its 4,096 pixels
     (:func:`gradient_gaps`). Bars ``GRAD_GOLDEN_BARS``."""
-    hold_gaps(f"golden {key} ({GRAD_GOLDEN_ROWS[key]} remat=on) against the JAX CPU run",
+    hold_gaps(f"golden {key} ({GRAD_GOLDEN_ROWS[key]} remat=on, {mode}) against the JAX CPU run",
               gradient_gaps(gd, gk, golden_ref(np.load(GRAD_GOLDEN), key)),
               GRAD_GOLDEN_BARS[key])
 
@@ -1926,11 +2126,26 @@ def example_refines_on_the_card(device: str = "cuda") -> None:
     below 2% of its start, depth scale within 0.02 and focal within 0.03 of
     1. Launches, from the code: the 1-NN twice a step (the chamfer's two
     directions), the scatter twice a frame (sort_full + gather fusion) in
-    the reference run and in every step's forward, none in a backward."""
+    the reference run and in every step's forward, none in a backward. The
+    pipeline ``refine`` keeps across its steps runs them captured: after
+    the first two steps (the warm-ups and captures) every frame's forward
+    and backward replays, at least ``2 * L`` replays a step."""
     s = EXAMPLE_REFINE
+    made = []
+    real_init = PointFusion.__init__
+
+    def init(self, *args, **kwargs):
+        real_init(self, *args, **kwargs)
+        made.append(self)
+
     knn_cuda.launches = scatter_cuda.launches = 0
     t0 = time.perf_counter()
-    losses, rec_depth, rec_focal = gradient_refinement.refine(**s, verbose=False, device=device)
+    PointFusion.__init__ = init
+    try:
+        losses, rec_depth, rec_focal = gradient_refinement.refine(**s, verbose=False,
+                                                                  device=device)
+    finally:
+        PointFusion.__init__ = real_init
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {"knn": knn_cuda.launches, "scatter": scatter_cuda.launches}
@@ -1942,17 +2157,24 @@ def example_refines_on_the_card(device: str = "cuda") -> None:
             and abs(rec_focal - 1.0) < 0.03):
         raise AssertionError(f"example refine: loss {losses[0]} -> {losses[-1]}, "
                              f"depth scale {rec_depth}, focal {rec_focal}")
+    (slam,) = made
+    graphs = slam.frame_graphs
+    if not (slam.last_call_captured and graphs.replays >= 2 * s["L"] * (s["steps"] - 2)):
+        raise AssertionError(f"example refine: captured {slam.last_call_captured} "
+                             f"({slam.last_eager_reason}), {graphs.replays} replays")
     log(f"example refine on the card {s}: loss {losses[0]:.6e} -> {losses[-1]:.6e}, recovered "
         f"depth scale {rec_depth:.6f}, focal {rec_focal:.6f} (bars 0.02, 0.03); "
-        f"{secs:.2f} s; launches {launches}")
+        f"{secs:.2f} s; launches {launches}; captured: graphs {graphs.counts()}, "
+        f"{graphs.replays} replays, capture {graphs.capture_s:.4f} s")
 
 
 def grad_phase() -> None:
     """The differentiability slice: (a) card against CPU and remat on
     against off on a small clip, ``chamfer_distance`` card against CPU and
-    the gradient example on the card; (b) the bench_all rows at full width;
-    (c) two rows against the JAX package's CPU gradients; (d) a profile of
-    one gradient step (gt 640x480x30, remat on)."""
+    the gradient example on the card (its steps replayed); (b) the bench_all
+    rows at full width, eager and captured; (c) two rows against the JAX
+    package's CPU gradients, both modes; (d) a profile of one gradient step
+    (gt 640x480x30, remat on), eager and captured."""
     disable_tf32()
     if not tf32_disabled():
         raise AssertionError("TF32 is enabled before the gradient phase")
@@ -1964,22 +2186,33 @@ def grad_phase() -> None:
     peaks = {}
     for name, (_, _, _, remats) in GRAD_ROWS.items():
         for remat in remats:
-            gd, gk, secs, peaks[name, remat] = grad_row(name, remat)
+            t_row = time.perf_counter()
+            grads, rows = grad_row(name, remat)
+            peaks[name, remat] = {mode: r["peak_b"] for mode, r in rows.items()}
             for key, row in GRAD_GOLDEN_ROWS.items():
                 if row == name and remat:
-                    check_grad_golden(key, gd, gk)
+                    for mode, (gd, gk) in grads.items():
+                        check_grad_golden(key, gd, gk, mode)
             if name == "gt_640x480x30" and remat:
-                gt_remat_secs = secs
-            del gd, gk
+                gt_remat_secs = {mode: r["steady_s"] for mode, r in rows.items()}
+            del grads
             torch.cuda.empty_cache()
-    off, on = peaks["gt_640x480x30", False], peaks["gt_640x480x30", True]
-    if not on < off:
-        raise AssertionError(f"grad gt_640x480x30: remat peak {on} B not below {off} B")
-    log(f"grad gt_640x480x30: peak memory remat on {on} B, off {off} B ({on / off:.3f}x)")
+            log(f"grad {name} remat={'on' if remat else 'off'}: "
+                f"{time.perf_counter() - t_row:.2f} s for the row's checks")
+    for mode in ("eager", "captured"):
+        off, on = peaks["gt_640x480x30", False][mode], peaks["gt_640x480x30", True][mode]
+        if not on < off:
+            raise AssertionError(f"grad gt_640x480x30 {mode}: remat peak {on} B not below {off} B")
+        log(f"grad gt_640x480x30 {mode}: peak memory remat on {on} B, off {off} B "
+            f"({on / off:.3f}x)")
     shape, cap, kw, _ = GRAD_ROWS["gt_640x480x30"]
-    slam = PointFusion(map_capacity=cap, remat=True, **kw)
     inputs = grad_inputs(shape, "cuda")
-    profile_run(lambda: grad_step(slam, inputs), "grad gt 640x480x30 remat", gt_remat_secs)
+    for mode, use_jit in (("eager", False), ("captured", True)):
+        slam = PointFusion(map_capacity=cap, remat=True, use_jit=use_jit, **kw)
+        for _ in range(2):  # captured: the second step captures the last backwards
+            grad_step(slam, inputs)
+        profile_run(lambda: grad_step(slam, inputs), f"grad gt 640x480x30 remat {mode}",
+                    gt_remat_secs[mode])
 
 
 # --------------------------------------------------------------------------
@@ -4169,8 +4402,8 @@ def graph_phase(clips: dict) -> None:
     equal between the modes and between calls, ``last_call_captured`` equal
     to ``use_jit``, and the first call's result (held by the caller)
     unchanged after the later calls replayed its graphs. Then a gradient
-    row and an armed row run eagerly, and one 1-NN call captured and
-    replayed against its eager call."""
+    row runs captured and an armed row eagerly, and one 1-NN call captured
+    and replayed against its eager call."""
     for name, (cls, kw, clip, expect) in GRAPH_PATHS.items():
         t_path = time.perf_counter()
         frames = clips[clip]
@@ -4234,22 +4467,25 @@ def graph_phase(clips: dict) -> None:
                 f"the first call" for mode, r in rows.items())
             + f"; {time.perf_counter() - t_path:.2f} s for the path's checks")
 
-    # a gradient row and an armed row stay eager
+    # a gradient row is captured (forward and backward); an armed row stays eager
     rgb, depth, K, P = synthetic_sequence(1, 4, 120, 160, seed=0)
     small = rgbdimages_from_numpy(rgb, depth, K, P, device="cuda")
     d = small.depth_image.clone().requires_grad_()
     grad_slam = PointFusion(odom="gt")
     pc, _ = grad_slam(RGBDImages(small.rgb_image, d, small.intrinsics, small.poses))
     pc.points.sum().backward()
+    counts = grad_slam.frame_graphs.counts()
+    if not (grad_slam.last_call_captured and counts["forward"] and counts["backward"]):
+        raise AssertionError(f"graph gradient row: captured {grad_slam.last_call_captured} "
+                             f"({grad_slam.last_eager_reason}), graphs {counts}")
     armed = PointFusion(**dict(ARMED_BASE, map_capacity=4 * 120 * 160), relocalize_below=0.2)
     armed(small)
-    for tag, slam in (("gradient", grad_slam), ("armed", armed)):
-        if slam.last_call_captured or len(slam.frame_graphs):
-            raise AssertionError(f"graph {tag} row: captured ({len(slam.frame_graphs)} graphs)")
+    if armed.last_call_captured or len(armed.frame_graphs):
+        raise AssertionError(f"graph armed row: captured ({len(armed.frame_graphs)} graphs)")
     if not bool(torch.isfinite(d.grad).all()):
         raise AssertionError("graph gradient row: non-finite gradient")
-    log(f"graph: the gradient row ran eagerly ({grad_slam.last_eager_reason}), the armed row "
-        f"too ({armed.last_eager_reason})")
+    log(f"graph: the gradient row ran captured (graphs {counts}), the armed row eagerly "
+        f"({armed.last_eager_reason})")
     knn_graph_check(*level_pair(clips["easy"], DSRATIO))
 
 

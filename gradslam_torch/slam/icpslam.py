@@ -29,7 +29,9 @@ read. The branches run only on the frames that need them. ``remat=True``
 runs each frame's body (the one ``jax.checkpoint`` wraps in JAX) under
 non-reentrant ``torch.utils.checkpoint``: its activations are dropped after
 the forward and recomputed in the backward, which reads the same values and
-so takes the same branches.
+so takes the same branches. Under autograd ``forward`` replays each frame's
+forward and backward from CUDA graphs as well, with or without ``remat``
+(``FrameGraphs.grad``), as JAX jits ``value_and_grad`` through the scan.
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ from ..odometry.icputils import (
 from ..odometry.projective import ProjectiveOdometryProvider, pack_frame_geom
 from ..structures.pointclouds import Pointclouds, compact_masked, gather_rows
 from ..structures.rgbdimages import RGBDImages
-from ..utils.graphs import FrameGraphs, clone_tree, eager_reason_for
+from ..utils.graphs import FrameGraphs, clone_tree, eager_reason_for, needs_grad
 from ..utils.precision import disable_tf32
 from .fusionutils import find_active_map_points, prune_map, update_map_aggregate
 from .health import (
@@ -163,26 +165,51 @@ class ICPSLAM(nn.Module):
             FrameGraphs`) and replayed for every later frame; frame 0's
             bootstrap, the prune between segments and ``step``'s one read
             back of the map count stay eager. A replay gives the eager bits,
-            and the kernels' launch counters read the same. After each call
-            ``last_call_captured`` says whether it ran so and
-            ``last_eager_reason`` why not. These run eagerly:
+            and the kernels' launch counters read the same.
+
+            Under autograd (grad mode with an input that requires grad)
+            ``forward`` replays each frame's forward and backward too, as
+            JAX jits ``value_and_grad`` through its scan: each frame is one
+            autograd node whose backward replays a captured backward, one
+            for each key (which inputs need a gradient is part of it) and
+            set of outputs that get a gradient; see ``remat`` for what each
+            frame keeps. Every call after the first replays, so a training
+            loop that keeps its pipeline (``refine()`` in
+            :mod:`gradslam_torch.examples.gradient_refinement`) replays its
+            steady steps; the gradients are the eager bits. The autograd
+            nodes of frame 0's bootstrap and of the prunes, which stay
+            eager, link to the replayed frames', and a tensor every frame
+            shares (the intrinsics) sums its frames' gradients in autograd.
+
+            After each call ``last_call_captured`` says whether it ran so
+            and ``last_eager_reason`` why not. These run eagerly:
 
             - ``use_jit=False``;
             - inputs on the CPU: there is no graph to capture;
-            - gradients (grad mode with an input that requires grad, with
-              or without ``remat``): autograd records the eager ops;
-            - armed recovery (``relocalize_below > 0``): its reads back
-              decide Python branches inside the frame.
+            - ``step``, ``localize`` and ``map_update`` under autograd
+              (``"an input needs a gradient"``): open-ended online loops,
+              whose graphs under grad are not captured;
+            - armed recovery (``relocalize_below > 0``), with or without
+              gradients: its reads back decide Python branches inside the
+              frame.
 
             The map-sharded pipeline runs eagerly too
             (:class:`~gradslam_torch.parallel.MapShardedPointFusion`: its
-            collectives are not captured).
+            collectives are not captured). A capture that fails raises;
+            nothing falls back to eager.
         remat: recompute each frame's activations in the backward instead
             of keeping them (per-frame checkpointing, as ``jax.checkpoint``
             of the JAX scan body): the gt body is one frame's map update,
             the tracked body the prediction, localization, map update and
             constant-velocity step of one frame (frame 0's bootstrap stays
             outside). The forward's results are the same bits either way.
+            Eagerly each body runs under non-reentrant
+            ``torch.utils.checkpoint``; captured, the forward replays the
+            no-grad frame graph and each frame keeps only its inputs, and
+            the backward replays a graph of the recompute and its
+            backward. Without ``remat`` a captured frame keeps, in one
+            copy, the storages of every tensor autograd saved (what eager
+            keeps), and its backward graph reads them back.
         odom_point_weight: point-to-point rows at this weight beside the
             projective solver's plane rows (0 disables).
         odom_subpixel: bilinear projective association at the continuous
@@ -704,12 +731,22 @@ class ICPSLAM(nn.Module):
     # ------------------------------------------------------------------ #
     # Forward
     # ------------------------------------------------------------------ #
-    def _plan(self, *trees, armed: bool = False) -> bool:
-        """Whether this call runs as CUDA graphs (``use_jit``); records the
-        answer in ``last_call_captured`` and ``last_eager_reason``."""
-        reason = eager_reason_for(self.use_jit, *trees, armed=armed)
+    def _plan(self, *trees, armed: bool = False, grad_graphs: bool = False) -> bool:
+        """Whether this call runs as CUDA graphs (``use_jit``; under autograd
+        only where ``grad_graphs``); records the answer in
+        ``last_call_captured`` and ``last_eager_reason``."""
+        reason = eager_reason_for(self.use_jit, *trees, armed=armed, grad_graphs=grad_graphs)
         self.last_call_captured, self.last_eager_reason = reason is None, reason
         return reason is None
+
+    def _replayed(self, grad: bool, name: str, body, args: tuple, options: tuple = ()):
+        """One captured frame ``body(*args)``: under autograd (``grad``) from
+        the forward and backward graphs of ``frame_graphs.grad`` (the
+        result is the caller's), else from the no-grad frame graph (the
+        result is the graph's static outputs)."""
+        if grad:
+            return self.frame_graphs.grad(name, body, args, options, remat=self.remat)
+        return self.frame_graphs(name, body, args, options)
 
     def _frame(self, body, *args):
         """One frame's ``body(*args)``, under per-frame checkpointing when
@@ -925,8 +962,9 @@ class ICPSLAM(nn.Module):
     def forward(self, frames: RGBDImages) -> Tuple[Pointclouds, torch.Tensor]:
         r"""Run SLAM over a batch of sequences. Returns ``(pointclouds,
         poses (B, L, 4, 4))``. With ``use_jit`` on the card each frame
-        replays its capacity segment's CUDA graph; the results are copies
-        that later calls leave alone."""
+        replays its capacity segment's CUDA graph, under autograd its
+        forward's and its backward's; the results are copies that later
+        calls leave alone."""
         if not isinstance(frames, RGBDImages):
             raise TypeError(f"Expected frames to be of type RGBDImages. Got {type(frames)}.")
         if self.odom == "gt" and frames.poses is None:
@@ -937,7 +975,10 @@ class ICPSLAM(nn.Module):
         schedule = self._capacity_schedule(frames)
         map_pc = self.empty_map(B, schedule[0][1], device=frames.device, dtype=frames.dtype)
         armed = self.relocalize_below > 0
-        captured = self._plan(frames, armed=armed)
+        captured = self._plan(frames, armed=armed, grad_graphs=True)
+        grad = captured and needs_grad(frames)
+        # a no-grad replay's outputs are the graph's: the result is a copy
+        owned = clone_tree if captured and not grad else (lambda tree: tree)
 
         if self.odom == "gt":
             start = 0
@@ -946,13 +987,13 @@ class ICPSLAM(nn.Module):
                 for sub_n, prune_after in split_prune_segments(start, n, self.prune_every):
                     for i in range(start, start + sub_n):
                         if captured:
-                            map_pc = self.frame_graphs("map", self._map, (map_pc, frames[:, i]))
+                            map_pc = self._replayed(grad, "map", self._map, (map_pc, frames[:, i]))
                         else:
                             map_pc = self._frame(self._map, map_pc, frames[:, i])
                     if prune_after:
                         map_pc = self._prune(map_pc)
                     start += sub_n
-            return (clone_tree(map_pc) if captured else map_pc), frames.poses
+            return owned(map_pc), frames.poses
 
         # Tracked: bootstrap frame 0 at the provided (or identity) pose,
         # then track frame to map, each solve starting at the prediction.
@@ -977,10 +1018,11 @@ class ICPSLAM(nn.Module):
             map_pc = map_pc.with_capacity(cap_seg)
             for sub_n, prune_after in split_prune_segments(start + 1, n_track, self.prune_every):
                 for f in range(start + 1, start + 1 + sub_n):
-                    if captured:  # a replay's outputs are the graph's: keep a copy
-                        map_pc, prev_pose, prev_delta = self.frame_graphs(
-                            "track", track, (map_pc, prev_pose, prev_delta, frames[:, f]), (cv,))
-                        poses.append(prev_pose.clone())
+                    if captured:
+                        map_pc, prev_pose, prev_delta = self._replayed(
+                            grad, "track", track, (map_pc, prev_pose, prev_delta, frames[:, f]),
+                            (cv,))
+                        poses.append(owned(prev_pose))
                         continue
                     map_pc, prev_pose, prev_delta, anchor, events = self._frame(
                         self._track, map_pc, prev_pose, prev_delta, anchor, f, frames[:, f])
@@ -993,4 +1035,4 @@ class ICPSLAM(nn.Module):
                 if prune_after:
                     map_pc = self._prune(map_pc)
                 start += sub_n
-        return (clone_tree(map_pc) if captured else map_pc), torch.stack(poses, dim=1)
+        return owned(map_pc), torch.stack(poses, dim=1)

@@ -26,23 +26,63 @@ reads the device limits the 1-NN's split plan needs, and runs under
 synchronise with the host (and so break the capture) raises there with its
 traceback. A capture that fails raises; nothing carries on eagerly.
 
+Under autograd (a ``forward`` on the card whose inputs need a gradient, as
+``jax.grad`` of the jitted forward or a jitted ``value_and_grad`` train step
+compiles the backward of the scan) :meth:`FrameGraphs.grad` runs each frame
+as one :class:`torch.autograd.Function` whose forward and backward replay
+graphs. A replay overwrites its graph's static outputs and every tensor the
+captured forward saved for backward, so one graph replayed for every frame
+would hand each frame's backward the last frame's activations. The two
+forms keep what each frame's backward needs per call:
+
+- ``remat=True``, per-frame checkpointing (``jax.checkpoint`` of the scan
+  body): the forward replays the frame body's no-grad graph and the
+  ``Function`` saves only the frame's inputs. The backward copies them and
+  the output gradients into the static inputs of a second graph, captured
+  as "run the body under grad on leaves, then ``torch.autograd.grad``":
+  the recompute and the backward's own launches, as eager remat launches.
+- ``remat=False``, the residuals kept: the forward is captured under grad
+  inside :class:`torch.autograd.graph.saved_tensors_hooks`, which records
+  every tensor autograd saves (saved static inputs, static outputs, views
+  of them and intermediates); those whose nodes the outputs' backward
+  reaches are kept. After each replay the bytes of their storages that
+  they read (all but the static inputs') are copied into one new arena
+  (:class:`_Arena`) that the call owns; an output that autograd saved is
+  a view of it and any other output a copy, so a call keeps what eager
+  keeps, in one copy, and autograd sees an in-place edit of such an
+  output. The backward, captured once for each set of output gradients as
+  ``torch.autograd.grad`` on the captured outputs, replays after one
+  frame's arena, saved inputs and output gradients are copied back in.
+
+The first call of a key runs eagerly on the side stream under grad (the
+warm-up: its result and its autograd graph are that call's), then the
+forward graph is captured; the first backward of each set of output
+gradients runs eagerly under ``set_sync_debug_mode("error")`` too (an op
+whose gradient synchronises, such as a ``nonzero``, raises there), then is
+captured. Gradients to a tensor that every frame shares (the intrinsics)
+are each frame's, summed by autograd outside the graphs. Each capture goes
+through :meth:`FrameGraphs._graph`, the one place that makes a CUDA graph.
+
 The kernels' launch counters (``ops.knn_cuda.launches``,
 ``ops.scatter_cuda.launches``) are Python integers that a wrapper raises when
 it runs. A replay runs no wrapper, so each graph records the launches its
 capture made (and the capture's own increments are taken back: a capture
 launches nothing), and every replay adds them: the counters read the same
-whether a run was captured or not.
+whether a run was captured or not, forward and backward.
 
 :func:`eager_reason` decides which calls are captured: ``use_jit``, inputs
-on the card, no input that needs a gradient (grad mode on), recovery
-unarmed. It is a pure function of those facts, so it is tested without a
-card.
+on the card, an input that needs a gradient only where the caller captures
+gradients (``forward``; ``step``, ``localize`` and ``map_update`` do not),
+recovery unarmed. It is a pure function of those facts, so it is tested
+without a card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -58,6 +98,7 @@ __all__ = [
     "eager_reason",
     "eager_reason_for",
     "cache_key",
+    "needs_grad",
 ]
 
 # the modules whose ``launches`` count their kernel's launches
@@ -116,31 +157,40 @@ def clone_tree(tree):
 
 
 def eager_reason(use_jit: bool, on_card: bool, needs_grad: bool,
-                 armed: bool = False) -> Optional[str]:
+                 armed: bool = False, grad_graphs: bool = False) -> Optional[str]:
     r"""``None`` when a pipeline call is captured and replayed as CUDA
     graphs, else why it runs eagerly: ``use_jit`` off; inputs not on the
     card (a CPU run has nothing to capture); an input that needs a gradient
-    under grad mode (autograd records the eager ops; ``remat`` too); armed
+    under grad mode where the call does not capture gradients
+    (``grad_graphs`` False: ``step``, ``localize``, ``map_update``); armed
     recovery (its read backs split the frame)."""
     if not use_jit:
         return "use_jit=False"
     if not on_card:
         return "inputs not on the card"
-    if needs_grad:
+    if needs_grad and not grad_graphs:
         return "an input needs a gradient"
     if armed:
         return "recovery armed (relocalize_below > 0)"
     return None
 
 
-def eager_reason_for(use_jit: bool, *trees, armed: bool = False) -> Optional[str]:
+def needs_grad(*trees) -> bool:
+    """Grad mode is on and a tensor of ``trees`` requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for tree in trees for t in flatten(tree)[0])
+
+
+def eager_reason_for(use_jit: bool, *trees, armed: bool = False,
+                     grad_graphs: bool = False) -> Optional[str]:
     """:func:`eager_reason` read from the tensors of ``trees``."""
     leaves = [t for tree in trees for t in flatten(tree)[0]]
     return eager_reason(
         use_jit,
         on_card=bool(leaves) and all(t.is_cuda for t in leaves),
-        needs_grad=torch.is_grad_enabled() and any(t.requires_grad for t in leaves),
+        needs_grad=needs_grad(*trees),
         armed=armed,
+        grad_graphs=grad_graphs,
     )
 
 
@@ -152,6 +202,103 @@ def cache_key(name: str, options: tuple, leaves: List[torch.Tensor], spec: tuple
 
 def _read_counters() -> Tuple[int, ...]:
     return tuple(m.launches for m in LAUNCH_COUNTERS)
+
+
+def _add_launches(launches: Tuple[int, ...]) -> None:
+    for counter, n in zip(LAUNCH_COUNTERS, launches):
+        counter.launches += n
+
+
+def _static_like(t: torch.Tensor, requires_grad: bool = False) -> torch.Tensor:
+    """A static input for ``t``, outside the graphs' pool: later calls copy
+    into it."""
+    out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    return out.requires_grad_() if requires_grad else out
+
+
+def _write(dst: torch.Tensor, src: torch.Tensor) -> None:
+    r"""``dst.copy_(src)`` through ``dst.data``, which leaves ``dst``'s
+    version counter alone: a tensor of a graph captured under autograd is
+    rewritten as a replay rewrites it, unseen by autograd (a bumped version
+    would make autograd rebuild the backward of the views of it)."""
+    dst.data.copy_(src)
+
+
+_ALIGN = 16  # bytes: each storage's place in an arena
+
+
+def _span(t: torch.Tensor) -> Tuple[int, int]:
+    """The bytes ``[start, end)`` of its storage that ``t`` reads."""
+    start = t.storage_offset() * t.element_size()
+    if t.numel() == 0:
+        return start, start
+    last = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    return start, start + (last + 1) * t.element_size()
+
+
+class _Arena:
+    r"""The bytes of the storages that a captured forward's saved tensors
+    live in (all but the static inputs', and only on the graph's device),
+    laid end to end in one ``uint8`` buffer: a call gathers them into its
+    own arena after the forward's replay and scatters its arena back before
+    the backward's. Of each storage only the span its saved tensors and the
+    outputs in it (``outputs``) read is kept, from a 16-byte boundary.
+    ``views`` are those spans as flat bytes (with version counters of their
+    own: the copies leave the saved tensors' alone), ``offsets`` each
+    storage's place in the arena and the span's first byte."""
+
+    def __init__(self, static_in: List[torch.Tensor], tensors: List[torch.Tensor],
+                 outputs: List[torch.Tensor] = ()):
+        device = static_in[0].device
+        skip = {x.untyped_storage().data_ptr() for x in static_in}
+        spans: Dict[int, list] = {}  # storage pointer -> [storage, first byte, end]
+        for t in tensors:
+            ptr = t.untyped_storage().data_ptr()
+            lo, hi = _span(t)
+            if t.device != device or hi == lo or ptr in skip:
+                continue
+            span = spans.setdefault(ptr, [t.untyped_storage(), lo, hi])
+            span[1], span[2] = min(span[1], lo), max(span[2], hi)
+        for t in outputs:  # an output in a kept storage becomes a view of the arena
+            span = spans.get(t.untyped_storage().data_ptr())
+            lo, hi = _span(t)
+            if span is not None and hi > lo:
+                span[1], span[2] = min(span[1], lo), max(span[2], hi)
+        self.views: List[torch.Tensor] = []
+        self.offsets: Dict[int, Tuple[int, int]] = {}
+        total = 0
+        for ptr, (st, lo, hi) in spans.items():
+            lo -= lo % _ALIGN
+            self.offsets[ptr] = (total, lo)
+            self.views.append(torch.empty(0, dtype=torch.uint8, device=device).set_(
+                st, lo, (hi - lo,), (1,)))
+            total += -(-(hi - lo) // _ALIGN) * _ALIGN
+        self.total = total
+
+    def slices(self, arena: torch.Tensor) -> List[torch.Tensor]:
+        return [arena[o:o + v.numel()] for (o, _), v in zip(self.offsets.values(), self.views)]
+
+    def gather(self, device) -> torch.Tensor:
+        """A new arena holding the spans."""
+        arena = torch.empty(self.total, dtype=torch.uint8, device=device)
+        if self.views:
+            torch._foreach_copy_(self.slices(arena), self.views)
+        return arena
+
+    def scatter(self, arena: torch.Tensor) -> None:
+        """The spans written back from ``arena``."""
+        if self.views:
+            torch._foreach_copy_(self.views, self.slices(arena))
+
+    def view(self, arena: torch.Tensor, t: torch.Tensor) -> Optional[torch.Tensor]:
+        """``t``'s counterpart in ``arena``, or None where its storage is
+        not in it: a view, so it shares the arena's version counter."""
+        place = self.offsets.get(t.untyped_storage().data_ptr())
+        if place is None or t.numel() == 0:
+            return None
+        off, lo = place
+        return arena.view(t.dtype).as_strided(
+            t.shape, t.stride(), (off + _span(t)[0] - lo) // t.element_size())
 
 
 class CapturedCall:
@@ -168,35 +315,322 @@ class CapturedCall:
         self.out_spec = out_spec
         self.launches = launches
 
-    def __call__(self, leaves: List[torch.Tensor]):
+    def run(self, leaves: List[torch.Tensor]) -> None:
+        """``leaves`` copied into the static inputs, then a replay."""
         for dst, src in zip(self.static_in, leaves):
-            dst.copy_(src)
+            _write(dst, src)
         self.graph.replay()
-        for counter, n in zip(LAUNCH_COUNTERS, self.launches):
-            counter.launches += n
+        _add_launches(self.launches)
+
+    def __call__(self, leaves: List[torch.Tensor]):
+        self.run(leaves)
         return unflatten(self.out_spec, self.static_out)
+
+
+class _Backward(CapturedCall):
+    r"""A captured backward for one set of output gradients: its static
+    inputs are the output gradients, its static outputs the input gradients
+    of the inputs that got one (``present``)."""
+
+    def __init__(self, graph, static_grads, grads_in, present, launches):
+        super().__init__(graph, static_grads, grads_in, (), launches)
+        self.present = present
+
+    def __call__(self, grads: List[torch.Tensor]) -> List[Optional[torch.Tensor]]:
+        self.run(grads)
+        it = iter(self.static_out)
+        return [next(it).clone() if p else None for p in self.present]
+
+
+class _GradEntry:
+    r"""The graphs of one key under autograd. ``diff`` marks the outputs
+    that carry a gradient, ``backward`` the captured backwards by the set of
+    output gradients they take. With ``remat=False`` also the captured
+    forward (``forward``, a :class:`CapturedCall` whose ``static_in`` are
+    leaves), the :class:`_Arena` of its saved tensors, and ``restore_in``,
+    the static inputs whose storages hold saved tensors; with
+    ``remat=True`` the recompute's leaves (``backward_in``)."""
+
+    def __init__(self, out_spec: tuple, diff: Tuple[bool, ...]):
+        self.out_spec = out_spec
+        self.diff = diff
+        self.backward: Dict[tuple, _Backward] = {}
+        self.forward: Optional[CapturedCall] = None
+        self.arena: Optional[_Arena] = None
+        self.restore_in: List[int] = []
+        self.backward_in: Optional[List[torch.Tensor]] = None
+
+
+class _Saved:
+    """A tensor autograd saved, as :func:`_recording_saved` packs it."""
+
+    __slots__ = ("tensor", "__weakref__")
+
+    def __init__(self, tensor: torch.Tensor):
+        self.tensor = tensor
+
+
+def _recording_saved(saved: list):
+    """Saved-tensor hooks that pack every tensor autograd saves (detached:
+    no reference cycle through a saved output) in a :class:`_Saved` and
+    append a weak reference to it to ``saved``: see :func:`_alive`."""
+    def pack(t):
+        held = _Saved(t.detach())
+        saved.append(weakref.ref(held))
+        return held
+
+    return torch.autograd.graph.saved_tensors_hooks(pack, lambda held: held.tensor)
+
+
+def _alive(saved: list) -> List[torch.Tensor]:
+    """The tensors of ``saved`` (weak references from
+    :func:`_recording_saved`) whose nodes are alive. Once the body has
+    returned those are the nodes its outputs' backward reaches: a node off
+    that graph (a branch whose result is dropped or read without a
+    gradient) is freed with what it saved, as eagerly."""
+    return [held.tensor for held in (ref() for ref in saved) if held is not None]
+
+
+class _GradCall:
+    r"""One call of :meth:`FrameGraphs.grad`: the key, the body and its
+    input structure, and, once the forward ran, the output structure."""
+
+    def __init__(self, graphs: "FrameGraphs", key: tuple, fn: Callable, spec: tuple,
+                 flags: Tuple[bool, ...], remat: bool):
+        self.graphs, self.key, self.fn, self.spec = graphs, key, fn, spec
+        self.flags, self.remat = flags, remat
+        self.entry: Optional[_GradEntry] = None
+        self.warm = False  # the warm-up's own autograd graph holds the backward
+
+    def body(self, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
+        return flatten(self.fn(*unflatten(self.spec, leaves)))[0]
+
+    def leaves_for_grad(self, leaves) -> List[torch.Tensor]:
+        """Detached aliases of ``leaves``, the float ones that need a
+        gradient made leaves that require one."""
+        return [t.detach().requires_grad_(f) for t, f in zip(leaves, self.flags)]
+
+    # -- forward ---------------------------------------------------------
+    def forward(self, leaves: List[torch.Tensor]) -> Tuple[List[torch.Tensor], list]:
+        r"""The outputs (tensors the call owns) and the tensors its
+        backward reads: with remat the inputs; without, the inputs whose
+        storages hold saved tensors and the arena (or, for a warm-up, the
+        leaves and outputs of its autograd graph)."""
+        table = self.graphs._remat if self.remat else self.graphs._kept
+        self.entry = table.get(self.key)
+        if self.entry is None:
+            return self._first(leaves, table)
+        if self.remat:
+            out = self.graphs._replay_frame(self.key[:-1], self.fn, self.spec, leaves)
+            return [o.clone() for o in flatten(out)[0]], list(leaves)
+        e = self.entry
+        fwd = e.forward
+        fwd.run(leaves)
+        self.graphs.replays += 1
+        arena = e.arena.gather(leaves[0].device)  # this frame's saved tensors
+        self.graphs.kept_bytes += arena.numel()
+        outs = []
+        for o in fwd.static_out:  # an output autograd saved is a view of the arena
+            mine = e.arena.view(arena, o)
+            outs.append(o.detach().clone() if mine is None else mine)
+        return outs, [*(leaves[j] for j in e.restore_in), arena]
+
+    def _first(self, leaves, table) -> Tuple[List[torch.Tensor], list]:
+        """The warm-up: the body under grad on aliases of the inputs, on the
+        side stream with synchronisation an error. It is this call's
+        result; without remat its autograd graph is this call's backward,
+        and the forward is captured from it."""
+        xs = self.leaves_for_grad(leaves)
+        with torch.enable_grad():
+            outs, out_spec = self.graphs._warm(
+                lambda: flatten(self.fn(*unflatten(self.spec, xs))))
+        self.entry = _GradEntry(out_spec, tuple(o.requires_grad for o in outs))
+        if self.remat:
+            table[self.key] = self.entry
+            return [o.detach().clone() for o in outs], list(leaves)
+        self._capture_forward(leaves)
+        table[self.key] = self.entry
+        self.warm = True
+        inputs = set(t.untyped_storage().data_ptr() for t in leaves)
+        # an output that aliases an input (a pass-through) is copied
+        owned = [o.detach().clone() if o.untyped_storage().data_ptr() in inputs else o.detach()
+                 for o in outs]
+        return owned, [*xs, *outs]
+
+    def _capture_forward(self, leaves) -> None:
+        static_in = [_static_like(t, f) for t, f in zip(leaves, self.flags)]
+        for dst, src in zip(static_in, leaves):
+            _write(dst, src)
+        device = leaves[0].device
+
+        def captured():
+            refs: list = []
+            with torch.enable_grad(), _recording_saved(refs):
+                outs = self.body(static_in)
+            return outs, _alive(refs)
+
+        graph, (static_out, saved), launches = self.graphs._captured(
+            self.key[0], "forward", captured, device)
+        e = self.entry
+        if tuple(o.requires_grad for o in static_out) != e.diff:
+            raise RuntimeError(f"the {self.key[0]!r} frame body's captured forward carries "
+                               "gradients on other outputs than its warm-up")
+        e.forward = CapturedCall(graph, static_in, static_out, e.out_spec, launches)
+        e.arena = _Arena(static_in, saved, static_out)
+        ins = {x.untyped_storage().data_ptr(): j for j, x in enumerate(static_in)}
+        e.restore_in = sorted({ins[p] for p in (t.untyped_storage().data_ptr() for t in saved)
+                               if p in ins})
+
+    # -- backward --------------------------------------------------------
+    def backward(self, saved, grads) -> List[Optional[torch.Tensor]]:
+        r"""The input gradients for the output gradients ``grads`` (None
+        where an output got none); ``saved`` is what :meth:`forward`
+        returned to keep."""
+        e = self.entry
+        diff = [i for i, d in enumerate(e.diff) if d]
+        mask = tuple(grads[i] is not None for i in diff)
+        sel = [i for i, m in zip(diff, mask) if m]
+        g = [grads[i] for i in sel]
+        want = [j for j, f in enumerate(self.flags) if f]
+        if not sel or not want:
+            return [None] * len(self.flags)
+        if self.warm:  # this call's own autograd graph, from the warm-up
+            xs, outs_w = saved[:len(self.flags)], saved[len(self.flags):]
+            got = self.graphs._warm(lambda: list(torch.autograd.grad(
+                [outs_w[i] for i in sel], [xs[j] for j in want], g,
+                retain_graph=True, allow_unused=True)))
+            return self._scatter(want, got)
+        bwd = e.backward.get(mask)
+        if self.remat:
+            if bwd is None:
+                return self._scatter(want, self._capture_backward_remat(mask, sel, want, saved, g))
+            for dst, src in zip(e.backward_in, saved):
+                _write(dst, src)
+        else:
+            for j, src in zip(e.restore_in, saved):
+                _write(e.forward.static_in[j], src)
+            e.arena.scatter(saved[-1])  # this frame's saved tensors
+            if bwd is None:
+                return self._scatter(want, self._capture_backward_kept(mask, sel, want, g))
+        self.graphs.replays += 1
+        return self._scatter(want, bwd(g))
+
+    def _scatter(self, want, got) -> List[Optional[torch.Tensor]]:
+        out: List[Optional[torch.Tensor]] = [None] * len(self.flags)
+        for j, t in zip(want, got):
+            out[j] = t
+        return out
+
+    def _backward_graph(self, mask, run, g) -> List[Optional[torch.Tensor]]:
+        """Warm ``run`` (the backward under synchronisation as an error:
+        its result is this call's), then capture it with static output
+        gradients."""
+        static_grads = [_static_like(t) for t in g]
+        for dst, src in zip(static_grads, g):
+            dst.copy_(src)
+        got = self.graphs._warm(lambda: run(static_grads))
+        present = [t is not None for t in got]
+        graph, grads_in, launches = self.graphs._captured(
+            self.key[0], "backward", lambda: [t for t in run(static_grads) if t is not None],
+            static_grads[0].device)
+        self.entry.backward[mask] = _Backward(graph, static_grads, grads_in, present, launches)
+        return got
+
+    def _capture_backward_kept(self, mask, sel, want, g):
+        e = self.entry
+        fwd = e.forward
+
+        def run(static_grads):
+            return list(torch.autograd.grad(
+                [fwd.static_out[i] for i in sel], [fwd.static_in[j] for j in want],
+                static_grads, retain_graph=True, allow_unused=True))
+
+        return self._backward_graph(mask, run, g)
+
+    def _capture_backward_remat(self, mask, sel, want, leaves, g):
+        e = self.entry
+        if e.backward_in is None:
+            e.backward_in = [_static_like(t, f) for t, f in zip(leaves, self.flags)]
+        for dst, src in zip(e.backward_in, leaves):
+            _write(dst, src)
+
+        def run(static_grads):
+            with torch.enable_grad():
+                outs = self.body(e.backward_in)
+                return list(torch.autograd.grad(
+                    [outs[i] for i in sel], [e.backward_in[j] for j in want],
+                    static_grads, allow_unused=True))
+
+        return self._backward_graph(mask, run, g)
+
+
+class _FrameFunction(torch.autograd.Function):
+    r"""One frame of :meth:`FrameGraphs.grad`: ``apply(call, *leaves)``
+    returns the output leaves and saves what the call's backward reads
+    (:meth:`_GradCall.forward`)."""
+
+    @staticmethod
+    def forward(ctx, call: _GradCall, *leaves):
+        ctx.set_materialize_grads(False)
+        outs, keep = call.forward(list(leaves))
+        ctx.call = call
+        ctx.mark_non_differentiable(*(o for o, d in zip(outs, call.entry.diff) if not d))
+        ctx.save_for_backward(*keep)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with torch.no_grad():
+            got = ctx.call.backward(list(ctx.saved_tensors), list(grads))
+        return (None, *got)
 
 
 class FrameGraphs:
     r"""A pipeline's CUDA graphs, one for each key, sharing one memory pool
     and one capture stream; :meth:`clear` frees them and the pool.
 
-    ``capture_s`` sums the seconds spent capturing (the warm-ups excluded);
-    ``len()`` is the number of graphs."""
+    ``capture_s`` sums the seconds spent capturing (the warm-ups excluded),
+    ``replays`` counts the replays and ``kept_bytes`` the bytes of the
+    arenas that replayed forwards without ``remat`` gave their calls;
+    ``len()`` is the number of graphs, :meth:`counts` the number of each
+    kind, :meth:`saved_bytes` the bytes the captured forwards' saved
+    tensors live in."""
 
     def __init__(self):
         self._entries: Dict[tuple, CapturedCall] = {}
+        self._kept: Dict[tuple, _GradEntry] = {}  # under autograd, remat=False
+        self._remat: Dict[tuple, _GradEntry] = {}  # under autograd, remat=True
         self._pool = None
         self._stream = None
         self.capture_s = 0.0
+        self.replays = 0
+        self.kept_bytes = 0
+
+    def counts(self) -> Dict[str, int]:
+        """The graphs of each kind: ``frame`` (no grad; with ``remat`` also
+        the forward under autograd), ``forward`` (under autograd, residuals
+        kept) and ``backward``."""
+        grad = [*self._kept.values(), *self._remat.values()]
+        return {"frame": len(self._entries),
+                "forward": sum(e.forward is not None for e in grad),
+                "backward": sum(len(e.backward) for e in grad)}
+
+    def saved_bytes(self) -> int:
+        """The bytes of the storages the captured forwards (without
+        ``remat``) keep their saved tensors in: one frame's for each key."""
+        return sum(e.arena.total for e in self._kept.values() if e.arena is not None)
 
     def __len__(self) -> int:
-        return len(self._entries)
+        return sum(self.counts().values())
 
     def clear(self) -> None:
         self._entries.clear()
+        self._kept.clear()
+        self._remat.clear()
         self._pool = self._stream = None
         self.capture_s = 0.0
+        self.replays = 0
+        self.kept_bytes = 0
 
     def __call__(self, name: str, fn: Callable, args: tuple, options: tuple = ()):
         r"""``fn(*args)``, from the graph of this call's key: replayed when
@@ -204,45 +638,103 @@ class FrameGraphs:
         replay is the graph's static outputs (see the module docstring)."""
         leaves, spec = flatten(args)
         key = cache_key(name, options, leaves, spec)
+        return self._replay_frame(key, fn, spec, leaves)
+
+    def grad(self, name: str, fn: Callable, args: tuple, options: tuple = (),
+             remat: bool = False):
+        r"""``fn(*args)`` under autograd, its forward and backward replayed
+        from graphs (the module docstring): the result is the caller's,
+        later calls leave it alone. The key adds to :meth:`__call__`'s
+        which inputs require a gradient."""
+        leaves, spec = flatten(args)
+        flags = tuple(t.requires_grad for t in leaves)
+        key = cache_key(name, options, leaves, spec) + (flags,)
+        call = _GradCall(self, key, fn, spec, flags, remat)
+        outs = _FrameFunction.apply(call, *leaves)
+        return unflatten(call.entry.out_spec, outs)
+
+    def _replay_frame(self, key: tuple, fn: Callable, spec: tuple,
+                      leaves: List[torch.Tensor]):
         entry = self._entries.get(key)
         if entry is not None:
+            self.replays += 1
             return entry(leaves)
         return self._capture(key, fn, leaves, spec)
 
-    def _capture(self, key: tuple, fn: Callable, leaves: List[torch.Tensor], spec: tuple):
-        device = leaves[0].device
+    def _side_stream(self, device):
         if self._stream is None:
             self._stream = torch.cuda.Stream(device)
             self._pool = torch.cuda.graph_pool_handle()
-        stream = self._stream
-        # the static inputs, outside the pool: the next call copies into them
-        static_in = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in leaves]
-        stream.wait_stream(torch.cuda.current_stream(device))
+        return self._stream
+
+    def _warm(self, fn: Callable, device=None):
+        r"""``fn()`` on the side stream with synchronisation an error: a
+        warm-up, whose result is the caller's."""
+        stream = self._side_stream(device)
+        current = torch.cuda.current_stream(device)
+        stream.wait_stream(current)
         with torch.cuda.stream(stream):
-            for dst, src in zip(static_in, leaves):
-                dst.copy_(src)
             mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
-            try:  # the warm-up: this call's result
-                result = fn(*unflatten(spec, static_in))
+            try:
+                result = fn()
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
+        current.wait_stream(stream)
+        return result
+
+    def _graph(self, fn: Callable, device):
+        r"""``fn()`` captured into a CUDA graph on the side stream, in the
+        shared pool: ``(graph, what fn returned)``. A replay runs what
+        ``fn`` launched and rewrites the tensors it returned.
+
+        Python's garbage collector is off during the capture: a collection
+        there could free an unreachable pipeline's graphs, and destroying a
+        graph is not permitted while a stream captures (it breaks the
+        capture)."""
+        graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, stream=self._side_stream(device)):
+                out = fn()
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.current_stream(device).wait_stream(self._stream)
+        return graph, out
+
+    def _captured(self, name: str, what: str, fn: Callable, device):
+        r""":meth:`_graph` of ``fn``, with the launches its capture counted
+        taken back and returned: ``(graph, result, launches)``. A failed
+        capture raises."""
         t0 = time.perf_counter()
         before = _read_counters()
-        graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=stream):
-                out = fn(*unflatten(spec, static_in))
+            graph, out = self._graph(fn, device)
         except RuntimeError as err:
             raise RuntimeError(
-                f"CUDA graph capture of the {key[0]!r} frame body (options {key[1]}) failed: "
-                f"{err}") from err
+                f"CUDA graph capture of the {name!r} frame {what} failed: {err}") from err
         finally:
-            captured = tuple(a - b for a, b in zip(_read_counters(), before))
+            launches = tuple(a - b for a, b in zip(_read_counters(), before))
             for counter, n in zip(LAUNCH_COUNTERS, before):
                 counter.launches = n
-        torch.cuda.current_stream(device).wait_stream(stream)
-        static_out, out_spec = flatten(out)
-        self._entries[key] = CapturedCall(graph, static_in, static_out, out_spec, captured)
         self.capture_s += time.perf_counter() - t0
+        return graph, out, launches
+
+    def _capture(self, key: tuple, fn: Callable, leaves: List[torch.Tensor], spec: tuple):
+        device = leaves[0].device
+        # the static inputs, outside the pool: the next call copies into them
+        static_in = [_static_like(t) for t in leaves]
+
+        def warm():
+            for dst, src in zip(static_in, leaves):
+                dst.copy_(src)
+            return fn(*unflatten(spec, static_in))
+
+        result = self._warm(warm, device)
+        graph, out, launches = self._captured(
+            key[0], f"body (options {key[1]})", lambda: fn(*unflatten(spec, static_in)), device)
+        static_out, out_spec = flatten(out)
+        self._entries[key] = CapturedCall(graph, static_in, static_out, out_spec, launches)
         return result

@@ -18,6 +18,15 @@
   later replays; the emulated gt forward against the JAX package's jitted
   one. On the CPU itself ``use_jit=True`` runs eagerly, with the same bits,
   and says why.
+- Gradients (``FrameGraphs.grad``), the backward emulated the same way: a
+  replay writes into the same static outputs, residual arena and gradient
+  buffers. Captured gradients (gt and tracked, ``remat`` on and off,
+  ``PointFusion`` and ``ICPSLAM``'s aggregate map) give the eager bits over
+  three steps, and a held step's gradients are unchanged by the next; two
+  frames through one key show the overwrite trap when the per-call copies
+  are not written back; ``refine()``'s steps replay with the eager bits;
+  the captured gradients against jitted ``jax.grad``. The online calls and
+  armed recovery stay eager under grad.
 """
 
 import contextlib
@@ -78,6 +87,17 @@ def test_eager_reason(use_jit, on_card, grad, armed, want):
     assert eager_reason(use_jit, on_card, grad, armed) == want
 
 
+@pytest.mark.parametrize("on_card,grad,armed,grad_graphs,want", [
+    (True, True, False, True, None),  # forward captures its gradients
+    (True, True, True, True, "recovery armed (relocalize_below > 0)"),
+    (False, True, False, True, "inputs not on the card"),
+    (True, True, False, False, "an input needs a gradient"),  # step, localize, map_update
+    (True, False, False, False, None),
+])
+def test_eager_reason_under_grad(on_card, grad, armed, grad_graphs, want):
+    assert eager_reason(True, on_card, grad, armed, grad_graphs) == want
+
+
 def test_eager_reason_reads_the_tensors():
     frames = _frames(L_=2)
     assert eager_reason_for(True, frames) == "inputs not on the card"
@@ -88,6 +108,7 @@ def test_eager_reason_reads_the_tensors():
         assert eager_reason_for(True, frames) is None
         assert eager_reason_for(True, frames, armed=True).startswith("recovery armed")
         assert eager_reason_for(True, depth) == "an input needs a gradient"
+        assert eager_reason_for(True, depth, grad_graphs=True) is None
         with torch.no_grad():
             assert eager_reason_for(True, depth) is None
 
@@ -186,7 +207,8 @@ def _fake_cuda(monkeypatch, graph_cls=_StandInGraph):
     monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda mode: None)
     monkeypatch.setattr(torch.cuda, "CUDAGraph", graph_cls)
     monkeypatch.setattr(torch.cuda, "graph",
-                        lambda g, pool=None, stream=None: contextlib.nullcontext())
+                        lambda g, pool=None, stream=None, capture_error_mode="global":
+                        contextlib.nullcontext())
 
 
 def _body(x):
@@ -230,41 +252,72 @@ def test_a_failed_capture_raises_and_stores_nothing(monkeypatch, counters):
     assert len(cache) == 0 and knn_cuda.launches == 1
 
 
+def test_the_capture_runs_with_the_garbage_collector_off(monkeypatch):
+    """A collection inside a capture could destroy an unreachable
+    pipeline's graphs, which breaks the capture: ``_graph`` turns the
+    collector off around it (and back on, also when the capture fails),
+    and captures in the default ("global") error mode."""
+    import gc
+
+    _fake_cuda(monkeypatch)
+    modes = []
+    monkeypatch.setattr(torch.cuda, "graph", lambda g, pool=None, stream=None,
+                        capture_error_mode="global": modes.append(capture_error_mode)
+                        or contextlib.nullcontext())
+    seen = []
+    cache = FrameGraphs()
+    cache._side_stream(None)
+    _, out = cache._graph(lambda: seen.append(gc.isenabled()) or 7, None)
+    assert out == 7 and seen == [False] and gc.isenabled() and modes == ["global"]
+
+    def fails():
+        raise RuntimeError("capture invalidated")
+
+    with pytest.raises(RuntimeError):
+        cache._graph(fails, None)
+    assert gc.isenabled()
+
+
 # ---------------------------------------------------------------------- #
 # The pipelines, with the capture emulated on the CPU
 # ---------------------------------------------------------------------- #
-def _emulated_capture(self, key, fn, leaves, spec):
-    """FrameGraphs._capture on the CPU: the warm-up is the result; the
-    graph's replay runs the body again on the static inputs and writes into
-    the static outputs the capture returned, as a replay does."""
-    static_in = [t.clone() for t in leaves]
-    result = fn(*unflatten(spec, static_in))
-    static_out, out_spec = flatten(fn(*unflatten(spec, static_in)))
-    outer = self
+def _emulated_graph(self, fn, device):
+    """FrameGraphs._graph on the CPU: ``fn`` runs once (the capture) and the
+    tensors it returns are the static ones; a replay runs ``fn`` again and
+    writes what it returns into them (outputs, saved residuals, gradients),
+    as a replay rewrites its graph's memory, unseen by autograd."""
+    out = fn()
+    static = flatten(out)[0]
 
-    class Replay:
-        def replay(self):
-            outer.replays += 1
-            fresh, _ = flatten(fn(*unflatten(spec, static_in)))
-            for dst, src in zip(static_out, fresh):
-                dst.copy_(src)
+    def replay():
+        before = [m.launches for m in graphs.LAUNCH_COUNTERS]  # a replay runs no wrapper
+        with torch.no_grad():
+            fresh = flatten(fn())[0]
+        for counter, n in zip(graphs.LAUNCH_COUNTERS, before):
+            counter.launches = n
+        with torch.no_grad():
+            for dst, src in zip(static, fresh):
+                # an expanded (stride-0) tensor: one element a broadcast run
+                idx = tuple(0 if st == 0 else slice(None) for st in dst.stride())
+                dst.data[idx].copy_(src[idx])
 
-    self._entries[key] = CapturedCall(Replay(), static_in, static_out, out_spec, (0, 0))
-    return result
+    return types.SimpleNamespace(replay=replay), out
+
+
+def _emulate(mp):
+    """Calls on CPU tensors taken as on the card, the capture emulated."""
+    _fake_cuda(mp)
+    mp.setattr(FrameGraphs, "_graph", _emulated_graph)
+
+    def on_card(use_jit, *trees, armed=False, grad_graphs=False):
+        return eager_reason(use_jit, True, graphs.needs_grad(*trees), armed, grad_graphs)
+
+    mp.setattr(icpslam_module, "eager_reason_for", on_card)
 
 
 @pytest.fixture
 def emulated(monkeypatch):
-    """Calls on CPU tensors taken as on the card, the capture emulated."""
-    monkeypatch.setattr(FrameGraphs, "_capture", _emulated_capture)
-    monkeypatch.setattr(FrameGraphs, "replays", 0, raising=False)
-
-    def on_card(use_jit, *trees, armed=False):
-        needs_grad = torch.is_grad_enabled() and any(
-            t.requires_grad for tree in trees for t in flatten(tree)[0])
-        return eager_reason(use_jit, True, needs_grad, armed)
-
-    monkeypatch.setattr(icpslam_module, "eager_reason_for", on_card)
+    _emulate(monkeypatch)
 
 
 TRACKED = dict(odom="gradicp", dsratio=4, numiters=3, motion_model="constant_velocity")
@@ -330,17 +383,26 @@ def test_step_localize_and_map_update_captured_give_the_eager_bits(emulated):
 
 
 def test_gradients_and_armed_recovery_run_eagerly(emulated):
+    """Under grad the online calls (``step``, ``map_update``) and armed
+    recovery stay eager, with their reasons and autograd's gradients."""
     frames = _frames(L_=3)
     depth = frames.depth_image.clone().requires_grad_()
+    grad_frames = frames.__class__(frames.rgb_image, depth, frames.intrinsics, frames.poses)
     slam = PointFusion(odom="gt")
-    pc, _ = slam(frames.__class__(frames.rgb_image, depth, frames.intrinsics, frames.poses))
+    pc, _ = slam.step(slam.empty_map(1, 3 * H * W, device="cpu"), grad_frames[:, 0])
     assert not slam.last_call_captured and slam.last_eager_reason == "an input needs a gradient"
+    pc = slam.map_update(pc, grad_frames[:, 1])
+    assert slam.last_eager_reason == "an input needs a gradient"
     pc.points.sum().backward()
     assert depth.grad is not None and len(slam.frame_graphs) == 0
     armed = PointFusion(odom="gradicp", dsratio=4, numiters=2, relocalize_below=0.2)
     armed(frames)
     assert not armed.last_call_captured and armed.last_eager_reason.startswith("recovery armed")
-    assert len(armed.frame_graphs) == 0
+    pc, _ = armed(grad_frames)
+    assert armed.last_eager_reason.startswith("recovery armed")
+    depth.grad = None
+    pc.points.sum().backward()
+    assert depth.grad is not None and len(armed.frame_graphs) == 0
 
 
 def test_emulated_capture_against_the_jax_packages_jit():
@@ -351,10 +413,7 @@ def test_emulated_capture_against_the_jax_packages_jit():
     jpc, _ = G.PointFusion(odom="gt", map_capacity=SCHEDULE, use_jit=True)(G.RGBDImages(
         jnp.asarray(rgb), jnp.asarray(depth), jnp.asarray(K), jnp.asarray(P)))
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(FrameGraphs, "_capture", _emulated_capture)
-        mp.setattr(FrameGraphs, "replays", 0, raising=False)
-        mp.setattr(icpslam_module, "eager_reason_for",
-                   lambda use_jit, *trees, armed=False: eager_reason(use_jit, True, False, armed))
+        _emulate(mp)
         slam = PointFusion(odom="gt", map_capacity=SCHEDULE)
         slam(_frames())
         pc, _ = slam(_frames())
@@ -388,3 +447,231 @@ def test_the_module_imports_neither_jax_nor_the_jax_package():
     names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
     names |= {n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
     assert not any(n.split(".")[0] in ("jax", "gradslam_tpu") for n in names)
+
+
+# ---------------------------------------------------------------------- #
+# Gradients: forward and backward replayed (the capture emulated)
+# ---------------------------------------------------------------------- #
+GRAD_PIPELINES = {
+    "gt": (PointFusion, dict(odom="gt")),
+    "tracked": (PointFusion, TRACKED),
+    "icpslam_aggregate": (ICPSLAM, dict(odom="icp", dsratio=4, numiters=3)),
+}
+
+
+def _grad_step(slam, arrays, depth_scale=1.0):
+    """One gradient step of ``sum(points^2)`` (plus ``sum(t^2)`` of the
+    poses for tracked runs) to the depths and the intrinsics:
+    ``(pointclouds, poses, g_depth, g_K)``."""
+    rgb, depth, K, P = (torch.from_numpy(np.asarray(a, np.float32)) for a in arrays)
+    d = (depth * depth_scale).requires_grad_()
+    k = K.clone().requires_grad_()
+    pc, poses = slam(frames_of(rgb, d, k, P))
+    loss = (pc.points ** 2).sum()
+    if slam.odom != "gt":
+        loss = loss + (poses[..., :3, 3] ** 2).sum()
+    loss.backward()
+    return pc, poses, d.grad, k.grad
+
+
+def frames_of(rgb, depth, K, P):
+    from gradslam_torch import RGBDImages
+    return RGBDImages(rgb, depth, K, P)
+
+
+def _same_grads(a, b) -> bool:
+    """Forward and both gradients hold the same bits."""
+    return (_same((a[0], a[1]), (b[0], b[1])) and torch.equal(a[2], b[2])
+            and torch.equal(a[3], b[3]))
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["remat_off", "remat_on"])
+@pytest.mark.parametrize("name", sorted(GRAD_PIPELINES))
+def test_captured_gradients_give_the_eager_bits(emulated, name, remat):
+    """Three steps through one captured pipeline against ``use_jit=False``:
+    the same map, poses and gradient bits. The first step warms up and
+    captures each key's forward, the second each set of output gradients'
+    backward, and the third replays every frame's forward and backward; a
+    held step's results are unchanged by the next."""
+    cls, kw = GRAD_PIPELINES[name]
+    arrays = synthetic_sequence(1, L, H, W, seed=0)
+    scales = (1.0, 1.01, 0.99)
+    eager = cls(map_capacity=SCHEDULE, use_jit=False, remat=remat, **kw)
+    want = [_grad_step(eager, arrays, s) for s in scales]
+    assert eager.last_eager_reason == "use_jit=False"
+    jit = cls(map_capacity=SCHEDULE, remat=remat, **kw)
+    got = [_grad_step(jit, arrays, scales[0])]
+    assert jit.last_call_captured and jit.last_eager_reason is None
+    held = tuple(clone_tree(x) for x in got[0])
+    got.append(_grad_step(jit, arrays, scales[1]))
+    counts, replays = jit.frame_graphs.counts(), jit.frame_graphs.replays
+    assert counts["backward"] >= len(SCHEDULE)
+    if remat:  # the forward replays the no-grad frame graph
+        assert counts["forward"] == 0 and counts["frame"] == len(SCHEDULE)
+    else:
+        assert counts["frame"] == 0 and counts["forward"] >= len(SCHEDULE)
+    got.append(_grad_step(jit, arrays, scales[2]))
+    assert jit.frame_graphs.counts() == counts  # nothing new captured
+    assert jit.frame_graphs.replays - replays == 2 * (L - (kw["odom"] != "gt"))
+    assert all(_same_grads(g, w) for g, w in zip(got, want))
+    assert _same_grads(got[0], held)
+    assert not torch.equal(got[0][2], got[1][2])
+
+
+def _two_frames_one_key(fg, remat):
+    """A two-frame recurrence whose frames share one key: frame 1's inputs
+    and activations differ from frame 0's, so a backward that read the
+    graph's last contents for frame 0 would be wrong."""
+    torch.manual_seed(0)
+    x = torch.randn(2, 3, 4, requires_grad=True)
+    k = torch.randn(4, requires_grad=True)
+
+    def body(state, xi, k):
+        y = torch.sin(state * xi) * k + torch.tanh(state) * xi.exp()
+        return y, (y * y).sum(dim=-1)
+
+    s = torch.ones(3, 4).requires_grad_()
+    outs = []
+    for i in range(2):
+        s, n = body(s, x[i], k) if fg is None else fg.grad("toy", body, (s, x[i], k),
+                                                          remat=remat)
+        outs.append(n)
+    (outs[0].sum() + (s ** 2).sum()).backward()
+    return x.grad, k.grad
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["remat_off", "remat_on"])
+def test_two_frames_through_one_key_keep_their_own_residuals(monkeypatch, remat):
+    """Frames 0 and 1 through one key, twice (the second time both replay):
+    the eager gradients. With the writes of each call's saved inputs,
+    outputs and residuals back into the graph turned into no-ops, the
+    backward reads the last frame's: the gradients differ (the trap)."""
+    _fake_cuda(monkeypatch)
+    monkeypatch.setattr(FrameGraphs, "_graph", _emulated_graph)
+    want = _two_frames_one_key(None, remat)
+    fg = FrameGraphs()
+    for _ in range(2):
+        got = _two_frames_one_key(fg, remat)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert fg.replays > 0
+    real_backward = graphs._GradCall.backward
+
+    def backward_without_write_back(self, *args):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(graphs, "_write", lambda dst, src: None)
+            mp.setattr(graphs._Arena, "scatter", lambda self, arena: None)
+            return real_backward(self, *args)
+
+    monkeypatch.setattr(graphs._GradCall, "backward", backward_without_write_back)
+    broken = _two_frames_one_key(fg, remat)
+    assert not all(torch.equal(a, b) for a, b in zip(broken, want))
+
+
+def test_the_arena_keeps_the_spans_the_saved_tensors_and_outputs_read():
+    """An arena keeps, of each storage a saved tensor lives in, the bytes
+    from a 16-byte boundary below its first read byte to its last (an
+    output in that storage widens it); static inputs' storages stay out.
+    A view of a gathered arena reads the tensor's bits, and a scatter
+    writes them back."""
+    static = torch.arange(8.0)
+    big = torch.arange(100, dtype=torch.float32)
+    part = big[40:50]  # bytes 160-200 of a 400-byte storage
+    strided = torch.arange(60, dtype=torch.int64).view(6, 10)[1:4, ::3]
+    out = big[52:54]  # an output beside the saved slice
+    arena = graphs._Arena([static], [static[2:4], part, strided, part[1:3]], [out])
+    assert len(arena.views) == 2 and arena.total == 64 + 240  # bytes 160-216, 80-320
+    got = arena.gather(static.device)
+    for t in (part, strided, out, part[1:3]):
+        v = arena.view(got, t)
+        assert v.dtype == t.dtype and v.stride() == t.stride() and torch.equal(v, t)
+    assert arena.view(got, static) is None and arena.view(got, torch.ones(2)) is None
+    big.zero_()
+    arena.scatter(got)
+    assert torch.equal(big[40:54], torch.arange(40, 54, dtype=torch.float32))
+    assert torch.equal(big[:40], torch.zeros(40)) and torch.equal(big[56:], torch.zeros(44))
+
+
+def test_an_in_place_edit_of_a_saved_output_raises_as_eagerly(monkeypatch):
+    """Without ``remat`` an output that autograd saved (``exp``'s) is a view
+    of the call's arena: an in-place edit of it before the backward raises,
+    as it does eagerly, on the warm-up call and on replayed ones, instead
+    of changing the residuals the backward reads."""
+    _fake_cuda(monkeypatch)
+    monkeypatch.setattr(FrameGraphs, "_graph", _emulated_graph)
+
+    def body(x, k):
+        y = torch.exp(x * k)
+        return y, y.sum()
+
+    fg = FrameGraphs()
+    torch.manual_seed(0)
+    for _ in range(3):
+        x, k = torch.randn(5, requires_grad=True), torch.randn(5, requires_grad=True)
+        for run in (body, lambda *a: fg.grad("toy", body, a)):
+            y, _ = run(x, k)
+            with pytest.raises(RuntimeError, match="modified by an inplace operation|"
+                               "is a view and is being modified inplace"):
+                y.mul_(2)
+                y.sum().backward()
+    assert fg.replays == 2 and fg.counts()["forward"] == 1
+
+
+def test_refine_steps_replay_with_the_eager_bits(monkeypatch):
+    """``refine()`` keeps one pipeline across its Adam steps: with the
+    capture emulated its steady steps replay, and the losses and recovered
+    calibration hold the CPU's eager bits."""
+    from gradslam_torch.examples import gradient_refinement as example
+
+    kw = dict(H=24, W=32, L=3, steps=3, lr=0.08, verbose=False, device="cpu")
+    want = example.refine(**kw)
+    made = []
+    real_init = PointFusion.__init__
+
+    def init(self, *a, **k):
+        real_init(self, *a, **k)
+        made.append(self)
+
+    _emulate(monkeypatch)
+    monkeypatch.setattr(PointFusion, "__init__", init)
+    got = example.refine(**kw)
+    assert got == want
+    (slam,) = made
+    assert slam.last_call_captured and slam.frame_graphs.counts()["backward"] > 0
+    assert slam.frame_graphs.replays >= 2 * 2 * (kw["L"] - 1)
+
+
+@pytest.fixture(scope="module")
+def grad_clip():
+    from . import _gradparity as GP
+    return GP, GP.clip()
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["remat_off", "remat_on"])
+@pytest.mark.parametrize("name,bar", [("gt", 1e-4), ("tracked", 1e-3)])
+def test_captured_gradients_against_the_jax_packages_grad(grad_clip, name, bar, remat):
+    """The emulated captured gradients against jitted ``jax.grad`` of the
+    same loss on the same numpy clip, at the gradient tests' bars (1e-4 of
+    max |g| gt, 1e-3 tracked: ``tests/port/test_torch_grad*.py``)."""
+    GP, data = grad_clip
+    kw = dict(odom="gt") if name == "gt" else dict(odom="gradicp", dsratio=2, numiters=3)
+    tracked = name == "tracked"
+    jd, jk = _jax_grads(GP, data, kw, tracked)
+    with pytest.MonkeyPatch.context() as mp:
+        _emulate(mp)
+        slam = PointFusion(remat=remat, **kw)
+        for _ in range(2):  # the second step replays every frame
+            pc, poses, gd, gk = _grad_step(slam, data[:4])
+        assert slam.last_call_captured and slam.frame_graphs.replays > 0
+    for got, want in ((gd, jd), (gk, jk)):
+        scale = float(np.abs(want).max())
+        assert scale > 0 and GP.max_gap(got.numpy(), want) <= bar * scale
+
+
+_JAX_GRADS = {}
+
+
+def _jax_grads(GP, data, kw, tracked):
+    key = (tuple(sorted(kw.items())), tracked)
+    if key not in _JAX_GRADS:
+        _JAX_GRADS[key] = GP.jax_grads("PointFusion", kw, data, tracked)
+    return _JAX_GRADS[key]
