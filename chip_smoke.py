@@ -84,14 +84,14 @@ Phases (each raises on failure; nothing is caught):
     ``use_jit``; the first call's result unchanged after later calls
     replayed its graphs; frames/s of both calls, device busy share and
     events (a device-only profile), capture seconds, graphs and peak memory
-    of each mode. A gradient row and an armed row run eagerly
-    (``last_call_captured`` False), and one 1-NN call (three kernels) is
-    captured, replayed after other allocations and on new points, and held
-    bit for bit to its eager call. Every other phase runs its pipelines
-    with the default ``use_jit=True`` (captured where unarmed and
-    gradient-free), except the armed rows and the semantic rows, which
-    spy on each kernel call or read back inside a frame and so run with
-    ``use_jit=False``;
+    of each mode. A gradient row and an armed row run captured (the armed
+    row's graphs a gate and a fuse graph), and one 1-NN call (three
+    kernels) is captured, replayed after other allocations and on new
+    points, and held bit for bit to its eager call. Every other phase runs
+    its pipelines with the default ``use_jit=True`` (captured, armed or
+    not, with or without gradients), except the semantic rows and each
+    gradient row's spied eager step, which spy on each kernel call and so
+    run with ``use_jit=False``; the armed rows run in both modes;
 12. the differentiability slice: gradients of ``sum(points^2)`` of the map
     to the depth images and the intrinsics (``scripts/bench_all.py:682-840``).
     (a) On a B=2 64x48x4 clip, gt sort_full, gt windowed + scatter, gradICP
@@ -102,7 +102,8 @@ Phases (each raises on failure; nothing is caught):
     ``chamfer_distance`` card against CPU, and the gradient example's
     ``refine()`` on the card at its CPU test's settings and bars.
     (b) The bench_all rows at full width (``GRAD_ROWS``), each with
-    ``use_jit=False`` and then captured (``grad_row``): s/step first and
+    ``use_jit=False`` and then captured (``grad_row``; eager profiled
+    only in ``GRAD_EAGER_PROFILED`` rows): s/step first and
     steady, device busy share and events, graphs, capture s, peak memory
     (the captured steady step's own peak within ``GRAD_PEAK_SLACK`` of
     eager's) and what the graphs keep resident, finite nonzero max |g|,
@@ -117,7 +118,12 @@ Phases (each raises on failure; nothing is caught):
     640x480x30's peak. (c) gt 640x480x30 and gradICP 320x240x30 with remat
     against the JAX package's CPU gradients (``tests/port/data/
     grad_jax_cpu.npz``, bars ``GRAD_GOLDEN_BARS``). (d) A profile of one gt
-    640x480x30 remat step;
+    640x480x30 remat step. (e) The armed row (``ARMED_GRAD_ROW``: the
+    kidnap 1-NN row at 640x480x11 with remat, its relocalization on frame
+    8 crossed by the gradient), the last of ``GRAD_ROWS``, as (b): its
+    launches derived from its branch frames, the same branch frames in
+    every step of both modes, the profiled step's phases split at the
+    branch (``PhaseTrace``);
 13. the recovery slice (before the gradient phase; ``recovery_phase``), each
     row held against the JAX package's CPU run of it
     (``tests/port/data/recovery_jax_cpu.npz``, ``large_map_jax_cpu.npz``):
@@ -125,14 +131,26 @@ Phases (each raises on failure; nothing is caught):
     640x480 armed with the 1-NN and the projective tracker: post-kidnap
     unaligned RMSE below 0.02 m and within 2x of the golden's, the
     relocalization on the golden's frames, the unarmed run lost (above
-    0.05 m); ``relocalize`` alone with the K=5 default grid as one batch of
-    5 and one hypothesis at a time (same winner); (2) the armed healthy
-    rows on the easy 640x480x30 clip: poses and map SHA-256-equal to the
-    unarmed run, no branch run, frames/s, device events and peak memory
-    against it; (3) the drift clip of ``tests/slam/test_anchor_recover.py``
-    card against CPU frame by frame within 2e-4 (same branches), the plain
-    run drifting, the anchored one re-solving, their errors reported
-    beside the golden's (``DRIFT_MIN_FINAL_M``); (4) sub-pixel association,
+    0.05 m), each armed row run eagerly and beside it captured (a gate
+    graph, one read back and a fuse graph a frame), first call and
+    replayed SHA-256-equal to eager on the same relocalization frames with
+    the same launches (a replay's added up by the counters, and a profiled
+    replay's device trace showing no more kernels than derived; the kernels
+    line lists the eager counts); ``relocalize``
+    alone with the K=5 default grid as one batch of 5 and one hypothesis
+    at a time (same winner); (2) the armed healthy rows on the easy
+    640x480x30 clip, eager and captured: poses and map SHA-256-equal to
+    the unarmed run, no branch run, equal launches in both modes (the
+    captured rows' device trace showing no more kernels than derived), one
+    read back a tracked frame (a synchronizing operation more than the
+    unarmed row of the same mode), frames/s, device busy share and events,
+    device-to-device copies and peak memory against the unarmed row of the
+    same mode, and the device time of one copy of the map; (3) the drift clip of
+    ``tests/slam/test_anchor_recover.py`` card against CPU frame by frame
+    within 2e-4 (same branches), the plain run drifting, the anchored one
+    re-solving (eagerly, and captured beside it as the kidnap rows), their
+    errors reported beside the golden's
+    (``DRIFT_MIN_FINAL_M``); (4) sub-pixel association,
     with and without point rows, on the easy clip: aligned ATE within 2x
     of the golden, map within 0.2%; the hard-clip row card against CPU at
     160x120x9 frame by frame, and at 640x480x30 beside the golden; (5) the
@@ -266,6 +284,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -317,6 +336,7 @@ from gradslam_torch.slam.fusionutils import (
 from gradslam_torch.structures import pointclouds as pointclouds_module
 from gradslam_torch.structures.io import load_ply
 from gradslam_torch.structures.pointclouds import scatter_rows, scatter_rows_into
+from gradslam_torch.utils import graphs as graphs_module
 from gradslam_torch.utils.precision import disable_tf32, tf32_disabled
 from gradslam_torch.utils.trajectory_io import load_trajectory_tum
 
@@ -420,28 +440,23 @@ def fusion_modes(name: str) -> tuple:
                           cap, H * W, window)
 
 
-def grad_launches(name: str) -> dict:
-    """Launches of one gradient step of a row, derived from the code:
-    ``{kernel: (forward, backward, recompute)}``. Fusion launches 2 scatters
-    a frame with sort_full + gather (winner table, row inversion) and 3
-    with windowed (the window first); a 1-NN frame adds its downsample (3)
-    and map window (2), a projective frame the map window (2); the 1-NN
-    runs twice an iteration. The backward launches the scatter once for
+def grad_launches(name: str, log: dict) -> dict:
+    """Launches of one gradient step of a row, derived from the code given
+    the frames on which its recovery branches ran (its ``recovery_log``):
+    ``{kernel: (forward, backward, recompute)}``. The forward is
+    :func:`recovery_launches`'. The backward launches the scatter once for
     each scatter merge whose old map needs a gradient (every frame but the
     first, whose map is the empty buffer); the 1-NN has no backward. With
-    remat, the recompute runs each checkpointed frame body again: every
-    gt frame, every tracked frame but the bootstrap."""
+    remat, the recompute runs each checkpointed body again, a branch's
+    too: everything but a tracked row's bootstrap (frame 0's map update
+    and, anchored, its anchor snapshot)."""
     (_, L, H, W), cap, kw, _ = GRAD_ROWS[name]
-    association, merge = fusion_modes(name)
-    scatter_merge = merge == "scatter"
-    fusion = 3 if association == "windowed" else 2
-    if kw["odom"] == "gt":
-        return {"knn": (0, 0, 0),
-                "scatter": (L * fusion, (L - 1) if scatter_merge else 0, L * fusion)}
-    knn_frame = 0 if kw.get("odom_assoc") == "projective" else 2 * kw["numiters"]
-    odo = 2 if knn_frame == 0 else 3 + 2
-    return {"knn": (knn_frame * (L - 1), 0, knn_frame * (L - 1)),
-            "scatter": (fusion + (L - 1) * (fusion + odo), 0, (L - 1) * (fusion + odo))}
+    fwd = recovery_launches(dict(kw, map_capacity=cap), (1, L, H, W), log)
+    boot = 0 if kw["odom"] == "gt" else fusion_scatters(cap, H, W, kw)
+    boot += 5 if kw.get("anchor_every") else 0
+    merges = L - 1 if fusion_modes(name)[1] == "scatter" else 0
+    return {"knn": (fwd["knn"], 0, fwd["knn"]),
+            "scatter": (fwd["scatter"], merges, fwd["scatter"] - boot)}
 
 
 # (c) the JAX package's CPU gradients of two rows with remat
@@ -508,8 +523,16 @@ def kidnap_clip() -> tuple:
     B_, L_, H_, W_ = KIDNAP_SHAPE
     rgb, depth, K, P = synthetic_sequence(B_, L_, H_, W_, speed=KIDNAP_SPEED)
     idx = list(KIDNAP_ORDER)
-    jump = tuple(float(x) for x in P[0, 0, :3, 3] - P[0, 7, :3, 3])
-    return rgb[:, idx], depth[:, idx], K, P[:, idx], jump
+    return rgb[:, idx], depth[:, idx], K, P[:, idx], kidnap_jump(P)
+
+
+def kidnap_jump(P=None) -> tuple:
+    """The kidnap's camera-local jump from frame 7 back to frame 0 of the
+    clip's poses ``P``; without them, of a 1x1 render of the clip (its
+    poses do not depend on its size)."""
+    if P is None:
+        P = synthetic_sequence(1, 8, 1, 1, speed=KIDNAP_SPEED)[3]
+    return tuple(float(x) for x in P[0, 0, :3, 3] - P[0, 7, :3, 3])
 
 
 def kidnap_rows(jump) -> dict:
@@ -527,9 +550,25 @@ def kidnap_rows(jump) -> dict:
     }
 
 
+# (e) of the gradient phase, armed recovery under grad: the kidnap 1-NN row
+# at 640x480x11 with remat, its relocalization on frame 8 crossed by the
+# gradient; its inputs the kidnapped clip (GRAD_CLIPS), its launches derived
+# from the frames its branches ran on (grad_launches)
+ARMED_GRAD_ROW = "kidnap_knn_640x480x11"
+_KL = len(KIDNAP_ORDER)
+GRAD_ROWS[ARMED_GRAD_ROW] = ((1, _KL, *KIDNAP_SHAPE[2:]), _KL * KIDNAP_SHAPE[2] * KIDNAP_SHAPE[3],
+                             dict(KIDNAP_BASE, **kidnap_rows(kidnap_jump())["knn"]), (True,))
+GRAD_CLIPS = {ARMED_GRAD_ROW: lambda: kidnap_clip()[:4]}
+# rows whose eager steps end in a profiled one too (device busy share eager
+# -> captured, the step split at its branch): an eager step under the
+# profiler took 1.3-3.2x its unprofiled time (PERF.md §6, PR 15), and PR 14
+# profiled every other row's
+GRAD_EAGER_PROFILED = (ARMED_GRAD_ROW,)
+
+
 # (2) the armed healthy rows (scripts/bench_all.py:378-388, and :301-312 at
-# full width) on the easy 640x480x30 clip: armed, they must give the
-# unarmed run's bits.
+# full width) on the easy 640x480x30 clip: armed, eager and captured, they
+# must give the unarmed run's bits.
 ARMED_BASE = dict(odom="gradicp", odom_assoc="projective", odom_sym_normals=True,
                   dsratio=4, numiters=10, map_capacity=SCHEDULE)
 ARMED_ROWS = {"unarmed": {}, "relocalize": dict(relocalize_below=0.2),
@@ -702,6 +741,10 @@ SCATTER_LAUNCHES = {
     "icpslam_gt": 3 * L,
 }
 LAUNCHES = {}  # path -> its last timed run's {"knn": n, "scatter": n}
+# the same for runs replayed from graphs whose eager run is in LAUNCHES: the
+# counters add each graph's captured launches on replay, so these are held
+# against the eager counts and a device trace, and left out of the kernels line
+CAPTURED_LAUNCHES = {}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
 
@@ -1632,6 +1675,15 @@ def grad_inputs(shape, device):
     return tuple(torch.from_numpy(a).to(device) for a in grad_arrays(shape))
 
 
+def row_inputs(name: str, device):
+    """A gradient row's ``(rgb, depth, K, poses)`` on ``device``: its clip
+    (``GRAD_CLIPS``), else :func:`grad_inputs` of its shape."""
+    clip = GRAD_CLIPS.get(name)
+    if clip is None:
+        return grad_inputs(GRAD_ROWS[name][0], device)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in clip())
+
+
 def grad_step(slam, inputs, spy=None, phase=contextlib.nullcontext):
     """One gradient step: the forward, ``sum(points^2)`` of the final map,
     its backward to the depth images and the intrinsics. Both kernels'
@@ -1674,12 +1726,53 @@ class PhaseTrace:
     counters. The trace can miss a few events of a long phase (PERF.md §7),
     so a count it shows is at most the launches made. Each session starts
     with a marker kernel (``torch.cuda._sleep``) and a synchronize, left out
-    of the numbers."""
+    of the numbers.
+
+    Given the pipeline ``slam``, its recovery branches (``BRANCHES``, run
+    eagerly between the graphs) launch a short marker kernel where they
+    start and end (in the forward, and where the remat recompute starts: it
+    stops at the last tensor the backward needs), and where the gradient
+    reaches a branch's pose and leaves it for the pose it started from.
+    ``branch`` then holds, for each phase with marks, ``(the device seconds
+    from the first mark to the last, the phase's device span, the
+    marks)``: the phase split at its branches."""
 
     MARKER = "spin_kernel"
+    MARK_NS = 10_000  # a branch's mark spins for under 10 us, the session's for more
+    BRANCHES = ("_relocalize", "_anchor_resolve")
 
-    def __init__(self):
+    def __init__(self, slam=None):
         self.busy, self.events, self.forward_b, self.kernels = 0.0, 0, None, {}
+        self.slam, self.branch, self.phase = slam, {}, None
+
+    @staticmethod
+    def _mark(*_):
+        torch.cuda._sleep(1)
+
+    @contextlib.contextmanager
+    def _marked(self):
+        if self.slam is None:
+            yield
+            return
+
+        def marked(real):
+            def branch(*args):
+                self._mark()
+                out = real(*args)
+                if self.phase == "forward" and out[0].requires_grad:  # not the recompute
+                    out[0].register_hook(self._mark)
+                    args[2].register_hook(self._mark)  # the pose the branch started from
+                self._mark()
+                return out
+            return branch
+
+        for attr in self.BRANCHES:
+            setattr(self.slam, attr, marked(getattr(self.slam, attr)))
+        try:
+            yield
+        finally:
+            for attr in self.BRANCHES:
+                delattr(self.slam, attr)
 
     @contextlib.contextmanager
     def __call__(self, name: str):
@@ -1690,18 +1783,29 @@ class PhaseTrace:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(100_000)
             torch.cuda.synchronize()
-            yield
+            self.phase = name
+            with self._marked():
+                yield
             torch.cuda.synchronize()
         if name == "forward":
             self.forward_b = torch.cuda.memory_allocated()
-        device = [e for e in prof.profiler.kineto_results.events()
-                  if e.device_type() == DeviceType.CUDA and self.MARKER not in e.name()]
-        busy = union_s([(e.start_ns(), e.start_ns() + e.duration_ns()) for e in device], 1e-9)
+        events = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
+        # the branches' marks spin for one cycle, the session's for 100,000
+        # (which the trace may not hold)
+        marks = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+                       if self.MARKER in e.name() and e.duration_ns() < self.MARK_NS)
+        device = [e for e in events if self.MARKER not in e.name()]
+        spans = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in device]
+        busy = union_s(spans, 1e-9)
         check_profile(f"grad {name} phase", busy, len(device))
         self.busy += busy
         self.events += len(device)
         self.kernels[name] = {k: sum(kernel in e.name() for e in device)
                               for k, kernel in COUNTED_KERNELS.items()}
+        if len(marks) > 1:
+            span = (max(b for _, b in spans) - min(a for a, _ in spans)) * 1e-9
+            self.branch[name] = ((marks[-1][0] - marks[0][1]) * 1e-9, span, len(marks))
 
 
 class ScatterSpy:
@@ -1829,11 +1933,11 @@ def grad_small_phase() -> None:
             f"{remat_gap[1]:.3e}; bar {bar:g}")
 
 
-def grad_expect(name: str, remat: bool) -> dict:
+def grad_expect(name: str, remat: bool, log: dict) -> dict:
     """A row's launches in the forward and the backward phase of a step
-    (:func:`grad_launches`; with remat the backward phase adds the
-    recompute)."""
-    fwd, bwd, rec = zip(*grad_launches(name).values())
+    whose branches ran on the frames of ``log`` (:func:`grad_launches`;
+    with remat the backward phase adds the recompute)."""
+    fwd, bwd, rec = zip(*grad_launches(name, log).values())
     return {"forward": dict(zip(("knn", "scatter"), fwd)),
             "backward": {k: b + (r if remat else 0) for k, b, r in zip(("knn", "scatter"), bwd, rec)}}
 
@@ -1854,43 +1958,58 @@ def grad_row(name: str, remat: bool):
     """A row's gradient steps with ``use_jit=False`` and then ``True``, a
     fresh pipeline each. Eager: a first step (its scatter inputs through
     the kernel and the plain version, :class:`ScatterSpy`), a steady step
-    and a profiled one. Captured: a first step (the warm-ups and the
-    forward captures), a second (the backward captures of the warm-up
-    frames' keys), a steady step (every frame's forward and backward
-    replayed) and a profiled one. Every step's launches in the forward and
-    the backward phase equal :func:`grad_launches`'. Captured against eager:
-    map, poses and depth gradients SHA-256-equal, the intrinsics gradient
-    bit-equal or within ``GRAD_SUM_ORDER_BAR`` of its largest magnitude
-    (the frames' contributions summed in another order); where the two
-    eager steps' depth gradients differ (atomic adds on the card), the
-    captured one within ``GRAD_SUM_ORDER_BAR`` too. The first captured
+    and, for ``GRAD_EAGER_PROFILED`` rows, a profiled one. Captured: a
+    first step (the warm-ups and the forward
+    captures), a second (the backward captures of the warm-up frames'
+    keys), a steady step (every frame's forward and backward replayed) and
+    a profiled one. Every step's launches in the forward and the backward
+    phase equal :func:`grad_launches`' for the frames its branches ran on,
+    and every step runs them on the first step's frames. Captured against
+    eager: map, poses and depth gradients SHA-256-equal, the intrinsics
+    gradient bit-equal or within ``GRAD_SUM_ORDER_BAR`` of its largest
+    magnitude (the frames' contributions summed in another order); where
+    the two eager steps' depth gradients differ (atomic adds on the card),
+    the captured one within ``GRAD_SUM_ORDER_BAR`` too. The first captured
     step's results unchanged by the later steps, ``last_call_captured``
     True. Reports s/step first and steady (host clock, ending in a
-    synchronize), the steady step's peak memory, device busy time and
-    events, graphs and capture s for both modes. Returns ``({mode:
-    (g_depth, g_K)}, {mode: measurements})``."""
+    synchronize), the steady step's peak memory, the profiled step's device
+    busy time and events and its split at its branches
+    (:class:`PhaseTrace`), graphs and capture s for both modes. Returns
+    ``({mode: (g_depth, g_K)}, {mode: measurements})``."""
     shape, cap, kw, _ = GRAD_ROWS[name]
     tag = f"{name} remat={'on' if remat else 'off'}"
-    inputs = grad_inputs(shape, "cuda")
-    expect = grad_expect(name, remat)
+    inputs = row_inputs(name, "cuda")
+    branches = None
     B, L = shape[:2]
     rows, grads, results = {}, {}, {}
     for mode, use_jit in (("eager", False), ("captured", True)):
         slam = PointFusion(map_capacity=cap, remat=remat, use_jit=use_jit, **kw)
         steps, secs = [], []
-        for i in range(2 if mode == "eager" else 3):
+        steady = 1 if mode == "eager" else 2  # the steady step's index
+        profile = mode == "captured" or name in GRAD_EAGER_PROFILED
+        trace, kept = None, 0
+        for i in range(steady + 1 + profile):
             spy = ScatterSpy() if mode == "eager" and i == 0 else contextlib.nullcontext()
+            if i > steady:  # the profiled step
+                trace, kept = PhaseTrace(slam), slam.frame_graphs.kept_bytes
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            start = torch.cuda.memory_allocated()
+            if i == steady:
+                torch.cuda.reset_peak_memory_stats()
+                start = torch.cuda.memory_allocated()
             t0 = time.perf_counter()
             with spy:
-                out = grad_step(slam, inputs, spy if isinstance(spy, ScatterSpy) else None)
+                out = grad_step(slam, inputs, spy if isinstance(spy, ScatterSpy) else None,
+                                trace or contextlib.nullcontext)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
-            if out[4] != expect:
+            if i == steady:
+                peak = torch.cuda.max_memory_allocated()
+            expect = grad_expect(name, remat, slam.recovery_log)
+            branches = branches or branch_frames(slam)
+            if out[4] != expect or branch_frames(slam) != branches:
                 raise AssertionError(f"grad {tag} {mode} step {i}: launches {out[4]}, expected "
-                                     f"{expect}")
+                                     f"{expect}; branches {branch_frames(slam)}, the first "
+                                     f"step's {branches}")
             if slam.last_call_captured != use_jit:
                 raise AssertionError(f"grad {tag} {mode}: last_call_captured "
                                      f"{slam.last_call_captured} ({slam.last_eager_reason})")
@@ -1903,24 +2022,19 @@ def grad_row(name: str, remat: bool):
             steps.append((grad_digests(out), out[2].detach().clone(), out[3].detach().clone()))
             if i == 0:
                 held = out
-        peak = torch.cuda.max_memory_allocated()  # the last (steady) step's
         if not tf32_disabled():
             raise AssertionError(f"grad {name}: TF32 was turned on during the step")
         if grad_digests(held) != steps[0][0]:
             raise AssertionError(f"grad {tag} {mode}: the first step's results changed in the "
                                  "later steps")
-        trace, kept = PhaseTrace(), slam.frame_graphs.kept_bytes
-        out = grad_step(slam, inputs, phase=trace)
         kept = slam.frame_graphs.kept_bytes - kept
         # the trace may miss an event but never shows one more: a kernel
         # that a graph held twice would show here (one it lost would change
         # the results, held SHA-256-equal to eager's below)
-        over = [(ph, k) for ph in expect for k in expect[ph]
-                if trace.kernels[ph][k] > expect[ph][k]]
-        if out[4] != expect or over:
-            raise AssertionError(f"grad {tag} {mode} profiled step: launches {out[4]}, the "
-                                 f"device trace's kernels {trace.kernels}, expected {expect}")
-        busy, events = trace.busy, trace.events
+        if trace is not None and any(trace.kernels[ph][k] > expect[ph][k]
+                                     for ph in expect for k in expect[ph]):
+            raise AssertionError(f"grad {tag} {mode} profiled step: the device trace's kernels "
+                                 f"{trace.kernels}, expected at most {expect}")
         launches = out[4]
         if not use_jit:  # counted where the wrappers launch (a replay runs none)
             GRAD_LAUNCHES[tag] = launches
@@ -1937,24 +2051,31 @@ def grad_row(name: str, remat: bool):
         capture_s = slam.frame_graphs.capture_s
         del out, held
         memory = graph_memory(slam.frame_graphs)
-        rows[mode] = dict(first_s=secs[0], steady_s=secs[-1], peak_b=peak, start_b=start,
-                          busy_s=busy,
-                          events=events, graphs=graphs, capture_s=capture_s,
-                          forward_b=trace.forward_b, kept_b=kept, **memory)
+        t = secs[steady]
+        busy = trace and trace.busy
+        rows[mode] = dict(first_s=secs[0], steady_s=t, peak_b=peak, start_b=start,
+                          busy_s=busy, events=trace and trace.events,
+                          branch=trace and trace.branch, graphs=graphs, capture_s=capture_s,
+                          forward_b=trace and trace.forward_b, kept_b=kept, **memory)
+        if trace is None:
+            profiled = "; not profiled (PERF.md §6 holds PR 14's profile of this step)"
+        else:
+            profiled = (
+                f"; the profiled step: device busy {busy:.4f} s ({100 * busy / t:.1f}% of the "
+                f"steady step), {trace.events} device events, its device trace shows "
+                f"{trace.kernels} ({'all' if trace.kernels == expect else 'not all'} of them)"
+                + "".join(f"; its {ph} phase's device span {span:.4f} s, the branches' "
+                          f"{part:.4f} s of it ({100 * part / span:.1f}%, {marks} marks)"
+                          for ph, (part, span, marks) in trace.branch.items())
+                + f"; allocated after its forward {trace.forward_b} B, its arenas {kept} B")
         log(f"grad {tag} {mode} {shape} capacity {cap}: first step {secs[0]:.4f} s, steady "
-            f"{B * L / secs[-1]:.4f} frames/s ({secs[-1]:.4f} s a step), device busy "
-            f"{busy:.4f} s ({100 * busy / secs[-1]:.1f}% of the steady step), {events} device "
-            f"events, peak memory {peak} B ({peak - start} B over the step's start), graphs "
-            f"{graphs} captured in "
-            f"{capture_s:.4f} s, map {points} points, "
-            f"max |g| depth {gmax[0]:.6e}, intrinsics {gmax[1]:.6e}; launches in every step "
-            f"(counters): forward {launches['forward']}, backward phase "
-            f"{launches['backward']}; the profiled step's device trace shows "
-            f"{trace.kernels} ({'all' if trace.kernels == expect else 'not all'} of them); "
-            f"memory: allocated "
-            f"after the profiled forward {trace.forward_b} B, its arenas {kept} B, the "
-            f"forwards' saved tensors {memory['saved_b']} B over the keys, resident in the "
-            f"graphs {memory['resident_b']} B, pool reserved {memory['pool_b']} B")
+            f"{B * L / t:.4f} frames/s ({t:.4f} s a step), peak memory {peak} B ({peak - start} "
+            f"B over the step's start), graphs {graphs} captured in {capture_s:.4f} s, map "
+            f"{points} points, max |g| depth {gmax[0]:.6e}, intrinsics {gmax[1]:.6e}; launches "
+            f"in every step (counters): forward {launches['forward']}, backward phase "
+            f"{launches['backward']}" + profiled + f"; memory: the forwards' saved tensors "
+            f"{memory['saved_b']} B over the keys, resident in the graphs "
+            f"{memory['resident_b']} B, pool reserved {memory['pool_b']} B")
         del slam
         gc.collect()  # a pipeline's autograd nodes and graphs free in cycles
     eager, captured = results["eager"], results["captured"]
@@ -1983,8 +2104,8 @@ def grad_row(name: str, remat: bool):
         + "; intrinsics gradient " + ("SHA-256-equal" if k_same else
            f"within {max(rel_gap(gk, eager[0][2]) for _, _, gk in captured):.3e} of max |g| "
            "(the frames' contributions summed in another order)")
-        + f"; launches {expect} in every step of both modes; the first step's results "
-        "unchanged by the later steps")
+        + f"; launches {expect} in every step of both modes, the branches at {branches} in "
+        "each; the first step's results unchanged by the later steps")
     if name in GRAD_CPU_ROWS:
         check_row_against_cpu(name, tag, counts, grads)
     return grads, rows
@@ -2174,7 +2295,8 @@ def grad_phase() -> None:
     the gradient example on the card (its steps replayed); (b) the bench_all
     rows at full width, eager and captured; (c) two rows against the JAX
     package's CPU gradients, both modes; (d) a profile of one gradient step
-    (gt 640x480x30, remat on), eager and captured."""
+    (gt 640x480x30, remat on), eager and captured; (e) the armed row
+    (``ARMED_GRAD_ROW``, the last of (b)'s rows), eager and captured."""
     disable_tf32()
     if not tf32_disabled():
         raise AssertionError("TF32 is enabled before the gradient phase")
@@ -2298,10 +2420,10 @@ def recovery_launches(kw: dict, shape: tuple, log: dict) -> dict:
     return {"knn": knn, "scatter": scatter}
 
 
-def counted_run(slam, frames, path: str, kw: dict, shape: tuple):
+def counted_run(slam, frames, path: str, kw: dict, shape: tuple, store: dict = LAUNCHES):
     """One run of ``path`` with both kernels' counts set to 0 just before it
-    and read just after, held against :func:`recovery_launches`. Returns
-    ``(pointclouds, poses, seconds)``."""
+    and read just after into ``store[path]``, held against
+    :func:`recovery_launches`. Returns ``(pointclouds, poses, seconds)``."""
     torch.cuda.synchronize()
     knn_cuda.launches = 0
     scatter_cuda.launches = 0
@@ -2309,10 +2431,10 @@ def counted_run(slam, frames, path: str, kw: dict, shape: tuple):
     pc, poses = slam(frames)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    LAUNCHES[path] = {"knn": knn_cuda.launches, "scatter": scatter_cuda.launches}
+    store[path] = {"knn": knn_cuda.launches, "scatter": scatter_cuda.launches}
     expect = recovery_launches(kw, shape, slam.recovery_log)
-    if LAUNCHES[path] != expect:
-        raise AssertionError(f"{path}: launches {LAUNCHES[path]}, expected {expect} "
+    if store[path] != expect:
+        raise AssertionError(f"{path}: launches {store[path]}, expected {expect} "
                              f"(branches: {branch_frames(slam)})")
     return pc, poses, secs
 
@@ -2432,13 +2554,21 @@ def lockstep(kw: dict, arrays: tuple, tag: str) -> list:
     state = (slam._map(slam.empty_map(1, sched[0][1], device="cpu"), live0),
              live0.poses[:, 0], torch.eye(4)[None],
              slam._anchor_snapshot(live0) if slam.anchor_every else None)
+    cv = slam.motion_model == "constant_velocity"
+
+    def track(state, f, frame):  # one tracked frame, eagerly: armed or not
+        if slam.relocalize_below > 0:
+            return slam._track(*state, f, frame)
+        return (*slam._track_unarmed(cv, *state[:3], frame), state[3],
+                {"relocalize": None, "anchor": None})
+
     gaps, flips, counts = [], [], []
     for f in range(1, L_):
-        card = slam._track(*(to_device(x, "cuda") for x in state), f, fr["cuda"][:, f])
-        cpu = slam._track(*state, f, fr["cpu"][:, f])
+        card = track(tuple(to_device(x, "cuda") for x in state), f, fr["cuda"][:, f])
+        cpu = track(state, f, fr["cpu"][:, f])
         gaps.append(float((card[1].cpu() - cpu[1]).abs().max()))
-        ran = [{k: ev.get(k) for k in ("relocalize", "anchor")} for ev in (card[4], cpu[4])]
-        taken = [{k: ev.get(k) for k in ("relocalize_taken", "anchor_taken")}
+        ran = [{k: ev[k] is not None for k in ("relocalize", "anchor")} for ev in (card[4], cpu[4])]
+        taken = [{k: None if ev[k] is None else bool(ev[k].any()) for k in ("relocalize", "anchor")}
                  for ev in (card[4], cpu[4])]
         n_card, n_cpu = int(card[0].num_points[0]), int(cpu[0].num_points[0])
         counts.append(n_card - n_cpu)
@@ -2455,6 +2585,42 @@ def lockstep(kw: dict, arrays: tuple, tag: str) -> list:
         f"card - CPU a step {counts} (bar 0.2%: a fusion merge decided otherwise at a near "
         f"tie); adoption decided otherwise (card, CPU, |dpose|): {flips or 'none'}")
     return gaps
+
+
+def captured_beside_eager(frames, pc, poses, branches: dict, path: str, kw: dict,
+                          shape: tuple) -> str:
+    """An armed row's run with ``use_jit=False`` (its result ``pc``,
+    ``poses``, its branch frames, its launches in ``LAUNCHES[path]``)
+    beside the row captured: a first call (warm-ups and captures) and a
+    second, every frame replayed, give the eager run's SHA-256 digest of
+    poses and map on the same branch frames, with the launches that the
+    counters add up (``CAPTURED_LAUNCHES``) equal to eager's; a profiled
+    replayed call's device trace shows no more ``knn1_search`` and
+    ``scatter_rows<`` events than :func:`recovery_launches` derives.
+    Returns a report."""
+    want = map_digest(pc, poses)
+    slam = PointFusion(**kw)
+    secs = {}
+    for call in ("first", "replayed"):
+        pc2, poses2, secs[call] = counted_run(slam, frames, f"{path}_{call}", kw, shape,
+                                              CAPTURED_LAUNCHES)
+        if not slam.last_call_captured:
+            raise AssertionError(f"{path}: not captured ({slam.last_eager_reason})")
+        if (map_digest(pc2, poses2), branch_frames(slam)) != (want, branches):
+            raise AssertionError(f"{path}: the captured {call} call differs from the eager run "
+                                 f"(branches {branch_frames(slam)}, eager {branches})")
+        if CAPTURED_LAUNCHES[f"{path}_{call}"] != LAUNCHES[path]:
+            raise AssertionError(f"{path}: launches captured {call} "
+                                 f"{CAPTURED_LAUNCHES[f'{path}_{call}']}, eager {LAUNCHES[path]}")
+    trace = device_profile(lambda: slam(frames))
+    expect = recovery_launches(kw, shape, slam.recovery_log)
+    if any(trace["kernels"][k] > expect[k] for k in expect):
+        raise AssertionError(f"{path}: the replayed call's device trace shows {trace['kernels']}, "
+                             f"more than the {expect} derived")
+    return (f"captured: first and replayed call SHA-256-equal to eager ({want[:16]}), branches "
+            f"{branches}, the counters' launches {LAUNCHES[path]} in each, the replayed call's "
+            f"device trace {trace['kernels']} (at most the derived); first {secs['first']:.4f} s, "
+            f"replayed {secs['replayed']:.4f} s")
 
 
 def post_kidnap_m(poses: np.ndarray, gt: np.ndarray) -> float:
@@ -2475,9 +2641,15 @@ def kidnap_phase(golden) -> dict:
     out = {}
     for name, row in kidnap_rows(jump).items():
         kw = dict(KIDNAP_BASE, map_capacity=shape[1] * Hk * Wk, **row)
-        slam = PointFusion(**kw)
+        armed = bool(row.get("relocalize_below"))
+        # an armed row eagerly, its launches counted where the wrappers
+        # launch; captured beside it
+        slam = PointFusion(**kw, use_jit=not armed)
         pc, poses, secs = counted_run(slam, frames, f"kidnap_{name}", kw, shape)
         check_run(pc, poses, shape, f"kidnap {name}")
+        if armed:
+            captured = captured_beside_eager(frames, pc, poses, branch_frames(slam),
+                                             f"kidnap_{name}", kw, shape)
         post = post_kidnap_m(poses[0].cpu().numpy(), P[0])
         ref = float(golden[f"kidnap_{name}_post_ate_m"])
         readings = golden[f"kidnap_{name}_health"]
@@ -2493,8 +2665,10 @@ def kidnap_phase(golden) -> dict:
         log(f"kidnap {name} {Hk}x{Wk}x{shape[1]}: post-kidnap unaligned RMSE {post:.4e} m "
             f"(JAX CPU golden {ref:.4e} m), relocalized at frames {got} (golden {want}), "
             f"gate readings [{health}] (golden [{' '.join(f'{h:.3f}' for h in readings)}]), "
-            f"launches {LAUNCHES[f'kidnap_{name}']} as derived, {secs:.3f} s, map "
-            f"{int(pc.num_points[0])} (golden {int(golden[f'kidnap_{name}_num_points'])})")
+            f"launches {LAUNCHES[f'kidnap_{name}']} as derived, {secs:.3f} s "
+            f"({'captured' if slam.last_call_captured else 'eager'}), map "
+            f"{int(pc.num_points[0])} (golden {int(golden[f'kidnap_{name}_num_points'])})"
+            + (f"; {captured}" if armed else ""))
         out[name] = (pc, poses)
 
     # the relocalization alone, from the default grid around frame 7's
@@ -2541,10 +2715,14 @@ def anchor_knn_inputs(frames) -> tuple:
     return src.points.contiguous(), pts.contiguous(), mask
 
 
-def device_events(run) -> tuple:
+def device_profile(run) -> dict:
     """One call of ``run`` under ``torch.profiler`` with the device's
     activity only (no host op records, so the trace is read in seconds):
-    the device's busy seconds and its number of events."""
+    the device's busy seconds (``busy_s``) and its number of events; the
+    launches of the port's kernels that the trace shows (``kernels``, as
+    :class:`PhaseTrace` counts them); the device-to-device copies
+    (``copies``, ``copy_s``: a graph's static inputs written before its
+    replay, and the copies inside the graphs and eager code)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2554,12 +2732,20 @@ def device_events(run) -> tuple:
         torch.cuda.synchronize()
     # the raw trace: the profiler's own parse into a tree of events takes
     # seconds a run at 100,000 events
-    spans = [(e.start_ns(), e.start_ns() + e.duration_ns())
-             for e in prof.profiler.kineto_results.events()
-             if e.device_type() == DeviceType.CUDA]
-    busy, events = union_s(spans, 1e-9), len(spans)
-    check_profile("device_events", busy, events)
-    return busy, events
+    device = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    busy = union_s([(e.start_ns(), e.start_ns() + e.duration_ns()) for e in device], 1e-9)
+    check_profile("device_events", busy, len(device))
+    copies = [e.duration_ns() for e in device if "Memcpy DtoD" in e.name()]
+    return dict(busy_s=busy, events=len(device), copies=len(copies), copy_s=sum(copies) * 1e-9,
+                kernels={k: sum(kernel in e.name() for e in device)
+                         for k, kernel in COUNTED_KERNELS.items()})
+
+
+def device_events(run) -> tuple:
+    """:func:`device_profile`'s device busy seconds and events."""
+    p = device_profile(run)
+    return p["busy_s"], p["events"]
 
 
 class ReadBackEachFrame:
@@ -2583,70 +2769,152 @@ class ReadBackEachFrame:
         del self.slam._localize
 
 
+def device_syncs(run) -> int:
+    """The synchronizing CUDA operations of one call of ``run``, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them: every read
+    back to the host, wherever the code makes it."""
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
 ARMED_ROUNDS = 4  # rounds of one run of each armed row, the order reversed every other round
 
 
 def armed_phase(frames) -> dict:
-    """(2) The armed healthy rows on the easy clip against the unarmed one:
-    the same bits, no branch run, and their cost; beside them the unarmed
-    row with one read back a frame and nothing else. The rows run in
-    rounds, one run of each a round, so that each ratio pairs runs made
-    next to each other."""
+    """(2) The armed healthy rows on the easy clip against the unarmed one,
+    each eager (``use_jit=False``) and captured (``use_jit=True``: the
+    armed rows as a gate graph, one read back and a fuse graph a frame):
+    the same bits in every run, no branch run, launches equal between the
+    modes (the captured runs' counts, added up on replay, in
+    ``CAPTURED_LAUNCHES``, and their device trace showing no more kernels
+    than derived), and their cost; beside them the eager unarmed row with
+    one read back a frame and nothing else. The rows run in rounds, one run
+    of each a round, so that each ratio pairs runs made next to each other.
+    Then one profiled run of each row (:func:`device_profile`) counts its
+    synchronizing operations under the sync debug mode "warn"
+    (:func:`device_syncs`): one a tracked frame more than the unarmed row
+    of the same mode. Last, the device time of one copy of the final map,
+    which a captured armed frame makes once more than an unarmed one (the
+    fuse graph's static inputs written from the gate's)."""
     shape = (B, L, H, W)
-    names = (*ARMED_ROWS, "unarmed_read_back")
-    # all eager: the armed rows are, and the read back would break a capture
-    slams = {name: PointFusion(**ARMED_BASE, **ARMED_ROWS.get(name, {}), use_jit=False)
+    names = (*ARMED_ROWS, "unarmed_read_back", *(f"{n}_captured" for n in ARMED_ROWS))
+
+    def row_kw(name):
+        return dict(ARMED_BASE, **ARMED_ROWS.get(name.removesuffix("_captured"), {}))
+
+    slams = {name: PointFusion(**row_kw(name), use_jit=name.endswith("_captured"))
              for name in names}
 
     def run(name, counted):
         slam = slams[name]
-        kw = dict(ARMED_BASE, **ARMED_ROWS.get(name, {}))
         with (ReadBackEachFrame(slam) if name == "unarmed_read_back"
               else contextlib.nullcontext()):
             if not counted:
                 return slam(frames)
-            return counted_run(slam, frames, f"armed_{name}", kw, shape)
+            store = CAPTURED_LAUNCHES if name.endswith("_captured") else LAUNCHES
+            return counted_run(slam, frames, f"armed_{name}", row_kw(name), shape, store)
 
+    wall = dict.fromkeys(names, 0.0)  # each row's share of the phase's time
     for name in names:
-        run(name, counted=False)  # warm-up
+        t0 = time.perf_counter()
+        run(name, counted=False)  # warm-up (captured: the warm-ups and captures)
+        wall[name] += time.perf_counter() - t0
     secs = {name: [] for name in names}
     peaks = dict.fromkeys(names, 0)
     digests = {}
     for r in range(ARMED_ROUNDS):
         for name in (names if r % 2 == 0 else names[::-1]):
             torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
             pc, poses, t = run(name, counted=True)
             secs[name].append(t)
             peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated())
-            if any(branch_frames(slams[name]).values()):
-                raise AssertionError(f"armed {name}: a branch ran: {branch_frames(slams[name])}")
+            slam = slams[name]
+            if any(branch_frames(slam).values()):
+                raise AssertionError(f"armed {name}: a branch ran: {branch_frames(slam)}")
+            if slam.last_call_captured != name.endswith("_captured"):
+                raise AssertionError(f"armed {name}: last_call_captured "
+                                     f"{slam.last_call_captured} ({slam.last_eager_reason})")
             check_run(pc, poses, shape, f"armed {name}")
             digests[f"{name} round {r}"] = map_digest(pc, poses)
+            wall[name] += time.perf_counter() - t0
     if len(set(digests.values())) != 1:
         raise AssertionError(f"armed rows: poses and map differ from the unarmed run: {digests}")
+    for name in ARMED_ROWS:
+        if LAUNCHES[f"armed_{name}"] != CAPTURED_LAUNCHES[f"armed_{name}_captured"]:
+            raise AssertionError(f"armed {name}: launches eager {LAUNCHES[f'armed_{name}']}, "
+                                 f"captured {CAPTURED_LAUNCHES[f'armed_{name}_captured']}")
     rows = {}
     for name in names:
+        captured = name.endswith("_captured")
+        syncs = []
+        t0 = time.perf_counter()
         with (ReadBackEachFrame(slams[name]) if name == "unarmed_read_back"
               else contextlib.nullcontext()):
-            busy, events = device_events(lambda: slams[name](frames))
+            prof = device_profile(lambda: syncs.append(device_syncs(lambda: slams[name](frames))))
+        wall[name] += time.perf_counter() - t0
+        expect = recovery_launches(row_kw(name), shape, slams[name].recovery_log)
+        if captured and any(prof["kernels"][k] > expect[k] for k in expect):
+            raise AssertionError(f"armed {name}: the device trace shows {prof['kernels']}, more "
+                                 f"than the {expect} derived")
         mean = float(np.mean(secs[name]))
-        rows[name] = (mean, peaks[name], busy, events)
+        rows[name] = dict(s=mean, peak_b=peaks[name], syncs=syncs[0], **prof)
+        launches = (CAPTURED_LAUNCHES if captured else LAUNCHES)[f"armed_{name}"]
         log(f"armed {name} {H}x{W}x{L}: {L / mean:.4f} frames/s ({mean:.4f} s/run, mean of "
             f"{ARMED_ROUNDS}: " + " ".join(f"{t:.4f}" for t in secs[name]) + f"), peak memory "
-            f"{peaks[name]} B, device busy {busy:.4f} s, {events} device events, launches "
-            f"{LAUNCHES[f'armed_{name}']}")
-    base = rows["unarmed"]
+            f"{peaks[name]} B, device busy {prof['busy_s']:.4f} s "
+            f"({100 * prof['busy_s'] / mean:.1f}% of the mean run), {prof['events']} device "
+            f"events, {prof['copies']} "
+            f"device-to-device copies ({prof['copy_s']:.4f} s), {syncs[0]} synchronizing "
+            f"operations in a run, launches {launches}"
+            + (f" (the device trace shows {prof['kernels']})" if captured else "")
+            + f"; {wall[name]:.2f} s for the row's runs and checks")
+    for mode in ("", "_captured"):
+        base = rows[f"unarmed{mode}"]["syncs"]
+        read_back = () if mode else ("unarmed_read_back",)
+        for name in ("relocalize", "relocalize_anchor", *read_back):
+            if rows[name + mode]["syncs"] - base != L - 1:
+                raise AssertionError(f"armed {name + mode}: {rows[name + mode]['syncs']} "
+                                     f"synchronizing operations a run, the unarmed row {base}: "
+                                     "not one more a tracked frame")
+    m = graphs_module.flatten(pc)[0]
+    copy = [torch.empty_like(t) for t in m]
+    map_ms = device_ms(lambda: [d.copy_(t) for d, t in zip(copy, m)], 20)
+    del copy
 
-    def paired(name):
-        ratios = [a / b for a, b in zip(secs[name], secs["unarmed"])]
+    def paired(name, base):
+        ratios = [a / b for a, b in zip(secs[name], secs[base])]
         return f"{float(np.median(ratios)):.3f}x time (rounds " + " ".join(
             f"{x:.3f}" for x in ratios) + ")"
 
-    log("armed rows: poses and map SHA-256-equal to the unarmed run's in every round; against "
-        "it, paired by round: " + "; ".join(
-            f"{name} {paired(name)}, {r[1] - base[1]:+d} B peak, {r[3] - base[3]:+d} device "
-            f"events, {r[2] - base[2]:+.4f} s busy"
-            for name, r in rows.items() if name != "unarmed"))
+    def against(base, names_):
+        b = rows[base]
+        return "; ".join(
+            f"{name} {paired(name, base)}, {rows[name]['peak_b'] - b['peak_b']:+d} B peak, "
+            f"{rows[name]['events'] - b['events']:+d} device events, "
+            f"{rows[name]['busy_s'] - b['busy_s']:+.4f} s busy, "
+            f"{rows[name]['copy_s'] - b['copy_s']:+.4f} s in device-to-device copies "
+            f"({rows[name]['copies'] - b['copies']:+d})" for name in names_)
+
+    log("armed rows: poses and map SHA-256-equal to the unarmed run's in every round and "
+        "mode, launches equal between the modes; eager, against the eager unarmed row, "
+        "paired by round: " + against("unarmed", ("relocalize", "relocalize_anchor",
+                                                  "unarmed_read_back"))
+        + "; captured, against the captured unarmed row (the port's reading of the 0.95x "
+        "frames/s bar, reported): " + against("unarmed_captured", (
+            "relocalize_captured", "relocalize_anchor_captured"))
+        + "; captured against eager: " + "; ".join(
+            f"{name} {paired(name + '_captured', name)}" for name in ARMED_ROWS)
+        + f"; one copy of the final map ({int(pc.num_points[0])} points, "
+        f"{sum(t.numel() * t.element_size() for t in m)} B): {map_ms:.4f} ms of device time")
     return rows
 
 
@@ -2661,9 +2929,14 @@ def drift_phase(golden) -> None:
     for name, row in DRIFT_ROWS.items():
         kw = dict(DRIFT_BASE, map_capacity=Ld * Hd * Wd, **row)
         lockstep(kw, arrays, f"drift {name} {Hd}x{Wd}x{Ld}")
-        slam = PointFusion(**kw)
+        armed = bool(row.get("relocalize_below"))
+        slam = PointFusion(**kw, use_jit=not armed)  # armed: eagerly, captured beside
         pc, poses, secs = counted_run(slam, frames, f"drift_{name}", kw, DRIFT_SHAPE)
         check_run(pc, poses, DRIFT_SHAPE, f"drift {name}")
+        captured = ""
+        if armed:
+            captured = "; " + captured_beside_eager(frames, pc, poses, branch_frames(slam),
+                                                    f"drift_{name}", kw, DRIFT_SHAPE)
         est = poses[0].cpu()
         ates[name] = float(ate_rmse(est, torch.from_numpy(arrays[3][0])))
         finals[name] = float(np.linalg.norm(est.numpy()[-1, :3, 3] - arrays[3][0, -1, :3, 3]))
@@ -2671,7 +2944,7 @@ def drift_phase(golden) -> None:
         log(f"drift {name}: aligned ATE {ates[name]:.4e} m (JAX CPU golden "
             f"{float(golden[f'drift_{name}_ate_m']):.4e} m), final error {finals[name]:.4e} m, "
             f"anchor re-solves at frames {fired[name]}, launches {LAUNCHES[f'drift_{name}']}, "
-            f"{secs:.3f} s")
+            f"{secs:.3f} s{captured}")
     if not (finals["plain"] > DRIFT_MIN_FINAL_M and fired["anchored"]):
         raise AssertionError(f"drift: plain final error {finals['plain']} m, anchor re-solves "
                              f"{fired['anchored']}")
@@ -3058,14 +3331,13 @@ def knn_rows_check(golden) -> tuple:
     frames = rgbdimages_from_numpy(rgb[:, :1], depth[:, :1], K, P[:, :1], device="cuda")
     full = pointclouds_from_rgbdimages(frames[:, 0], filter_missing_depths=False)
     M = full.points.shape[1]
-    times = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = knn_points(full.points, full.points, K=KNN_K, tgt_mask=full.nonpad_mask)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    # one timed call (two took 10.7948 and 10.7952 s, PERF.md §6 PR 8-15)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = knn_points(full.points, full.points, K=KNN_K, tgt_mask=full.nonpad_mask)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
     knn_peak = torch.cuda.max_memory_allocated()
     rows = torch.from_numpy(np.random.RandomState(0).choice(M, KNN_BRUTE_ROWS, replace=False))
     rows = torch.sort(rows).values.cuda()
@@ -3085,7 +3357,7 @@ def knn_rows_check(golden) -> tuple:
         raise AssertionError(f"estimate_normals: within {KNN_NORMAL_DEG} deg of the frame's "
                              f"normals on {within} of interior pixels")
     log(f"knn_points K={KNN_K} on frame 0's full cloud (N = M = {M}): "
-        f"{float(np.median(times)):.4f} s a call (runs {times}), peak {knn_peak} B; "
+        f"{full_s:.4f} s a call (one call), peak {knn_peak} B; "
         f"{KNN_BRUTE_ROWS} sampled rows' K sets equal to a brute-force row's on "
         f"{KNN_BRUTE_ROWS - ties_full} ({ties_full} differ only at ties within 1e-6); "
         f"estimate_normals(k={KNN_K - 1}) {normals_s:.4f} s, within {KNN_NORMAL_DEG} deg of "
@@ -4402,8 +4674,8 @@ def graph_phase(clips: dict) -> None:
     equal between the modes and between calls, ``last_call_captured`` equal
     to ``use_jit``, and the first call's result (held by the caller)
     unchanged after the later calls replayed its graphs. Then a gradient
-    row runs captured and an armed row eagerly, and one 1-NN call captured
-    and replayed against its eager call."""
+    row and an armed row run captured, and one 1-NN call captured and
+    replayed against its eager call."""
     for name, (cls, kw, clip, expect) in GRAPH_PATHS.items():
         t_path = time.perf_counter()
         frames = clips[clip]
@@ -4467,7 +4739,7 @@ def graph_phase(clips: dict) -> None:
                 f"the first call" for mode, r in rows.items())
             + f"; {time.perf_counter() - t_path:.2f} s for the path's checks")
 
-    # a gradient row is captured (forward and backward); an armed row stays eager
+    # a gradient row is captured (forward and backward), and an armed row
     rgb, depth, K, P = synthetic_sequence(1, 4, 120, 160, seed=0)
     small = rgbdimages_from_numpy(rgb, depth, K, P, device="cuda")
     d = small.depth_image.clone().requires_grad_()
@@ -4480,12 +4752,14 @@ def graph_phase(clips: dict) -> None:
                              f"({grad_slam.last_eager_reason}), graphs {counts}")
     armed = PointFusion(**dict(ARMED_BASE, map_capacity=4 * 120 * 160), relocalize_below=0.2)
     armed(small)
-    if armed.last_call_captured or len(armed.frame_graphs):
-        raise AssertionError(f"graph armed row: captured ({len(armed.frame_graphs)} graphs)")
+    keys = sorted({key[0] for key in armed.frame_graphs._entries})
+    if not armed.last_call_captured or keys != ["fuse", "gate"]:
+        raise AssertionError(f"graph armed row: captured {armed.last_call_captured} "
+                             f"({armed.last_eager_reason}), graphs {keys}")
     if not bool(torch.isfinite(d.grad).all()):
         raise AssertionError("graph gradient row: non-finite gradient")
-    log(f"graph: the gradient row ran captured (graphs {counts}), the armed row eagerly "
-        f"({armed.last_eager_reason})")
+    log(f"graph: the gradient row ran captured (graphs {counts}), the armed row too (its "
+        f"{len(armed.frame_graphs)} graphs: {keys})")
     knn_graph_check(*level_pair(clips["easy"], DSRATIO))
 
 

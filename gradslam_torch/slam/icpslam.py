@@ -8,7 +8,8 @@ Counterpart of ``gradslam_tpu/slam/icpslam.py``: ``split_prune_segments``
 window), ``_localize`` (:850, with the pyramid and its nested single
 compaction, and the finest window it solved against), the in-scan recovery
 (``_health_gate`` :992, ``_maybe_relocalize`` :1023, ``_anchor_snapshot``
-:1087, ``_maybe_anchor_recover`` :1107) and ``_forward_impl`` (:1217): the
+:1087, ``_maybe_anchor_recover`` :1107, each ``_maybe_*`` as a gate half in
+the frame's gate body and a branch half) and ``_forward_impl`` (:1217): the
 ground-truth branch and the tracked branch with the constant-velocity
 model, prune between segments, relocalization and the keyframe anchor; and
 the online API (``step``, ``localize``, ``map_update``; :594-742,
@@ -21,17 +22,22 @@ from the device inside the frame or solver loops, so with ``use_jit`` (the
 default, as in JAX) its frame body runs on the card as a CUDA graph,
 captured once for each capacity segment and replayed for each frame
 (:mod:`gradslam_torch.utils.graphs`), as ``jax.jit`` compiles the scan body
-once. Armed
-(``relocalize_below > 0``), each tracked frame reads one value back to
-decide the JAX ``lax.cond`` as a Python ``if``: whether any sequence is
-unhealthy; with ``anchor_every`` also whether any is drifting, one more
-read. The branches run only on the frames that need them. ``remat=True``
-runs each frame's body (the one ``jax.checkpoint`` wraps in JAX) under
-non-reentrant ``torch.utils.checkpoint``: its activations are dropped after
-the forward and recomputed in the backward, which reads the same values and
-so takes the same branches. Under autograd ``forward`` replays each frame's
-forward and backward from CUDA graphs as well, with or without ``remat``
-(``FrameGraphs.grad``), as JAX jits ``value_and_grad`` through the scan.
+once. Armed (``relocalize_below > 0``), a CUDA graph has no data-dependent
+branch, so each tracked frame is split where the JAX body has its
+``lax.cond``\ s: a gate body (prediction, localization, the health gate
+and, with ``anchor_every``, the drift gate), one read back of its flags to
+the host, the recovery branches as Python ``if``\ s, run eagerly only on
+the frames that need them, and a fuse body (map update, motion, the
+anchor's refresh). The two bodies are captured and replayed like the
+unarmed frame; a frame where no branch runs reads back once, with or
+without the anchor, where JAX reads nothing. ``remat=True`` runs each
+frame's bodies (the one ``jax.checkpoint`` wraps in JAX) under
+non-reentrant ``torch.utils.checkpoint``: their activations are dropped
+after the forward and recomputed in the backward. Under autograd
+``forward`` replays each frame's forward and backward from CUDA graphs as
+well, with or without ``remat`` (``FrameGraphs.grad``), as JAX jits
+``value_and_grad`` through the scan; the gradient of a frame with a branch
+flows through the branch that ran, as ``jax.grad`` through ``lax.cond``.
 """
 
 from __future__ import annotations
@@ -105,6 +111,13 @@ def split_prune_segments(start: int, n: int, prune_every: int):
             out.append((end - s, False))
             s = end
     return out
+
+
+def _read_back(flags: torch.Tensor) -> list:
+    """The host's read of an armed frame's gate flags (any unhealthy; with
+    the anchor, any and all drifting): the one place a tracked ``forward``
+    waits for the device, once a frame where no branch runs."""
+    return flags.tolist()
 
 
 class ICPSLAM(nn.Module):
@@ -181,6 +194,12 @@ class ICPSLAM(nn.Module):
             eager, link to the replayed frames', and a tensor every frame
             shares (the intrinsics) sums its frames' gradients in autograd.
 
+            Armed recovery (``relocalize_below > 0``) is captured too,
+            with or without gradients: each tracked frame replays a gate
+            graph, reads its flags back once, runs a recovery branch
+            eagerly where one is needed (ordinary autograd between the
+            graphs), and replays a fuse graph (see ``relocalize_below``).
+
             After each call ``last_call_captured`` says whether it ran so
             and ``last_eager_reason`` why not. These run eagerly:
 
@@ -188,10 +207,7 @@ class ICPSLAM(nn.Module):
             - inputs on the CPU: there is no graph to capture;
             - ``step``, ``localize`` and ``map_update`` under autograd
               (``"an input needs a gradient"``): open-ended online loops,
-              whose graphs under grad are not captured;
-            - armed recovery (``relocalize_below > 0``), with or without
-              gradients: its reads back decide Python branches inside the
-              frame.
+              whose graphs under grad are not captured.
 
             The map-sharded pipeline runs eagerly too
             (:class:`~gradslam_torch.parallel.MapShardedPointFusion`: its
@@ -221,6 +237,11 @@ class ICPSLAM(nn.Module):
             relocalize` runs from a :func:`~gradslam_torch.slam.relocalize.
             perturbation_grid` around the solved pose; its pose is taken
             only where it scores strictly better. Tracked odometry only.
+            The gates run in the frame's gate body and the host reads their
+            flags once a frame (the JAX package decides its ``lax.cond`` on
+            the device and reads nothing); the branches run eagerly on the
+            frames that need them, where the anchor's gate is read once
+            more after a relocalization.
         relocalize_grid: the grid's ``yaw_deg`` and ``translations``.
         relocalize_dsratio, relocalize_numiters: the recovery solves'
             stride and iterations.
@@ -645,22 +666,20 @@ class ICPSLAM(nn.Module):
         return _window_health_knn(frames_pc, window, robust_scale=self.robust_scale,
                                   dist_thresh=self.dist_thresh)
 
-    def _maybe_relocalize(self, map_pc: Pointclouds, live: RGBDImages, poses: torch.Tensor,
-                          window: Pointclouds):
-        """The relocalization branch. Returns ``(poses, taken, inlier_frac)``:
-        ``taken`` is None where the branch did not run, else the sequences
-        ``(B,)`` that took the recovered pose.
-        Where any sequence's gate reads below ``relocalize_below`` (one read
-        back to the host), relocalize from a grid around the solved pose
-        (the hypotheses one after another, as the JAX in-scan branch does,
-        and without the tracking ``dist_thresh``, which would starve the
-        far-off starts) and take the recovered pose of each unhealthy
-        sequence where it scores strictly better than the failed solve,
-        both scored by the full health at the pipeline's ``dsratio``."""
-        inlier = self._health_gate(live, poses, window)
+    def _relocalize(self, map_pc: Pointclouds, live: RGBDImages, poses: torch.Tensor,
+                    inlier: torch.Tensor):
+        """The relocalization branch, run where any sequence's gate reading
+        ``inlier`` (:meth:`_health_gate`, the gate half) is below
+        ``relocalize_below``. Returns ``(poses, taken)``, ``taken`` the
+        sequences ``(B,)`` that took the recovered pose.
+        Relocalize from a grid around the solved pose (the hypotheses one
+        after another, as the JAX in-scan branch does, and without the
+        tracking ``dist_thresh``, which would starve the far-off starts) and
+        take the recovered pose of each unhealthy sequence where it scores
+        strictly better than the failed solve, both scored by the full
+        health at the pipeline's ``dsratio``. ``live``'s poses are not
+        read."""
         unhealthy = inlier < self.relocalize_below
-        if not bool(unhealthy.any()):
-            return poses, None, inlier
         target = Pointclouds(points=map_pc.points, num_points=map_pc.num_points,
                              normals=map_pc.normals)
         health = (_projective_health if self._finest_assoc == "projective"
@@ -675,7 +694,7 @@ class ICPSLAM(nn.Module):
             hypothesis_mode="scan")
         h2 = health(target, live.with_poses(rec), **kw)
         take = unhealthy & (h2["inlier_frac"] > h1["inlier_frac"])
-        return torch.where(take[:, None, None, None], rec, poses), take, inlier
+        return torch.where(take[:, None, None, None], rec, poses), take
 
     def _anchor_snapshot(self, live: RGBDImages) -> Tuple[torch.Tensor, ...]:
         """The frozen keyframe ``(points, normals, counts)``: the frame's
@@ -689,64 +708,72 @@ class ICPSLAM(nn.Module):
         nrm, _ = compact_masked(pc.normals, solid, cap)
         return pts, nrm, cnt
 
-    def _maybe_anchor_recover(self, anchor: Tuple[torch.Tensor, ...], live: RGBDImages,
-                              poses: torch.Tensor):
-        """The drift branch. Returns ``(poses, drifting, drifting_on_host,
-        taken)``: ``taken`` is None where the branch did not run, else the
-        sequences ``(B,)`` that took the re-solved pose.
-        The solved pose is scored against the anchor by projection; a
-        sequence drifts where the anchor is in view (admissible fraction
-        above 0.2) and the conditional inlier fraction (inliers among
-        admissible rows, which the camera's own motion leaves alone) is
-        below ``anchor_below``. Where any drifts (one read back to the
-        host), one Tukey 1-NN solve against the anchor from the solved pose
-        at ``2 * robust_scale``; its pose is taken where its absolute inlier
-        fraction is higher."""
+    def _anchor_health(self, anchor: Tuple[torch.Tensor, ...], live: RGBDImages,
+                       pose: torch.Tensor):
+        """``pose (B, 4, 4)`` scored against the anchor by projection:
+        ``(inliers, conditional inlier fraction, admissible fraction)``."""
         a_pts, a_nrm, a_cnt = anchor
-        anchor_pc = Pointclouds(points=a_pts, num_points=a_cnt, normals=a_nrm)
         _, _, H, W = live.shape
-        frame_geom = pack_frame_geom(live)
+        inl, assoc = _window_health_projective(
+            Pointclouds(points=a_pts, num_points=a_cnt, normals=a_nrm), pack_frame_geom(live),
+            live.intrinsics[:, 0], pose, H, W, robust_scale=self.robust_scale,
+            dist_thresh=self.dist_thresh)
+        return inl, inl / torch.clamp(assoc, min=1e-6), assoc
 
-        def anchor_health(pose):
-            inl, assoc = _window_health_projective(
-                anchor_pc, frame_geom, live.intrinsics[:, 0], pose, H, W,
-                robust_scale=self.robust_scale, dist_thresh=self.dist_thresh)
-            return inl, inl / torch.clamp(assoc, min=1e-6), assoc
+    def _anchor_gate(self, anchor: Tuple[torch.Tensor, ...], live: RGBDImages,
+                     poses: torch.Tensor):
+        """The drift gate, the anchor's gate half: ``(inliers, drifting)``
+        of the solved pose, ``drifting (B,)`` where the anchor is in view
+        (admissible fraction above 0.2) and the conditional inlier fraction
+        (inliers among admissible rows, which the camera's own motion leaves
+        alone) is below ``anchor_below``."""
+        inl, cond, assoc = self._anchor_health(anchor, live, poses[:, 0])
+        return inl, (assoc > 0.2) & (cond < self.anchor_below)
 
-        inl, cond, assoc = anchor_health(poses[:, 0])
-        drifting = (assoc > 0.2) & (cond < self.anchor_below)
-        on_host = drifting.cpu()
-        if not bool(on_host.any()):
-            return poses, drifting, on_host, None
+    def _anchor_resolve(self, anchor: Tuple[torch.Tensor, ...], live: RGBDImages,
+                        poses: torch.Tensor, inl: torch.Tensor, drifting: torch.Tensor):
+        """The drift branch, run where any sequence drifts
+        (:meth:`_anchor_gate`): one Tukey 1-NN solve against the anchor from
+        the solved pose at ``2 * robust_scale``, its pose taken where its
+        absolute inlier fraction is higher than the gate's ``inl``. Returns
+        ``(poses, taken)``."""
+        a_pts, a_nrm, a_cnt = anchor
         frames_pc = downsample_rgbdimages(live.with_poses(poses), self.dsratio)
         prov_cls = GradICPOdometryProvider if self.odom == "gradicp" else ICPOdometryProvider
         prov = prov_cls(numiters=self.relocalize_numiters, robust_loss="tukey",
                         robust_scale=2.0 * self.robust_scale)
-        X = prov.provide(anchor_pc, frames_pc)
+        X = prov.provide(Pointclouds(points=a_pts, num_points=a_cnt, normals=a_nrm), frames_pc)
         rec = orthonormalize_rotations(compose_transformations(X[:, 0], poses[:, 0]))[:, None]
-        in2, _cond2, _assoc2 = anchor_health(rec[:, 0])
+        in2, _cond2, _assoc2 = self._anchor_health(anchor, live, rec[:, 0])
         take = drifting & (in2 > inl)
-        return torch.where(take[:, None, None, None], rec, poses), drifting, on_host, take
+        return torch.where(take[:, None, None, None], rec, poses), take
 
     # ------------------------------------------------------------------ #
     # Forward
     # ------------------------------------------------------------------ #
-    def _plan(self, *trees, armed: bool = False, grad_graphs: bool = False) -> bool:
+    def _plan(self, *trees, grad_graphs: bool = False) -> bool:
         """Whether this call runs as CUDA graphs (``use_jit``; under autograd
         only where ``grad_graphs``); records the answer in
         ``last_call_captured`` and ``last_eager_reason``."""
-        reason = eager_reason_for(self.use_jit, *trees, armed=armed, grad_graphs=grad_graphs)
+        reason = eager_reason_for(self.use_jit, *trees, grad_graphs=grad_graphs)
         self.last_call_captured, self.last_eager_reason = reason is None, reason
         return reason is None
 
-    def _replayed(self, grad: bool, name: str, body, args: tuple, options: tuple = ()):
-        """One captured frame ``body(*args)``: under autograd (``grad``) from
-        the forward and backward graphs of ``frame_graphs.grad`` (the
-        result is the caller's), else from the no-grad frame graph (the
-        result is the graph's static outputs)."""
-        if grad:
-            return self.frame_graphs.grad(name, body, args, options, remat=self.remat)
-        return self.frame_graphs(name, body, args, options)
+    def _runner(self, captured: bool, grad: bool):
+        """How a call runs a frame body: ``run(name, body, args, options)``.
+        Captured, from the body's graphs: under autograd (``grad``) the
+        forward and backward graphs of ``frame_graphs.grad`` (the result is
+        the caller's), else the no-grad frame graph (the result is the
+        graph's static outputs, which the next replay of that graph
+        overwrites). Otherwise eagerly, through :meth:`_frame`."""
+        def run(name, body, args, options=()):
+            if not captured:
+                return self._frame(body, *args)
+            if grad:
+                return self.frame_graphs.grad(name, body, args, options, remat=self.remat)
+            return self.frame_graphs(name, body, args, options)
+
+        return run
 
     def _frame(self, body, *args):
         """One frame's ``body(*args)``, under per-frame checkpointing when
@@ -757,77 +784,109 @@ class ICPSLAM(nn.Module):
             return body(*args)
         return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
 
-    def _solve(self, map_pc: Pointclouds, live: RGBDImages, anchor, armed: bool):
-        r"""Localize ``live`` (carrying the predicted pose) against the map
-        and, when ``armed``, run the recovery branches. Returns ``(poses
-        (B, 1, 4, 4), drifting, drifting_on_host, events)``; the two
-        ``drifting`` are None unless the anchor's gate ran."""
-        events = {}
-        drifting = drifting_host = None
-        if armed:
-            pose, window = self._localize(map_pc, live, live, return_window=True)
-            pose, taken, events["health"] = self._maybe_relocalize(map_pc, live, pose, window)
-            events["relocalize"] = taken is not None
-            if taken is not None:
-                events["relocalize_taken"] = bool(taken.any())
-            if self.anchor_every > 0:
-                # the self-consistent gate cannot see slow drift; the frozen
-                # keyframe can
-                pose, drifting, drifting_host, taken = self._maybe_anchor_recover(
-                    anchor, live, pose)
-                events["anchor"] = taken is not None
-                if taken is not None:
-                    events["anchor_taken"] = bool(taken.any())
-        else:
-            pose = self._localize(map_pc, live, live)
-        return pose, drifting, drifting_host, events
-
-    def _track(self, map_pc: Pointclouds, prev_pose: torch.Tensor, prev_delta: torch.Tensor,
-               anchor, f: int, frame: RGBDImages, cv: Optional[bool] = None,
-               armed: Optional[bool] = None):
-        r"""One tracked frame ``f`` (global index): predict, localize, run
-        the armed recovery branches, fuse, and refresh the keyframe anchor.
-        ``frame`` is the sequence-length-1 frame (its poses are not read).
-        ``cv`` (the constant-velocity prediction) and ``armed`` (recovery)
-        default to the pipeline's ``motion_model`` and
-        ``relocalize_below``; :meth:`step` passes its own. Returns ``(map,
-        pose (B, 4, 4), motion (B, 4, 4), anchor, events)``; ``events``
-        holds, when armed, the gate's reading (``'health'``), whether the
-        relocalization (``'relocalize'``) and the anchor re-solve
-        (``'anchor'``) ran, and where one ran, whether its pose was taken
-        (``'relocalize_taken'``, ``'anchor_taken'``: one more read back on
-        such a frame)."""
-        cv = self.motion_model == "constant_velocity" if cv is None else cv
-        armed = self.relocalize_below > 0 if armed is None else armed
+    def _predicted(self, cv: bool, prev_pose: torch.Tensor, prev_delta: torch.Tensor,
+                   frame: RGBDImages) -> RGBDImages:
+        """``frame`` at the predicted pose: the constant-velocity prediction
+        with ``cv``, else the previous pose."""
         pred = self._predict(prev_pose, prev_delta) if cv else prev_pose
-        live = frame.with_poses(pred[:, None])
-        pose, drifting, drifting_host, events = self._solve(map_pc, live, anchor, armed)
-        live = live.with_poses(pose)
+        return frame.with_poses(pred[:, None])
+
+    def _fuse(self, cv: bool, map_pc: Pointclouds, pose: torch.Tensor, prev_pose: torch.Tensor,
+              frame: RGBDImages, anchor=None, drifting=None):
+        r"""A tracked frame's second half at the chosen ``pose (B, 1, 4,
+        4)``: the map update, the world-frame motion (with ``cv``; else
+        None) and, given an ``anchor``, its refresh at the pose except where
+        ``drifting`` (a refresh there would bake the drift into the
+        reference). Returns ``(map, pose (B, 4, 4), motion, anchor)``: the
+        pose's last use, so that under autograd its gradient from later
+        frames comes first in this body's backward, as eagerly."""
+        live = frame.with_poses(pose)
         map_pc = self._map(map_pc, live)
+        delta = None
         if cv:  # world-frame motion of this frame, the next prediction
-            prev_delta = compose_transformations(pose[:, 0], inverse_transformation(prev_pose))
-        if (drifting is not None and f % self.anchor_every == 0
-                and not bool(drifting_host.all())):
-            # refresh at the solved pose, but not where drifting: that would
-            # bake the drift into the reference
+            delta = compose_transformations(pose[:, 0], inverse_transformation(prev_pose))
+        if anchor is not None:
             anchor = tuple(
                 torch.where(drifting.reshape((-1,) + (1,) * (new.ndim - 1)), old, new)
                 for new, old in zip(self._anchor_snapshot(live), anchor))
-        return map_pc, pose[:, 0], prev_delta, anchor, events
+        return map_pc, pose[:, 0], delta, anchor
 
     def _track_unarmed(self, cv: bool, map_pc: Pointclouds, prev_pose: torch.Tensor,
                        prev_delta: Optional[torch.Tensor], frame: RGBDImages):
-        """The unarmed tracked frame a graph captures: ``(map, pose,
-        motion)`` of :meth:`_track`."""
-        map_pc, pose, prev_delta, _, _ = self._track(
-            map_pc, prev_pose, prev_delta, None, 0, frame, cv, False)
-        return map_pc, pose, prev_delta
+        """The unarmed tracked frame, one body: predict, localize, fuse.
+        Returns ``(map, pose (B, 4, 4), motion)``; without ``cv`` the motion
+        is ``prev_delta``."""
+        live = self._predicted(cv, prev_pose, prev_delta, frame)
+        pose = self._localize(map_pc, live, live)
+        map_pc, pose, delta, _ = self._fuse(cv, map_pc, pose, prev_pose, frame)
+        return map_pc, pose, delta if cv else prev_delta
+
+    def _gate(self, cv: bool, map_pc: Pointclouds, prev_pose: torch.Tensor,
+              prev_delta: torch.Tensor, anchor, frame: RGBDImages):
+        r"""The armed frame's first body: predict, localize, and the gates
+        on the solved pose: the health gate and, given an ``anchor``, the
+        drift gate. Returns ``(pose (B, 1, 4, 4), inlier, anchor inliers,
+        drifting, flags, map, anchor)``; the anchor's inliers and
+        ``drifting`` are None without one. ``flags`` is what the host
+        reads: any unhealthy, and with an anchor any and all drifting.
+
+        The map and the anchor come back as they went in, and the branches
+        and the fuse body read these: captured, they are this graph's
+        static inputs, which no replay overwrites, where the fuse graph's
+        outputs that went in may lie in this graph's scratch (the graphs
+        share a pool; :mod:`~gradslam_torch.utils.graphs`)."""
+        live = self._predicted(cv, prev_pose, prev_delta, frame)
+        pose, window = self._localize(map_pc, live, live, return_window=True)
+        inlier = self._health_gate(live, pose, window)
+        unhealthy = (inlier < self.relocalize_below).any()
+        if anchor is None:
+            return pose, inlier, None, None, unhealthy[None], map_pc, anchor
+        inl, drifting = self._anchor_gate(anchor, live, pose)
+        flags = torch.stack([unhealthy, drifting.any(), drifting.all()])
+        return pose, inlier, inl, drifting, flags, map_pc, anchor
+
+    def _track(self, map_pc: Pointclouds, prev_pose: torch.Tensor, prev_delta: torch.Tensor,
+               anchor, f: int, frame: RGBDImages, run=None):
+        r"""One armed tracked frame ``f`` (global index), split where the
+        JAX body has its ``lax.cond``\ s: the gate body (:meth:`_gate`),
+        one read back of its flags, the recovery branches eagerly on the
+        frames that need them, and the fuse body (:meth:`_fuse`; a refresh
+        frame, ``f % anchor_every == 0`` with some sequence not drifting,
+        has its own). ``run`` runs the two bodies (:meth:`_runner`; eager by
+        default); a branch runs through :meth:`_frame`. ``frame`` is the
+        sequence-length-1 frame (its poses are not read). Returns ``(map,
+        pose (B, 4, 4), motion (B, 4, 4), anchor, events)``: ``events``
+        holds the gate's reading (``'health'``) and, for each branch
+        (``'relocalize'``, ``'anchor'``), None where it did not run, else
+        the sequences ``(B,)`` that took its pose."""
+        run = run or self._runner(False, False)
+        cv = self.motion_model == "constant_velocity"
+        pose, inlier, inl, drifting, flags, map_pc, anchor = run(
+            "gate", functools.partial(self._gate, cv),
+            (map_pc, prev_pose, prev_delta, anchor, frame), (cv,))
+        unhealthy, *drift = _read_back(flags)
+        events = {"health": inlier, "relocalize": None, "anchor": None}
+        if unhealthy:
+            pose, events["relocalize"] = self._frame(self._relocalize, map_pc, frame, pose,
+                                                     inlier)
+            if anchor is not None:  # the drift gate on the pose the branch left
+                inl, drifting = self._frame(self._anchor_gate, anchor, frame, pose)
+                drift = _read_back(torch.stack([drifting.any(), drifting.all()]))
+        if anchor is not None and drift[0]:
+            pose, events["anchor"] = self._frame(self._anchor_resolve, anchor, frame, pose, inl,
+                                                 drifting)
+        refresh = anchor is not None and f % self.anchor_every == 0 and not drift[1]
+        map_pc, pose, delta, fresh = run(
+            "fuse", functools.partial(self._fuse, cv),
+            (map_pc, pose, prev_pose, frame, *((anchor, drifting) if refresh else ())),
+            (cv, refresh))
+        return map_pc, pose, delta if cv else prev_delta, fresh if refresh else anchor, events
 
     def _localize_step(self, map_pc: Pointclouds, live: RGBDImages, prev_pose: torch.Tensor,
                        prev_transform: Optional[torch.Tensor]) -> torch.Tensor:
         """:meth:`localize`'s body: predict, then solve unarmed."""
-        pred = prev_pose if prev_transform is None else self._predict(prev_pose, prev_transform)
-        return self._solve(map_pc, live.with_poses(pred[:, None]), None, False)[0]
+        live = self._predicted(prev_transform is not None, prev_pose, prev_transform, live)
+        return self._localize(map_pc, live, live)
 
     @staticmethod
     def _predict(prev_pose: torch.Tensor, prev_delta: torch.Tensor) -> torch.Tensor:
@@ -974,10 +1033,10 @@ class ICPSLAM(nn.Module):
         B, L, _, _ = frames.shape
         schedule = self._capacity_schedule(frames)
         map_pc = self.empty_map(B, schedule[0][1], device=frames.device, dtype=frames.dtype)
-        armed = self.relocalize_below > 0
-        captured = self._plan(frames, armed=armed, grad_graphs=True)
+        captured = self._plan(frames, grad_graphs=True)
         grad = captured and needs_grad(frames)
-        # a no-grad replay's outputs are the graph's: the result is a copy
+        run = self._runner(captured, grad)
+        # a no-grad replay's outputs are the graph's: what is kept is a copy
         owned = clone_tree if captured and not grad else (lambda tree: tree)
 
         if self.odom == "gt":
@@ -986,10 +1045,7 @@ class ICPSLAM(nn.Module):
                 map_pc = map_pc.with_capacity(cap_seg)
                 for sub_n, prune_after in split_prune_segments(start, n, self.prune_every):
                     for i in range(start, start + sub_n):
-                        if captured:
-                            map_pc = self._replayed(grad, "map", self._map, (map_pc, frames[:, i]))
-                        else:
-                            map_pc = self._frame(self._map, map_pc, frames[:, i])
+                        map_pc = run("map", self._map, (map_pc, frames[:, i]))
                     if prune_after:
                         map_pc = self._prune(map_pc)
                     start += sub_n
@@ -1018,20 +1074,20 @@ class ICPSLAM(nn.Module):
             map_pc = map_pc.with_capacity(cap_seg)
             for sub_n, prune_after in split_prune_segments(start + 1, n_track, self.prune_every):
                 for f in range(start + 1, start + 1 + sub_n):
-                    if captured:
-                        map_pc, prev_pose, prev_delta = self._replayed(
-                            grad, "track", track, (map_pc, prev_pose, prev_delta, frames[:, f]),
-                            (cv,))
-                        poses.append(owned(prev_pose))
-                        continue
-                    map_pc, prev_pose, prev_delta, anchor, events = self._frame(
-                        self._track, map_pc, prev_pose, prev_delta, anchor, f, frames[:, f])
-                    poses.append(prev_pose)
-                    if armed:
-                        log["health"].append(events["health"])
+                    if self.relocalize_below > 0:
+                        map_pc, prev_pose, prev_delta, anchor, events = self._track(
+                            map_pc, prev_pose, prev_delta, anchor, f, frames[:, f], run)
+                        log["health"].append(owned(events["health"]))
                         for kind in ("relocalize", "anchor"):
-                            if events.get(kind):
+                            if events[kind] is not None:
                                 log[kind].append(f)
+                    else:
+                        map_pc, prev_pose, prev_delta = run(
+                            "track", track, (map_pc, prev_pose, prev_delta, frames[:, f]), (cv,))
+                    # a copy: the next frame's first replay overwrites a pose its
+                    # graph output, and the armed fuse body still reads this one
+                    prev_pose = owned(prev_pose)
+                    poses.append(prev_pose)
                 if prune_after:
                     map_pc = self._prune(map_pc)
                 start += sub_n

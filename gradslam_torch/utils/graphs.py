@@ -60,8 +60,17 @@ forward graph is captured; the first backward of each set of output
 gradients runs eagerly under ``set_sync_debug_mode("error")`` too (an op
 whose gradient synchronises, such as a ``nonzero``, raises there), then is
 captured. Gradients to a tensor that every frame shares (the intrinsics)
-are each frame's, summed by autograd outside the graphs. Each capture goes
-through :meth:`FrameGraphs._graph`, the one place that makes a CUDA graph.
+are each frame's, summed by autograd outside the graphs. An input that the
+body returns as it came is returned as that input, uncopied (autograd
+makes it a view). Each capture goes through :meth:`FrameGraphs._graph`,
+the one place that makes a CUDA graph.
+
+The graphs share one pool, so a graph captured later may keep its static
+outputs in memory that an earlier graph uses as scratch: a caller reads a
+graph's outputs before it replays another graph (or copies them), and a
+body that several graphs run one after another passes what the later ones
+read through the first as an input returned as it came: a static input,
+which lives outside the pool.
 
 The kernels' launch counters (``ops.knn_cuda.launches``,
 ``ops.scatter_cuda.launches``) are Python integers that a wrapper raises when
@@ -71,10 +80,12 @@ launches nothing), and every replay adds them: the counters read the same
 whether a run was captured or not, forward and backward.
 
 :func:`eager_reason` decides which calls are captured: ``use_jit``, inputs
-on the card, an input that needs a gradient only where the caller captures
-gradients (``forward``; ``step``, ``localize`` and ``map_update`` do not),
-recovery unarmed. It is a pure function of those facts, so it is tested
-without a card.
+on the card, and an input that needs a gradient only where the caller
+captures gradients (``forward``; ``step``, ``localize`` and ``map_update``
+do not). Armed recovery is captured too: the caller splits the frame where
+the JAX body has its ``lax.cond`` into graphs around one read back
+(``ICPSLAM._track``). It is a pure function of those facts, so it is
+tested without a card.
 """
 
 from __future__ import annotations
@@ -157,21 +168,18 @@ def clone_tree(tree):
 
 
 def eager_reason(use_jit: bool, on_card: bool, needs_grad: bool,
-                 armed: bool = False, grad_graphs: bool = False) -> Optional[str]:
+                 grad_graphs: bool = False) -> Optional[str]:
     r"""``None`` when a pipeline call is captured and replayed as CUDA
     graphs, else why it runs eagerly: ``use_jit`` off; inputs not on the
     card (a CPU run has nothing to capture); an input that needs a gradient
     under grad mode where the call does not capture gradients
-    (``grad_graphs`` False: ``step``, ``localize``, ``map_update``); armed
-    recovery (its read backs split the frame)."""
+    (``grad_graphs`` False: ``step``, ``localize``, ``map_update``)."""
     if not use_jit:
         return "use_jit=False"
     if not on_card:
         return "inputs not on the card"
     if needs_grad and not grad_graphs:
         return "an input needs a gradient"
-    if armed:
-        return "recovery armed (relocalize_below > 0)"
     return None
 
 
@@ -181,15 +189,13 @@ def needs_grad(*trees) -> bool:
         t.requires_grad for tree in trees for t in flatten(tree)[0])
 
 
-def eager_reason_for(use_jit: bool, *trees, armed: bool = False,
-                     grad_graphs: bool = False) -> Optional[str]:
+def eager_reason_for(use_jit: bool, *trees, grad_graphs: bool = False) -> Optional[str]:
     """:func:`eager_reason` read from the tensors of ``trees``."""
     leaves = [t for tree in trees for t in flatten(tree)[0]]
     return eager_reason(
         use_jit,
         on_card=bool(leaves) and all(t.is_cuda for t in leaves),
         needs_grad=needs_grad(*trees),
-        armed=armed,
         grad_graphs=grad_graphs,
     )
 
@@ -220,8 +226,12 @@ def _write(dst: torch.Tensor, src: torch.Tensor) -> None:
     r"""``dst.copy_(src)`` through ``dst.data``, which leaves ``dst``'s
     version counter alone: a tensor of a graph captured under autograd is
     rewritten as a replay rewrites it, unseen by autograd (a bumped version
-    would make autograd rebuild the backward of the views of it)."""
-    dst.data.copy_(src)
+    would make autograd rebuild the backward of the views of it). A
+    static input given back to its own graph (an input that a body passed
+    through, as the armed gate passes the anchor) is not copied onto
+    itself."""
+    if dst is not src:
+        dst.data.copy_(src)
 
 
 _ALIGN = 16  # bytes: each storage's place in an arena
@@ -344,16 +354,20 @@ class _Backward(CapturedCall):
 
 class _GradEntry:
     r"""The graphs of one key under autograd. ``diff`` marks the outputs
-    that carry a gradient, ``backward`` the captured backwards by the set of
-    output gradients they take. With ``remat=False`` also the captured
-    forward (``forward``, a :class:`CapturedCall` whose ``static_in`` are
-    leaves), the :class:`_Arena` of its saved tensors, and ``restore_in``,
-    the static inputs whose storages hold saved tensors; with
-    ``remat=True`` the recompute's leaves (``backward_in``)."""
+    that carry a gradient, ``through`` the outputs that are an input
+    returned as it came (that input's index, else None), ``backward`` the
+    captured backwards by the set of output gradients they take. With
+    ``remat=False`` also the captured forward (``forward``, a
+    :class:`CapturedCall` whose ``static_in`` are leaves), the
+    :class:`_Arena` of its saved tensors, and ``restore_in``, the static
+    inputs whose storages hold saved tensors; with ``remat=True`` the
+    recompute's leaves (``backward_in``)."""
 
-    def __init__(self, out_spec: tuple, diff: Tuple[bool, ...]):
+    def __init__(self, out_spec: tuple, diff: Tuple[bool, ...],
+                 through: Tuple[Optional[int], ...]):
         self.out_spec = out_spec
         self.diff = diff
+        self.through = through
         self.backward: Dict[tuple, _Backward] = {}
         self.forward: Optional[CapturedCall] = None
         self.arena: Optional[_Arena] = None
@@ -412,26 +426,31 @@ class _GradCall:
 
     # -- forward ---------------------------------------------------------
     def forward(self, leaves: List[torch.Tensor]) -> Tuple[List[torch.Tensor], list]:
-        r"""The outputs (tensors the call owns) and the tensors its
-        backward reads: with remat the inputs; without, the inputs whose
-        storages hold saved tensors and the arena (or, for a warm-up, the
-        leaves and outputs of its autograd graph)."""
+        r"""The outputs (tensors the call owns, or, for an input the body
+        returns as it came, that input: autograd makes it a view) and the
+        tensors its backward reads: with remat the inputs; without, the
+        inputs whose storages hold saved tensors and the arena (or, for a
+        warm-up, the leaves and outputs of its autograd graph)."""
         table = self.graphs._remat if self.remat else self.graphs._kept
         self.entry = table.get(self.key)
         if self.entry is None:
             return self._first(leaves, table)
+        e = self.entry
         if self.remat:
             out = self.graphs._replay_frame(self.key[:-1], self.fn, self.spec, leaves)
-            return [o.clone() for o in flatten(out)[0]], list(leaves)
-        e = self.entry
+            return [o.clone() if j is None else leaves[j]
+                    for o, j in zip(flatten(out)[0], e.through)], list(leaves)
         fwd = e.forward
         fwd.run(leaves)
         self.graphs.replays += 1
         arena = e.arena.gather(leaves[0].device)  # this frame's saved tensors
         self.graphs.kept_bytes += arena.numel()
         outs = []
-        for o in fwd.static_out:  # an output autograd saved is a view of the arena
-            mine = e.arena.view(arena, o)
+        for o, j in zip(fwd.static_out, e.through):
+            if j is not None:
+                outs.append(leaves[j])
+                continue
+            mine = e.arena.view(arena, o)  # an output autograd saved is a view of the arena
             outs.append(o.detach().clone() if mine is None else mine)
         return outs, [*(leaves[j] for j in e.restore_in), arena]
 
@@ -444,17 +463,21 @@ class _GradCall:
         with torch.enable_grad():
             outs, out_spec = self.graphs._warm(
                 lambda: flatten(self.fn(*unflatten(self.spec, xs))))
-        self.entry = _GradEntry(out_spec, tuple(o.requires_grad for o in outs))
+        place = {id(x): j for j, x in enumerate(xs)}
+        through = tuple(place.get(id(o)) for o in outs)
+        self.entry = _GradEntry(out_spec, tuple(o.requires_grad for o in outs), through)
         if self.remat:
             table[self.key] = self.entry
-            return [o.detach().clone() for o in outs], list(leaves)
+            return [o.detach().clone() if j is None else leaves[j]
+                    for o, j in zip(outs, through)], list(leaves)
         self._capture_forward(leaves)
         table[self.key] = self.entry
         self.warm = True
         inputs = set(t.untyped_storage().data_ptr() for t in leaves)
-        # an output that aliases an input (a pass-through) is copied
-        owned = [o.detach().clone() if o.untyped_storage().data_ptr() in inputs else o.detach()
-                 for o in outs]
+        # another output in an input's storage (a view of it) is copied
+        owned = [leaves[j] if j is not None
+                 else o.detach().clone() if o.untyped_storage().data_ptr() in inputs
+                 else o.detach() for o, j in zip(outs, through)]
         return owned, [*xs, *outs]
 
     def _capture_forward(self, leaves) -> None:
@@ -472,9 +495,12 @@ class _GradCall:
         graph, (static_out, saved), launches = self.graphs._captured(
             self.key[0], "forward", captured, device)
         e = self.entry
-        if tuple(o.requires_grad for o in static_out) != e.diff:
+        place = {id(x): j for j, x in enumerate(static_in)}
+        if (tuple(o.requires_grad for o in static_out) != e.diff
+                or tuple(place.get(id(o)) for o in static_out) != e.through):
             raise RuntimeError(f"the {self.key[0]!r} frame body's captured forward carries "
-                               "gradients on other outputs than its warm-up")
+                               "gradients on other outputs, or passes other inputs through, "
+                               "than its warm-up")
         e.forward = CapturedCall(graph, static_in, static_out, e.out_spec, launches)
         e.arena = _Arena(static_in, saved, static_out)
         ins = {x.untyped_storage().data_ptr(): j for j, x in enumerate(static_in)}

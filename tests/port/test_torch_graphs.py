@@ -25,8 +25,8 @@
   three steps, and a held step's gradients are unchanged by the next; two
   frames through one key show the overwrite trap when the per-call copies
   are not written back; ``refine()``'s steps replay with the eager bits;
-  the captured gradients against jitted ``jax.grad``. The online calls and
-  armed recovery stay eager under grad.
+  the captured gradients against jitted ``jax.grad``. The online calls stay
+  eager under grad; armed recovery is captured (``test_torch_graphs_armed.py``).
 """
 
 import contextlib
@@ -75,27 +75,43 @@ def _same(a, b) -> bool:
 # ---------------------------------------------------------------------- #
 # Which calls are captured
 # ---------------------------------------------------------------------- #
+def _pipeline_reason(use_jit, on_card, grad, armed, grad_graphs=False):
+    """The reason a tracked pipeline, armed (``relocalize_below > 0``) or
+    not, records for a call on these facts (``_plan``; ``forward`` plans
+    with ``grad_graphs``)."""
+    slam = PointFusion(odom="gradicp", use_jit=use_jit, relocalize_below=0.2 if armed else 0.0)
+    depth = _frames(L_=2).depth_image.clone().requires_grad_(grad)
+    with pytest.MonkeyPatch.context() as mp:
+        if on_card:
+            mp.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+        slam._plan(depth, grad_graphs=grad_graphs)
+    return slam.last_eager_reason
+
+
+# armed recovery is captured as unarmed calls are: arming changes no answer
 @pytest.mark.parametrize("use_jit,on_card,grad,armed,want", [
     (True, True, False, False, None),
     (False, True, False, False, "use_jit=False"),
     (True, False, False, False, "inputs not on the card"),
     (True, True, True, False, "an input needs a gradient"),
-    (True, True, False, True, "recovery armed (relocalize_below > 0)"),
+    (True, True, False, True, None),
     (False, False, True, True, "use_jit=False"),
 ])
 def test_eager_reason(use_jit, on_card, grad, armed, want):
-    assert eager_reason(use_jit, on_card, grad, armed) == want
+    assert eager_reason(use_jit, on_card, grad) == want
+    assert _pipeline_reason(use_jit, on_card, grad, armed) == want
 
 
 @pytest.mark.parametrize("on_card,grad,armed,grad_graphs,want", [
     (True, True, False, True, None),  # forward captures its gradients
-    (True, True, True, True, "recovery armed (relocalize_below > 0)"),
+    (True, True, True, True, None),  # ... armed too
     (False, True, False, True, "inputs not on the card"),
     (True, True, False, False, "an input needs a gradient"),  # step, localize, map_update
     (True, False, False, False, None),
 ])
 def test_eager_reason_under_grad(on_card, grad, armed, grad_graphs, want):
-    assert eager_reason(True, on_card, grad, armed, grad_graphs) == want
+    assert eager_reason(True, on_card, grad, grad_graphs) == want
+    assert _pipeline_reason(True, on_card, grad, armed, grad_graphs) == want
 
 
 def test_eager_reason_reads_the_tensors():
@@ -106,7 +122,7 @@ def test_eager_reason_reads_the_tensors():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
         assert eager_reason_for(True, frames) is None
-        assert eager_reason_for(True, frames, armed=True).startswith("recovery armed")
+        assert _pipeline_reason(True, True, False, armed=True) is None
         assert eager_reason_for(True, depth) == "an input needs a gradient"
         assert eager_reason_for(True, depth, grad_graphs=True) is None
         with torch.no_grad():
@@ -281,13 +297,47 @@ def test_the_capture_runs_with_the_garbage_collector_off(monkeypatch):
 # ---------------------------------------------------------------------- #
 # The pipelines, with the capture emulated on the CPU
 # ---------------------------------------------------------------------- #
+_REAL_STATIC_LIKE = graphs._static_like
+_OUTSIDE_POOL = set()  # storages of the static tensors made outside the graphs' pool
+
+
+def _static_outside_pool(t, requires_grad=False):
+    out = _REAL_STATIC_LIKE(t, requires_grad)
+    _OUTSIDE_POOL.add(out.untyped_storage().data_ptr())
+    return out
+
+
+def _one_per_run(t):
+    """``t``'s elements with an expanded (stride-0) dimension taken once."""
+    return t.data[tuple(0 if st == 0 else slice(None) for st in t.stride())]
+
+
+def _poison(t):
+    if t.untyped_storage().data_ptr() in _OUTSIDE_POOL or t.numel() == 0:
+        return
+    if t.dtype.is_floating_point:
+        _one_per_run(t).fill_(float("nan"))
+    else:
+        _one_per_run(t).fill_(True if t.dtype == torch.bool else -7)
+
+
 def _emulated_graph(self, fn, device):
     """FrameGraphs._graph on the CPU: ``fn`` runs once (the capture) and the
     tensors it returns are the static ones; a replay runs ``fn`` again and
     writes what it returns into them (outputs, saved residuals, gradients),
-    as a replay rewrites its graph's memory, unseen by autograd."""
+    as a replay rewrites its graph's memory, unseen by autograd.
+
+    The graphs of a ``FrameGraphs`` share one pool, so a graph captured
+    later may hold its outputs in memory that an earlier graph uses as
+    scratch: a replay poisons the pool tensors of every graph captured after
+    it (NaN, -7, True; static inputs, made outside the pool, are left
+    alone). A caller that reads a graph's outputs after another graph's
+    replay reads poison, as it reads garbage on the card."""
     out = fn()
     static = flatten(out)[0]
+    order = self.__dict__.setdefault("_emulated_order", [])
+    later = len(order) + 1
+    order.append(static)
 
     def replay():
         before = [m.launches for m in graphs.LAUNCH_COUNTERS]  # a replay runs no wrapper
@@ -297,9 +347,10 @@ def _emulated_graph(self, fn, device):
             counter.launches = n
         with torch.no_grad():
             for dst, src in zip(static, fresh):
-                # an expanded (stride-0) tensor: one element a broadcast run
-                idx = tuple(0 if st == 0 else slice(None) for st in dst.stride())
-                dst.data[idx].copy_(src[idx])
+                _one_per_run(dst).copy_(_one_per_run(src))
+            for tensors in order[later:]:
+                for t in tensors:
+                    _poison(t)
 
     return types.SimpleNamespace(replay=replay), out
 
@@ -308,9 +359,11 @@ def _emulate(mp):
     """Calls on CPU tensors taken as on the card, the capture emulated."""
     _fake_cuda(mp)
     mp.setattr(FrameGraphs, "_graph", _emulated_graph)
+    mp.setattr(graphs, "_static_like", _static_outside_pool)
+    _OUTSIDE_POOL.clear()  # an earlier test's storages may be reused
 
-    def on_card(use_jit, *trees, armed=False, grad_graphs=False):
-        return eager_reason(use_jit, True, graphs.needs_grad(*trees), armed, grad_graphs)
+    def on_card(use_jit, *trees, grad_graphs=False):
+        return eager_reason(use_jit, True, graphs.needs_grad(*trees), grad_graphs)
 
     mp.setattr(icpslam_module, "eager_reason_for", on_card)
 
@@ -383,8 +436,11 @@ def test_step_localize_and_map_update_captured_give_the_eager_bits(emulated):
 
 
 def test_gradients_and_armed_recovery_run_eagerly(emulated):
-    """Under grad the online calls (``step``, ``map_update``) and armed
-    recovery stay eager, with their reasons and autograd's gradients."""
+    """Under grad the online calls (``step``, ``map_update``) stay eager,
+    with their reason and autograd's gradients. Armed recovery no longer
+    runs eagerly: an armed ``forward`` is captured, with and without
+    gradients, as a gate and a fuse graph a capacity segment
+    (``test_torch_graphs_armed.py`` holds its bits)."""
     frames = _frames(L_=3)
     depth = frames.depth_image.clone().requires_grad_()
     grad_frames = frames.__class__(frames.rgb_image, depth, frames.intrinsics, frames.poses)
@@ -395,14 +451,20 @@ def test_gradients_and_armed_recovery_run_eagerly(emulated):
     assert slam.last_eager_reason == "an input needs a gradient"
     pc.points.sum().backward()
     assert depth.grad is not None and len(slam.frame_graphs) == 0
+    # five frames: from the third tracked frame on, each frame's inputs
+    # that need a gradient are the same and its keys replay
+    frames = _frames(L_=5)
+    depth = frames.depth_image.clone().requires_grad_()
+    grad_frames = frames.__class__(frames.rgb_image, depth, frames.intrinsics, frames.poses)
     armed = PointFusion(odom="gradicp", dsratio=4, numiters=2, relocalize_below=0.2)
     armed(frames)
-    assert not armed.last_call_captured and armed.last_eager_reason.startswith("recovery armed")
+    assert armed.last_call_captured and armed.last_eager_reason is None
+    assert sorted({key[0] for key in armed.frame_graphs._entries}) == ["fuse", "gate"]
     pc, _ = armed(grad_frames)
-    assert armed.last_eager_reason.startswith("recovery armed")
+    assert armed.last_call_captured and armed.last_eager_reason is None
     depth.grad = None
     pc.points.sum().backward()
-    assert depth.grad is not None and len(armed.frame_graphs) == 0
+    assert depth.grad is not None and armed.frame_graphs.counts()["backward"] > 0
 
 
 def test_emulated_capture_against_the_jax_packages_jit():
