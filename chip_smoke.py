@@ -123,7 +123,13 @@ Phases (each raises on failure; nothing is caught):
     8 crossed by the gradient), the last of ``GRAD_ROWS``, as (b): its
     launches derived from its branch frames, the same branch frames in
     every step of both modes, the profiled step's phases split at the
-    branch (``PhaseTrace``);
+    branch (``PhaseTrace``). (f) The online step loop under grad
+    (``ONLINE_GRAD_ROWS``: gt and gradICP 1-NN ``step`` at 640x480x30,
+    remat on), eager and captured (``online_grad_row``): map and poses
+    SHA-256-equal, depth gradients SHA-256-equal where two eager steps
+    agree, else and the intrinsics within ``GRAD_SUM_ORDER_BAR`` of max
+    |g|, the same launches in every step (a profiled captured step's
+    device trace showing none more), s/step first and steady, busy share;
 13. the recovery slice (before the gradient phase; ``recovery_phase``), each
     row held against the JAX package's CPU run of it
     (``tests/port/data/recovery_jax_cpu.npz``, ``large_map_jax_cpu.npz``):
@@ -242,7 +248,12 @@ Phases (each raises on failure; nothing is caught):
     poses within 1e-4 and unaligned RMSE within 2x), with exact launch counts (``sharded_launches``: the
     scatter on every row, the 1-NN on the 1-NN row only) and the
     winner-table traffic exactly ``3 * K * B * H*W * 4`` bytes a fused
-    frame; a 2-D ``(dp=1, map=1)`` mesh with ``batch_axis`` at B=2
+    frame, with ``use_jit=False``, then each captured beside it
+    (``sharded_captured``: its frames replayed from one CUDA graph with the
+    collectives inside; SHA-256-equal, the same launches and collective
+    bytes and calls by tag, one graph, a replay's device trace showing no
+    more launches than derived; s/run, busy share, capture s and peak
+    memory beside ``PointFusion``'s); a 2-D ``(dp=1, map=1)`` mesh with ``batch_axis`` at B=2
     320x240x8; ``DataParallelSLAM(PointFusion(odom='gt'))`` at B=2
     640x480x8 SHA-256-equal to ``PointFusion``; the scatter kernel
     bit-equal to its plain version on the winner table, the append map and
@@ -423,7 +434,8 @@ GRAD_ROWS = {
     "gt_B8_320x240x8": ((8, 8, 240, 320), 614_400, dict(odom="gt"), (True,)),
     "gt_640x480x30": ((1, 30, 480, 640), 540_672, dict(odom="gt"), (False, True)),
     "knn_320x240x30": ((1, 30, 240, 320), 147_456, GRADICP, (False, True)),
-    "knn_640x480x30": ((1, 30, 480, 640), 540_672, GRADICP, (True,)),
+    # 15 frames, not the bench row's 30: the script's time limit (PERF.md §6)
+    "knn_640x480x15": ((1, 15, 480, 640), 540_672, GRADICP, (True,)),
     "projective_640x480x30": ((1, 30, 480, 640), 540_672,
                               dict(GRADICP, odom_assoc="projective", odom_sym_normals=True),
                               (False, True)),
@@ -2111,6 +2123,137 @@ def grad_row(name: str, remat: bool):
     return grads, rows
 
 
+# (f) the online calls under grad, as the JAX package jits ``_step`` under
+# jax.grad: the step loop (``step_loop``, at ``ONLINE_CAP``) on the easy
+# 640x480x30 clip, remat on; name -> pipeline options
+ONLINE_GRAD_SHAPE = (1, 30, 480, 640)
+ONLINE_GRAD_ROWS = {"gt": dict(odom="gt"), "knn": GRADICP}
+
+
+def online_grad_step(slam, inputs):
+    """One gradient step through the online API: the step loop, then
+    ``sum(points^2)`` of its last map (tracked: plus ``sum(t^2)`` of the
+    returned poses) backward to the depth images and the intrinsics. Both
+    kernels' counts from 0 in the loop and in the backward, as
+    :func:`grad_step`. Returns ``(pointclouds, poses, g_depth, g_K,
+    launches)``."""
+    rgb, depth, K, P = inputs
+    d = depth.clone().requires_grad_()
+    k = K.clone().requires_grad_()
+    knn_cuda.launches = scatter_cuda.launches = 0
+    pc, poses = step_loop(slam, RGBDImages(rgb, d, k, P), cv=False)
+    loss = (pc.points ** 2).sum()
+    if slam.odom != "gt":
+        loss = loss + (poses[..., :3, 3] ** 2).sum()
+    fwd = {"knn": knn_cuda.launches, "scatter": scatter_cuda.launches}
+    knn_cuda.launches = scatter_cuda.launches = 0
+    loss.backward()
+    bwd = {"knn": knn_cuda.launches, "scatter": scatter_cuda.launches}
+    return pc, poses, d.grad, k.grad, {"forward": fwd, "backward": bwd}
+
+
+def online_grad_row(name: str) -> dict:
+    """An ``ONLINE_GRAD_ROWS`` row's gradient steps through the step loop
+    with ``use_jit=False`` (two steps) and then ``True`` (three: the first
+    warms up and captures each call's forward and the first backwards, the
+    second the rest of the backwards, the third replays every call's
+    forward and backward), a fresh pipeline each, then a profiled captured
+    step. Every step of both modes launches the same counts in the loop and
+    in the backward (the captured ones added up by the counters on replay;
+    the profiled step's device trace shows no more). Captured against
+    eager: map and poses SHA-256-equal, the depth gradient SHA-256-equal
+    where the two eager steps agree, else and for the intrinsics within
+    ``GRAD_SUM_ORDER_BAR`` of max |g|; the first step's results unchanged by
+    the later steps; every step's calls captured. Returns the
+    measurements by mode."""
+    kw = ONLINE_GRAD_ROWS[name]
+    inputs = grad_inputs(ONLINE_GRAD_SHAPE, "cuda")
+    rows, results = {}, {}
+    for mode, use_jit in (("eager", False), ("captured", True)):
+        slam = PointFusion(map_capacity=ONLINE_CAP, remat=True, use_jit=use_jit, **kw)
+        steps, secs = [], []
+        for i in range(2 if mode == "eager" else 3):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = online_grad_step(slam, inputs)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if slam.last_call_captured != use_jit:
+                raise AssertionError(f"online grad {name} {mode}: last_call_captured "
+                                     f"{slam.last_call_captured} ({slam.last_eager_reason})")
+            steps.append((grad_digests(out), out[2].detach().clone(), out[3].detach().clone(),
+                          out[4]))
+            if i == 0:
+                held = out
+        peak = torch.cuda.max_memory_allocated()
+        if grad_digests(held) != steps[0][0]:
+            raise AssertionError(f"online grad {name} {mode}: the first step's results changed "
+                                 "in the later steps")
+        launches = steps[0][3]
+        if any(step[3] != launches for step in steps):
+            raise AssertionError(f"online grad {name} {mode}: launches {[s[3] for s in steps]}")
+        total = {k: launches["forward"][k] + launches["backward"][k] for k in ("knn", "scatter")}
+        busy = events = None
+        if use_jit:
+            CAPTURED_LAUNCHES[f"online_grad_{name}"] = total
+            trace = device_profile(lambda: online_grad_step(slam, inputs))
+            if any(trace["kernels"][k] > total[k] for k in total):
+                raise AssertionError(f"online grad {name}: the profiled step's device trace "
+                                     f"shows {trace['kernels']}, more than the {total} counted")
+            busy, events = trace["busy_s"], trace["events"]
+        else:
+            GRAD_LAUNCHES[f"online {name} remat=on"] = launches
+            LAUNCHES[f"online_grad_{name}"] = total
+        gmax = (float(out[2].abs().max()), float(out[3].abs().max()))
+        if not all(math.isfinite(g) and g > 0 for g in gmax):
+            raise AssertionError(f"online grad {name} {mode}: max |g| depth, intrinsics {gmax}")
+        rows[mode] = dict(first_s=secs[0], steady_s=secs[-1], peak_b=peak, busy_s=busy,
+                          events=events, graphs=slam.frame_graphs.counts(),
+                          capture_s=slam.frame_graphs.capture_s, launches=launches, gmax=gmax,
+                          points=int(out[0].num_points.sum()))
+        results[mode] = steps
+        del out, held, slam
+        gc.collect()  # a pipeline's autograd nodes and graphs free in cycles
+    eager, captured = results["eager"], results["captured"]
+    if rows["captured"]["launches"] != rows["eager"]["launches"]:
+        raise AssertionError(f"online grad {name}: launches captured "
+                             f"{rows['captured']['launches']}, eager {rows['eager']['launches']}")
+    if len({d[0][0] for d in eager + captured}) != 1:
+        raise AssertionError(f"online grad {name}: map or poses differ between the modes or steps")
+    eager_same = eager[0][0][1] == eager[1][0][1]
+    gaps = []
+    for i, (dig, gd, gk, _) in enumerate(captured):
+        depth_gap, k_gap = rel_gap(gd, eager[0][1]), rel_gap(gk, eager[0][2])
+        gaps.append((depth_gap, k_gap))
+        if eager_same and dig[1] != eager[0][0][1]:
+            raise AssertionError(f"online grad {name}: captured step {i}'s depth gradient is not "
+                                 f"the eager bits (gap {depth_gap:.3e} of max |g|)")
+        if not (depth_gap <= GRAD_SUM_ORDER_BAR and k_gap <= GRAD_SUM_ORDER_BAR):
+            raise AssertionError(f"online grad {name}: captured step {i} against eager: depth "
+                                 f"{depth_gap:.3e}, intrinsics {k_gap:.3e} of max |g|")
+    k_same = all(dig[2] == eager[0][0][2] for dig, _, _, _ in captured)
+    r_e, r_c = rows["eager"], rows["captured"]
+    log(f"online grad {name} step loop {ONLINE_GRAD_SHAPE} at {ONLINE_CAP} rows, remat on: "
+        f"captured against eager: map and poses SHA-256-equal ({eager[0][0][0][:16]}, map "
+        f"{r_c['points']}); depth gradient "
+        + ("SHA-256-equal" if eager_same else
+           f"within {max(g[0] for g in gaps):.3e} of max |g| (the two eager steps differ by "
+           f"{rel_gap(eager[1][1], eager[0][1]):.3e}: atomic adds)")
+        + "; intrinsics gradient " + ("SHA-256-equal" if k_same else
+                                      f"within {max(g[1] for g in gaps):.3e} of max |g|")
+        + f"; launches {r_e['launches']} in every step of both modes; s/step eager first "
+        f"{r_e['first_s']:.4f}, steady {r_e['steady_s']:.4f}; captured first "
+        f"{r_c['first_s']:.4f}, steady {r_c['steady_s']:.4f} "
+        f"({r_e['steady_s'] / r_c['steady_s']:.2f}x), the profiled step's device busy "
+        f"{r_c['busy_s']:.4f} s ({100 * r_c['busy_s'] / r_c['steady_s']:.1f}% of the steady "
+        f"step), {r_c['events']} device events; graphs {r_c['graphs']} captured in "
+        f"{r_c['capture_s']:.4f} s; the steady step's peak memory eager {r_e['peak_b']} B, "
+        f"captured {r_c['peak_b']} B; max |g| depth {r_c['gmax'][0]:.6e}, intrinsics "
+        f"{r_c['gmax'][1]:.6e}")
+    return rows
+
+
 def graph_memory(frame_graphs) -> dict:
     """What a pipeline's graphs hold, read before they are freed:
     ``saved_b``, the storages their captured forwards keep saved tensors in
@@ -2296,7 +2439,9 @@ def grad_phase() -> None:
     rows at full width, eager and captured; (c) two rows against the JAX
     package's CPU gradients, both modes; (d) a profile of one gradient step
     (gt 640x480x30, remat on), eager and captured; (e) the armed row
-    (``ARMED_GRAD_ROW``, the last of (b)'s rows), eager and captured."""
+    (``ARMED_GRAD_ROW``, the last of (b)'s rows), eager and captured; (f)
+    the online step loop under grad (``ONLINE_GRAD_ROWS``), eager and
+    captured."""
     disable_tf32()
     if not tf32_disabled():
         raise AssertionError("TF32 is enabled before the gradient phase")
@@ -2335,6 +2480,13 @@ def grad_phase() -> None:
             grad_step(slam, inputs)
         profile_run(lambda: grad_step(slam, inputs), f"grad gt 640x480x30 remat {mode}",
                     gt_remat_secs[mode])
+    del slam, inputs
+    gc.collect()
+    for name in ONLINE_GRAD_ROWS:
+        t_row = time.perf_counter()
+        online_grad_row(name)
+        torch.cuda.empty_cache()
+        log(f"online grad {name}: {time.perf_counter() - t_row:.2f} s for the row's checks")
 
 
 # --------------------------------------------------------------------------
@@ -4252,6 +4404,7 @@ SHARDED_GOLDEN_MASS_REL = 1e-3
 # golden's unaligned RMSE is 5.94e-5 m).
 SHARDED_GOLDEN_ATE_FACTOR = 2.0
 SHARDED_GOLDEN_POSE_ATOL = 1e-4
+SHARDED_STEADY_CALLS = 3  # captured calls after the first; s/run is their median
 SHARDED_2D = dict(shape=(2, 8, 240, 320), odom="gt")  # a (dp=1, map=1) mesh with batch_axis
 SHARDED_DP_SHAPE = (2, 8, 480, 640)  # DataParallelSLAM(PointFusion(odom='gt'))
 LOADER_SIZES = ((480, 640), (240, 320))  # the frame loader against the C++ arithmetic
@@ -4316,14 +4469,90 @@ def live_ccount_mass(pc) -> float:
     return float(pc.features[0, :n, 0].double().sum())
 
 
+def sharded_digest(smap, poses) -> str:
+    """SHA-256 of a map-sharded run's shard, counters and poses."""
+    return sha256_of(smap.points, smap.normals, smap.colors, smap.features, smap.num_points,
+                     smap.num_dropped, poses)
+
+
+def collective_tallies() -> dict:
+    """The collectives' bytes and calls by tag since their last reset."""
+    from gradslam_torch.parallel import collectives
+
+    return {"bytes": dict(collectives.BYTES), "calls": dict(collectives.CALLS)}
+
+
+def sharded_captured(frames, mesh, name: str, kw: dict, want: str, tallies: dict) -> dict:
+    """Row ``name`` with ``use_jit`` on (its frames after the first replayed
+    from one CUDA graph with the NCCL collectives inside it) beside its
+    eager run (digest ``want``, launches ``LAUNCHES['sharded_<name>']``,
+    collective ``tallies``): a first call (the warm-up, under the sync
+    debug mode "error", and the capture) and ``SHARDED_STEADY_CALLS``
+    steady ones (every frame replayed), each with both kernels' counts and
+    the collectives' tallies from 0: SHA-256-equal to eager, the launches that the counters add up
+    (``CAPTURED_LAUNCHES``) and the bytes and calls of each tag equal to
+    eager's, ``last_call_captured`` True, one graph, the first call's
+    result as the caller held it unchanged by the second; then a profiled
+    replayed call, whose device trace shows no more ``knn1_search`` and
+    ``scatter_rows<`` events than :func:`sharded_launches` derives, and a
+    profiled eager call (a pipeline with ``use_jit=False``) for its busy
+    share. Returns the measurements."""
+    from gradslam_torch.parallel import MapShardedPointFusion, collectives
+
+    L_ = frames.shape[1]
+    jit = MapShardedPointFusion(map_capacity=SHARDED_CAP, mesh=mesh, **kw)
+    secs, digests = {"first": [], "steady": []}, set()
+    for i in range(1 + SHARDED_STEADY_CALLS):
+        call = "steady" if i else "first"
+        if i == 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        collectives.reset_counts()
+        (smap, poses), launches, t = counted(lambda: jit(frames))
+        secs[call].append(t)
+        CAPTURED_LAUNCHES[f"sharded_{name}_{call}"] = launches
+        if not jit.last_call_captured:
+            raise AssertionError(f"sharded {name}: not captured ({jit.last_eager_reason})")
+        if launches != LAUNCHES[f"sharded_{name}"] or collective_tallies() != tallies:
+            raise AssertionError(f"sharded {name} captured {call} call: launches {launches}, "
+                                 f"collectives {collective_tallies()}; eager "
+                                 f"{LAUNCHES[f'sharded_{name}']}, {tallies}")
+        digests.add(sharded_digest(smap, poses))
+        if i == 0:
+            held = (smap, poses)
+    peak = torch.cuda.max_memory_allocated()
+    if digests != {want} or sharded_digest(*held) != want:
+        raise AssertionError(f"sharded {name}: captured {digests}, held first call "
+                             f"{sharded_digest(*held)}, eager {want}")
+    graphs = len(jit.frame_graphs)
+    if graphs != 1:
+        raise AssertionError(f"sharded {name}: {graphs} graphs, one expected")
+    del held, smap, poses
+    trace = device_profile(lambda: jit(frames))
+    expect = sharded_launches(kw, L_)
+    if any(trace["kernels"][k] > expect[k] for k in expect):
+        raise AssertionError(f"sharded {name}: the replayed call's device trace shows "
+                             f"{trace['kernels']}, more than the {expect} derived")
+    capture_s = jit.frame_graphs.capture_s
+    del jit
+    eager = MapShardedPointFusion(map_capacity=SHARDED_CAP, mesh=mesh, use_jit=False, **kw)
+    eager_trace = device_profile(lambda: eager(frames))
+    return dict(first_s=secs["first"][0], steady_s=float(np.median(secs["steady"])),
+                steady_range=(min(secs["steady"]), max(secs["steady"])), peak_b=peak, graphs=graphs,
+                capture_s=capture_s, busy_s=trace["busy_s"], events=trace["events"],
+                kernels=trace["kernels"], expect=expect, eager_busy_s=eager_trace["busy_s"],
+                eager_events=eager_trace["events"])
+
+
 def sharded_phase(frames, P) -> list:
     """The map-sharded slice (``gradslam_torch/parallel``) under NCCL at
     world size 1: ``torch.distributed.init_process_group('nccl')`` with a
     ``file://`` store (no network), destroyed at the end of the phase.
 
-    (a) Each ``SHARDED_ROWS`` row of ``MapShardedPointFusion`` on the easy
-        640x480x30 clip at ``SHARDED_CAP`` rows: a warm-up, then one counted
-        run (both kernels' launches from 0, against ``sharded_launches``),
+    (a) Each ``SHARDED_ROWS`` row of ``MapShardedPointFusion`` with
+        ``use_jit=False`` on the easy 640x480x30 clip at ``SHARDED_CAP``
+        rows: a warm-up, then one counted run (both kernels' launches from
+        0, against ``sharded_launches``),
         beside ``PointFusion`` at the same settings on the card (its own
         warm-up and counted run): equal map counts (tracked rows: within
         ``SHARDED_TRACKED_COUNT_REL``), the rows sorted by (x, y, z) within
@@ -4335,7 +4564,11 @@ def sharded_phase(frames, P) -> list:
         tracked poses within ``SHARDED_GOLDEN_POSE_ATOL`` and unaligned RMSE
         within 2x (aligned ATE reported); the
         winner-table traffic exactly ``3 * K * B * H*W * 4`` bytes a fused
-        frame; s/run and peak memory beside the single-device run's.
+        frame; s/run and peak memory beside the single-device run's. Then
+        the row captured, beside the eager run (:func:`sharded_captured`):
+        s/run first and steady (the median of ``SHARDED_STEADY_CALLS``),
+        busy share, device events, graphs, capture s and peak memory beside
+        ``PointFusion``'s captured run.
     (b) A 2-D ``(dp=1, map=1)`` mesh with ``batch_axis`` at ``SHARDED_2D``
         against ``PointFusion``.
     (c) ``DataParallelSLAM(PointFusion(odom='gt'))`` at ``SHARDED_DP_SHAPE``
@@ -4367,7 +4600,8 @@ def sharded_phase(frames, P) -> list:
         K = mesh.size()
         spy = LastScatterCalls()
         for name, kw in SHARDED_ROWS.items():
-            sharded = MapShardedPointFusion(map_capacity=SHARDED_CAP, mesh=mesh, **kw)
+            sharded = MapShardedPointFusion(map_capacity=SHARDED_CAP, mesh=mesh, use_jit=False,
+                                            **kw)
             single = PointFusion(map_capacity=SHARDED_CAP, **kw)
             with spy:
                 sharded(frames)
@@ -4375,6 +4609,7 @@ def sharded_phase(frames, P) -> list:
             torch.cuda.reset_peak_memory_stats()
             (smap, poses), launches, secs = counted(lambda: sharded(frames))
             peak = torch.cuda.max_memory_allocated()
+            tallies = collective_tallies()
             fusion = (collectives.BYTES["fusion"], collectives.CALLS["fusion"])
             if not (smap.points.is_cuda and poses.is_cuda):
                 raise AssertionError(f"sharded {name}: the row ran on {smap.points.device}")
@@ -4430,6 +4665,23 @@ def sharded_phase(frames, P) -> list:
                 f"(golden {g_ate:.4e}); "
                 f"winner-table traffic {fusion[0]} B in {fusion[1]} all-gathers; launches {launches}"
                 f" (PointFusion {launches_s})")
+            want = sharded_digest(smap, poses)
+            del smap, poses, pc, pc_s, poses_s, sharded, single
+            r = sharded_captured(frames, mesh, name, kw, want, tallies)
+            log(f"sharded {name} captured (use_jit, the NCCL collectives inside the graph): "
+                f"SHA-256-equal to eager ({want[:16]}), launches {launches} and collectives "
+                f"{tallies} in each call, the held first result unchanged; s/run eager "
+                f"{secs:.4f}, captured first {r['first_s']:.4f}, steady {r['steady_s']:.4f} "
+                f"(median of {SHARDED_STEADY_CALLS}, {r['steady_range'][0]:.4f}-"
+                f"{r['steady_range'][1]:.4f}) "
+                f"({secs / r['steady_s']:.2f}x faster; {r['steady_s'] / secs_s:.3f}x "
+                f"PointFusion's captured {secs_s:.4f}); device busy {r['busy_s']:.4f} s "
+                f"({100 * r['busy_s'] / r['steady_s']:.1f}% of the steady call; eager "
+                f"{r['eager_busy_s']:.4f} s, {100 * r['eager_busy_s'] / secs:.1f}%), "
+                f"{r['events']} device events (eager {r['eager_events']}), its trace shows "
+                f"{r['kernels']} (derived {r['expect']}); {r['graphs']} graph captured in "
+                f"{r['capture_s']:.4f} s; peak memory {r['peak_b']} B (eager {peak} B, "
+                f"PointFusion captured {peak_s} B, {(r['peak_b'] - peak_s) / 2**30:+.3f} GiB)")
 
         # (b) a 2-D (dp=1, map=1) mesh with batch_axis
         shape2 = SHARDED_2D["shape"]

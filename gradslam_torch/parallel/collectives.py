@@ -10,6 +10,12 @@ gathered output's size for a gather (``K`` times the input), the tensor's
 size for a reduction. A tag names the traffic (``'fusion'``, ``'window'``,
 ``'normal_eq'``, ...), so a caller can hold one kind of traffic to its
 budget. :func:`reset_counts` zeroes both counters.
+
+Both are tallies of the CUDA-graph layer
+(:func:`~gradslam_torch.utils.graphs.register_tally`): a collective issued
+inside a captured frame body is counted once by its capture, which takes
+the count back, and then on every replay of the graph, so a captured run
+reads the bytes and calls of an eager one.
 """
 
 from __future__ import annotations
@@ -19,10 +25,14 @@ import collections
 import torch
 import torch.distributed as dist
 
+from ..utils import graphs
+
 __all__ = ["BYTES", "CALLS", "all_gather", "all_reduce", "gather_batch", "reset_counts"]
 
 BYTES: "collections.Counter[str]" = collections.Counter()
 CALLS: "collections.Counter[str]" = collections.Counter()
+graphs.register_tally("collectives.BYTES", BYTES)
+graphs.register_tally("collectives.CALLS", CALLS)
 
 
 def reset_counts() -> None:

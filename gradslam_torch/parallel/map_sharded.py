@@ -43,6 +43,13 @@ is int64. On the card the winner tables, the append map and the window
 compaction go through the scatter dispatchers (the hand-written scatter
 kernel) and every 1-NN level through the 1-NN kernel.
 
+With ``use_jit`` (the default, as in JAX, whose whole frame scan is one
+jitted ``shard_map``) each frame's body after the first replays a CUDA
+graph on the card, its collectives captured in it
+(:mod:`~gradslam_torch.utils.graphs`): a function of its arguments alone
+(the state, the poses, the frame's own slices), so one graph serves every
+frame and every call.
+
 Winner semantics match the single-device path exactly up to the global row
 numbering: appends land at different global rows than a single-device run,
 so ties in (ccount, ray distance), i.e. exactly duplicated points, may
@@ -90,6 +97,7 @@ from ..structures.pointclouds import (
     scatter_rows_into,
 )
 from ..structures.rgbdimages import RGBDImages
+from ..utils.graphs import FrameGraphs, clone_tree, eager_reason_for
 from ..utils.precision import disable_tf32
 from . import collectives
 from .sharding import make_mesh
@@ -260,9 +268,18 @@ class MapShardedPointFusion:
             sized so even a maximally imbalanced shard fits its actives; the
             K ranks therefore hold up to K times the single-device window).
         motion_model: ``'static'`` (default) or ``'constant_velocity'``.
-        use_jit: accepted as in the JAX constructor; this pipeline runs
-            eagerly whatever its value (its collectives are not captured in
-            CUDA graphs), and ``last_call_captured`` stays False.
+        use_jit: as the JAX package runs the whole frame scan in one
+            jitted ``shard_map``, on the card each frame after the first
+            replays a CUDA graph of its body with the body's collectives
+            (NCCL) captured in it: the gt fusion, or the tracked frame's
+            prediction, localization and fusion (one graph a key in
+            ``frame_graphs``, :class:`~gradslam_torch.utils.graphs.
+            FrameGraphs`; the first call of a key warms up and captures).
+            Frame 0, the prune between segments and the final gathers run
+            eagerly, as they run outside the JAX scan. ``last_call_captured``
+            and ``last_eager_reason`` say how the last call ran (CPU
+            tensors and ``use_jit=False`` run eagerly, with the same bits).
+            The result is the caller's: later calls leave it alone.
         dist_th / angle_th / sigma and the solver parameters match
             :class:`gradslam_torch.PointFusion` defaults.
     """
@@ -304,8 +321,9 @@ class MapShardedPointFusion:
         use_jit: bool = True,
     ):
         self.use_jit = bool(use_jit)
+        self.frame_graphs = FrameGraphs()
         self.last_call_captured = False
-        self.last_eager_reason = "map-sharded: collectives run eagerly"
+        self.last_eager_reason: Optional[str] = None
         if odom not in ("gt", "icp", "gradicp"):
             raise ValueError(f"Odometry method ({odom}) not supported.")
         if isinstance(odom_assoc, (list, tuple)):
@@ -434,7 +452,15 @@ class MapShardedPointFusion:
         Bl = frames.shape[0] // self.dp
         frames = frames[self.batch_rank * Bl:(self.batch_rank + 1) * Bl]
         with torch.no_grad():
-            return self._forward_impl(frames)
+            return self._forward_impl(frames, self._plan(frames))
+
+    def _plan(self, frames: RGBDImages) -> bool:
+        """Whether this call runs as CUDA graphs (``use_jit`` and frames on
+        the card); records the answer in ``last_call_captured`` and
+        ``last_eager_reason``."""
+        reason = eager_reason_for(self.use_jit, frames)
+        self.last_call_captured, self.last_eager_reason = reason is None, reason
+        return reason is None
 
     # ------------------------------------------------------------------ #
 
@@ -461,7 +487,7 @@ class MapShardedPointFusion:
                 B2=self.B2, nu=self.nu, **kw)
         return T
 
-    def _forward_impl(self, frames: RGBDImages):
+    def _forward_impl(self, frames: RGBDImages, captured: bool):
         if self.normal_pitch is not None and frames.normal_pitch != self.normal_pitch:
             import dataclasses
 
@@ -518,17 +544,24 @@ class MapShardedPointFusion:
             sv.append(frames.valid_depth_mask[:, :, ::ds_l, ::ds_l].reshape(B, L, -1))
 
         dist_th, dot_th = self.dist_th, self.dot_th
-        lidx = torch.arange(C, device=dev)[None, :].expand(B, C)
-        pixel_ids = torch.arange(HW, device=dev)[None, :].expand(B, HW)
-        inf = torch.full((), float("inf"), dtype=dtype, device=dev)
-        # the winner table's fills: -ccount and ray distance +inf, the
-        # global row index GCAP ("no winner"), its int32 bits as float32
-        table_fill = torch.stack([inf, inf, torch.tensor(GCAP, dtype=torch.int32,
-                                                         device=dev).view(torch.float32)])
 
-        def fuse(state, pose, v, n, c, a, vd, uf):
+        # The frame bodies below are functions of their arguments alone (a
+        # captured graph replays them for every frame and every call): the
+        # state, the poses and the frame's own slices come in; every
+        # constant tensor is built inside.
+        def row_ids():
+            return torch.arange(C, device=dev)[None, :].expand(B, C)
+
+        def fuse(state, pose, v, n, c, a, vd, uf, intr):
             """One fusion step at the given pose (global-frame v/n in)."""
             pts, nrm, col, feat, nloc, ndrop = state
+            lidx = row_ids()
+            pixel_ids = torch.arange(HW, device=dev)[None, :].expand(B, HW)
+            inf = torch.full((), float("inf"), dtype=dtype, device=dev)
+            # the winner table's fills: -ccount and ray distance +inf, the
+            # global row index GCAP ("no winner"), its int32 bits as float32
+            table_fill = torch.stack([inf, inf, torch.full((), GCAP, dtype=torch.int32,
+                                                           device=dev).view(torch.float32)])
             nonpad = lidx < nloc[:, None]
             valid, pix = _project_map_points(pts, nonpad, pose, intr, H, W)
             # in the quantized layout the frame's packed color fills the 8th
@@ -612,20 +645,20 @@ class MapShardedPointFusion:
             return (torch.where(m, _transform_pts(v_loc, pose), zero),
                     torch.where(m, _rotate_pts(n_loc, pose), zero))
 
-        def knn_level(li, n_l, win, keep, packed6, pose_prev, X, f):
+        def knn_level(n_l, win, keep, packed6, pose_prev, X, s_loc, s_valid):
             """One 1-NN level: the gathered windows as the target, the
-            strided frame cloud as the source, warm-started at ``X``."""
+            strided frame cloud ``s_loc`` as the source, warm-started at
+            ``X``."""
             window, counts = compact_masked(packed6, keep, win)
             aw = collectives.all_gather(window, group, "window")  # (K, B, win, 6)
             ac = collectives.all_gather(counts, group, "window")  # (K, B)
             tgt = aw.permute(1, 0, 2, 3).reshape(B, K * win, 6)
             tmask = (torch.arange(win, device=dev)[None, None] < ac[..., None])
             tmask = tmask.permute(1, 0, 2).reshape(B, K * win)
-            s_loc = sl[li][:, f]
             src = _transform_pts(s_loc[..., :3], pose_prev)
             src_n = _rotate_pts(s_loc[..., 3:6], pose_prev) if knn_gate else None
-            return self._solve_one(src, sv[li][:, f], tgt[..., :3], tgt[..., 3:6], tmask, X,
-                                   n_l, src_n)
+            return self._solve_one(src, s_valid, tgt[..., :3], tgt[..., 3:6], tmask, X, n_l,
+                                   src_n)
 
         rb_loss, rb_scale = self.robust_loss, self.robust_scale
         dthr = self.dist_thresh
@@ -637,9 +670,8 @@ class MapShardedPointFusion:
         is_lm = self.odom == "icp"
         sym_nrm = self.odom_sym_normals
         subpix = self.odom_subpixel
-        eye6 = torch.eye(6, dtype=dtype, device=dev)
 
-        def proj_rows(m_pts, m_nrm, m_mask, fgeo, pose):
+        def proj_rows(m_pts, m_nrm, m_mask, fgeo, pose, intr):
             """Association + masked point-to-plane rows, with the row
             normals (symmetric normals when ``odom_sym_normals``)."""
             s, val, nf = projective_associate(m_pts, m_nrm, m_mask, fgeo, intr, pose, H, W,
@@ -676,18 +708,21 @@ class MapShardedPointFusion:
             trust = radius / torch.clamp(disp, min=radius)
             return xi * (fade * trust)[:, None, None]
 
-        def solve_level_projective(m_pts, m_nrm, m_mask, fgeo, pose_prev, X, n_iters):
+        def solve_level_projective(m_pts, m_nrm, m_mask, fgeo, pose_prev, X, n_iters, intr):
             dampv = torch.full((B,), self.damp, dtype=dtype, device=dev)
+            eye6 = torch.eye(6, dtype=dtype, device=dev)
             for _ in range(n_iters):
                 pose = torch.matmul(X, pose_prev)
-                s, val, rown, A, b = proj_rows(m_pts, m_nrm, m_mask, fgeo, pose)
+                s, val, rown, A, b = proj_rows(m_pts, m_nrm, m_mask, fgeo, pose, intr)
                 At = A.transpose(-1, -2)
                 # one all-reduce of AtA | Atb | err
                 red = collectives.all_reduce(torch.cat([
                     torch.matmul(At, A).reshape(B, 36), torch.matmul(At, b).reshape(B, 6),
                     torch.sum(b * b, dim=(1, 2))[:, None]], dim=1), group, "normal_eq")
                 AtA, Atb, err = red[:, :36].reshape(B, 6, 6), red[:, 36:42, None], red[:, 42]
-                xi = torch.linalg.solve(AtA + dampv[:, None, None] * eye6, Atb)
+                # no error flag read back to the host (icputils.solve_linear_system)
+                xi, _info = torch.linalg.solve_ex(AtA + dampv[:, None, None] * eye6, Atb,
+                                                  check_errors=False)
                 if rb_loss is not None:
                     xi = guard_global(xi, A, s, val)
                 rT = se3_exp(xi[:, :, 0])
@@ -699,7 +734,8 @@ class MapShardedPointFusion:
                         val1 = val1 & (torch.sum((s1 - m_pts) ** 2, -1) < dthr)
                     _, b1 = _ptp_system(s1, m_pts, rown, val1, rb_loss, rb_scale)
                 else:
-                    b1 = proj_rows(m_pts, m_nrm, m_mask, fgeo, torch.matmul(one_step, pose_prev))[4]
+                    b1 = proj_rows(m_pts, m_nrm, m_mask, fgeo, torch.matmul(one_step, pose_prev),
+                                   intr)[4]
                 err1 = err_sum(b1)
                 if is_lm:  # classic LM accept/reject
                     accept = err1 < err
@@ -713,30 +749,33 @@ class MapShardedPointFusion:
                     dampv = dampv * dmul
             return X
 
-        def localize(state, pose_prev, f):
+        def localize(state, pose_prev, v, n, vd, s_loc, s_valid, intr):
             """Frame-to-map odometry (reference icpslam.py:180-247),
             coarse-to-fine over ``levels``: each level dispatches to the
             projective or the 1-NN machinery, threading the same world-frame
             correction ``X`` (both include their warm start in the returned
-            transform)."""
+            transform). ``v``, ``n``, ``vd`` are the frame's camera-frame
+            vertices, normals and valid mask, ``s_loc``/``s_valid`` its
+            strided clouds, one a level (None on projective levels)."""
             pts, nrm, _col, _feat, nloc, _nd = state
-            nonpad = lidx < nloc[:, None]
+            nonpad = row_ids() < nloc[:, None]
             valid0, pix0 = _project_map_points(pts, nonpad, pose_prev, intr, H, W)
             ph0, pw0 = pix0 // W, pix0 % W
             packed6 = torch.cat([pts, nrm], dim=-1)
             if "projective" in assocs:
-                vdf = fvalid[:, f, :, None].to(dtype)
-                fgeo = torch.cat([lv[:, f], ln[:, f], vdf, torch.zeros_like(vdf)], dim=-1)
-            X = eye4
+                vdf = vd[..., None].to(dtype)
+                fgeo = torch.cat([v, n, vdf, torch.zeros_like(vdf)], dim=-1)
+            X = torch.eye(4, dtype=dtype, device=dev).expand(B, 4, 4)
             for li, ((ds_l, n_l), a_l) in enumerate(zip(levels, assocs)):
                 keep = valid0 & (ph0 % ds_l == 0) & (pw0 % ds_l == 0)
                 if a_l == "projective":
                     window, counts = compact_masked(packed6, keep, wins[li])
                     wmask = torch.arange(wins[li], device=dev)[None] < counts[:, None]
                     X = solve_level_projective(window[..., :3], window[..., 3:6], wmask, fgeo,
-                                               pose_prev, X, n_l)
+                                               pose_prev, X, n_l, intr)
                 else:
-                    X = knn_level(li, n_l, wins[li], keep, packed6, pose_prev, X, f)
+                    X = knn_level(n_l, wins[li], keep, packed6, pose_prev, X, s_loc[li],
+                                  s_valid[li])
             return compose_transformations(X, pose_prev)
 
         def prune_state(state):
@@ -744,11 +783,42 @@ class MapShardedPointFusion:
             # below the threshold (no cross-rank traffic); one compaction of
             # the packed buffers
             pts, nrm, col, feat, nloc, ndrop = state
-            keep = (lidx < nloc[:, None]) & (feat[..., 0] >= self.prune_min_confidence)
+            keep = (row_ids() < nloc[:, None]) & (feat[..., 0] >= self.prune_min_confidence)
             packed, cnt = compact_masked(torch.cat([pts, nrm, col, feat], dim=-1), keep, C)
             cw = col.shape[-1]
             return (packed[..., :3], packed[..., 3:6], packed[..., 6:6 + cw],
                     packed[..., 6 + cw:], cnt, ndrop)
+
+        def fuse_frame(state, pose, v, n, c, a, vd, uf, intr):
+            """A gt frame's body: fuse at the given pose."""
+            gv, gn = globalize(pose, v, n, vd)
+            return fuse(state, pose, gv, gn, c, a, vd, uf, intr)
+
+        cv = self.motion_model == "constant_velocity"
+
+        def track_frame(state, prev_pose, prev_delta, v, n, c, a, vd, uf, s_loc, s_valid, intr):
+            """A tracked frame's body: the prediction (constant velocity:
+            solve from, and project the association window at, the
+            predicted camera, re-projected onto SO(3), as ICPSLAM does),
+            the localization and the fusion at the solved pose. Returns
+            ``(state, pose, motion)``; without ``cv`` the motion is None."""
+            pred = (orthonormalize_rotations(compose_transformations(prev_delta, prev_pose))
+                    if cv else prev_pose)
+            pose = localize(state, pred, v, n, vd, s_loc, s_valid, intr)
+            delta = (compose_transformations(pose, inverse_transformation(prev_pose))
+                     if cv else None)
+            return fuse_frame(state, pose, v, n, c, a, vd, uf, intr), pose, delta
+
+        def frame_args(f):
+            """Frame ``f``'s own slices, the bodies' frame arguments."""
+            return (lv[:, f], ln[:, f], fc[:, f], fa[:, f], fvalid[:, f], fu[:, f])
+
+        def run(name, body, args):
+            # captured: the result is the graph's static outputs, which the
+            # next replay overwrites
+            return self.frame_graphs(name, body, args) if captured else body(*args)
+
+        owned = clone_tree if captured else (lambda tree: tree)
 
         zeros3 = torch.zeros((B, C, 3), dtype=dtype, device=dev)
         counter = torch.zeros((B,), dtype=torch.int64, device=dev)
@@ -756,42 +826,31 @@ class MapShardedPointFusion:
                  torch.zeros((B, C, 1 if quantized else 3), dtype=dtype, device=dev),
                  torch.zeros((B, C, 1 + F), dtype=dtype, device=dev), counter, counter.clone())
 
-        def step_frame(state, f, pose):
-            gv, gn = globalize(pose, lv[:, f], ln[:, f], fvalid[:, f])
-            return fuse(state, pose, gv, gn, fc[:, f], fa[:, f], fvalid[:, f], fu[:, f])
-
         pose0 = poses_in[:, 0]
-        state = step_frame(state, 0, pose0)
+        state = fuse_frame(state, pose0, *frame_args(0), intr)  # frame 0 eagerly
         if self.prune_every == 1:  # (0 + 1) % k == 0 iff every frame
             state = prune_state(state)
         poses = [pose0]
-        prev_pose, prev_delta = pose0, eye4
-        cv = self.motion_model == "constant_velocity"
+        prev_pose, prev_delta = pose0, eye4 if cv else None
         start = 1
         for sub_n, prune_after in split_prune_segments(1, L - 1, self.prune_every):
             for f in range(start, start + sub_n):
                 if not tracked:
-                    pose = poses_in[:, f]
-                else:
-                    # constant-velocity prior: solve from, and project the
-                    # association window at, the predicted camera (re-projected
-                    # onto SO(3), as ICPSLAM does)
-                    pred = (orthonormalize_rotations(compose_transformations(prev_delta,
-                                                                             prev_pose))
-                            if cv else prev_pose)
-                    pose = localize(state, pred, f)
-                    if cv:
-                        prev_delta = compose_transformations(pose,
-                                                             inverse_transformation(prev_pose))
-                    prev_pose = pose
-                state = step_frame(state, f, pose)
-                poses.append(pose)
+                    state = run("fuse", fuse_frame, (state, poses_in[:, f], *frame_args(f), intr))
+                    continue
+                s_f = tuple(None if s is None else s[:, f] for s in sl)
+                v_f = tuple(None if s is None else s[:, f] for s in sv)
+                state, pose, prev_delta = run(
+                    "track", track_frame,
+                    (state, prev_pose, prev_delta, *frame_args(f), s_f, v_f, intr))
+                prev_pose = owned(pose)
+                poses.append(prev_pose)
             start += sub_n
             if prune_after:
                 state = prune_state(state)
         poses_out = poses_in if not tracked else torch.stack(poses, dim=1)
 
-        pts, nrm, col, feat, nloc, ndrop = state
+        pts, nrm, col, feat, nloc, ndrop = owned(state)
         counters = collectives.all_gather(torch.stack([nloc, ndrop]), group, "counters")
         if self.batch_group is not None:  # (dp, K, 2, Bl) -> (K, 2, B)
             counters = collectives.all_gather(counters, self.batch_group, "counters")

@@ -123,6 +123,10 @@ class DataParallelSLAM:
         torch.distributed.init_process_group("nccl", init_method=..., rank=r, world_size=n)
         slam = DataParallelSLAM(PointFusion(odom="gt"), make_mesh())
         pointclouds, poses = slam(frames)   # batch sharded over all ranks
+
+    The wrapped pipeline runs its block as it would alone, its frames
+    replayed from its own CUDA graphs with ``use_jit`` (under autograd too,
+    ``step`` included); the gathers of the results run eagerly after it.
     """
 
     def __init__(self, slam, mesh: Optional[DeviceMesh] = None, axis_name: str = "data"):

@@ -68,7 +68,14 @@ from ..odometry.icputils import (
 from ..odometry.projective import ProjectiveOdometryProvider, pack_frame_geom
 from ..structures.pointclouds import Pointclouds, compact_masked, gather_rows
 from ..structures.rgbdimages import RGBDImages
-from ..utils.graphs import FrameGraphs, clone_tree, eager_reason_for, needs_grad
+from ..utils.graphs import (
+    FrameGraphs,
+    clone_tree,
+    eager_reason_for,
+    flatten,
+    needs_grad,
+    unflatten,
+)
 from ..utils.precision import disable_tf32
 from .fusionutils import find_active_map_points, prune_map, update_map_aggregate
 from .health import (
@@ -193,6 +200,9 @@ class ICPSLAM(nn.Module):
             nodes of frame 0's bootstrap and of the prunes, which stay
             eager, link to the replayed frames', and a tensor every frame
             shares (the intrinsics) sums its frames' gradients in autograd.
+            ``step``, ``localize`` and ``map_update`` under autograd replay
+            their forward and backward graphs the same way, each call one
+            autograd node of its own, as JAX jits them under ``jax.grad``.
 
             Armed recovery (``relocalize_below > 0``) is captured too,
             with or without gradients: each tracked frame replays a gate
@@ -201,18 +211,10 @@ class ICPSLAM(nn.Module):
             graphs), and replays a fuse graph (see ``relocalize_below``).
 
             After each call ``last_call_captured`` says whether it ran so
-            and ``last_eager_reason`` why not. These run eagerly:
-
-            - ``use_jit=False``;
-            - inputs on the CPU: there is no graph to capture;
-            - ``step``, ``localize`` and ``map_update`` under autograd
-              (``"an input needs a gradient"``): open-ended online loops,
-              whose graphs under grad are not captured.
-
-            The map-sharded pipeline runs eagerly too
-            (:class:`~gradslam_torch.parallel.MapShardedPointFusion`: its
-            collectives are not captured). A capture that fails raises;
-            nothing falls back to eager.
+            and ``last_eager_reason`` why not. Calls with ``use_jit=False``
+            and calls on CPU tensors (there is no graph to capture) run
+            eagerly. A capture that fails raises; nothing falls back to
+            eager.
         remat: recompute each frame's activations in the backward instead
             of keeping them (per-frame checkpointing, as ``jax.checkpoint``
             of the JAX scan body): the gt body is one frame's map update,
@@ -751,11 +753,11 @@ class ICPSLAM(nn.Module):
     # ------------------------------------------------------------------ #
     # Forward
     # ------------------------------------------------------------------ #
-    def _plan(self, *trees, grad_graphs: bool = False) -> bool:
-        """Whether this call runs as CUDA graphs (``use_jit``; under autograd
-        only where ``grad_graphs``); records the answer in
-        ``last_call_captured`` and ``last_eager_reason``."""
-        reason = eager_reason_for(self.use_jit, *trees, grad_graphs=grad_graphs)
+    def _plan(self, *trees) -> bool:
+        """Whether this call runs as CUDA graphs (``use_jit`` and inputs on
+        the card); records the answer in ``last_call_captured`` and
+        ``last_eager_reason``."""
+        reason = eager_reason_for(self.use_jit, *trees)
         self.last_call_captured, self.last_eager_reason = reason is None, reason
         return reason is None
 
@@ -774,6 +776,30 @@ class ICPSLAM(nn.Module):
             return self.frame_graphs(name, body, args, options)
 
         return run
+
+    def _online(self, captured: bool, name: str, body, args: tuple, options: tuple = ()):
+        r"""An online call's ``body(*args)`` (:meth:`step`, :meth:`localize`,
+        :meth:`map_update`). ``captured``, from its graphs, as the JAX
+        package jits these calls: under autograd from ``frame_graphs.grad``
+        (an online loop is open-ended, so each call is one
+        ``torch.autograd.Function`` with its own saved inputs and, without
+        ``remat``, its own arena: nothing of one call leaks into the next),
+        else from the no-grad graph, whose outputs are copied. Either way
+        the result is the caller's.
+
+        Eagerly, through :meth:`_frame`, with each input that needs a
+        gradient taken through one view first: the gradients of its uses
+        inside the call are summed there before the caller's uses' are
+        added, in the order a captured call's backward sums them, so both
+        give the same bits."""
+        if captured:
+            if needs_grad(*args):
+                return self.frame_graphs.grad(name, body, args, options, remat=self.remat)
+            return clone_tree(self.frame_graphs(name, body, args, options))
+        if needs_grad(*args):
+            leaves, spec = flatten(args)
+            args = unflatten(spec, [t.view_as(t) if t.requires_grad else t for t in leaves])
+        return self._frame(body, *args)
 
     def _frame(self, body, *args):
         """One frame's ``body(*args)``, under per-frame checkpointing when
@@ -923,8 +949,9 @@ class ICPSLAM(nn.Module):
         :func:`~gradslam_torch.slam.fusionutils.prune_map` itself.
 
         With ``use_jit`` on the card the step replays the CUDA graph of its
-        key (the map update, or the tracked frame); the result is a copy
-        that later steps leave alone.
+        key (the map update, or the tracked frame), under autograd its
+        forward's and its backward's (:meth:`_online`); the result is the
+        caller's, and later steps leave it and its gradients alone.
         """
         if not isinstance(live_frame, RGBDImages):
             raise TypeError(
@@ -954,17 +981,12 @@ class ICPSLAM(nn.Module):
                         "step() to enable tracking.", stacklevel=2)
             elif prev_frame is not None:
                 warnings.warn("`prev_frame` is not used when `odom='gt'`.", stacklevel=2)
-            if captured:
-                return (clone_tree(self.frame_graphs("map", self._map, (pointclouds, live_frame))),
-                        live_frame.poses)
-            return self._frame(self._map, pointclouds, live_frame), live_frame.poses
+            map_pc = self._online(captured, "map", self._map, (pointclouds, live_frame))
+            return map_pc, live_frame.poses
         cv = prev_transform is not None
         args = (pointclouds, prev_frame.poses[:, 0], prev_transform, live_frame)
-        if captured:
-            map_pc, pose, _ = clone_tree(self.frame_graphs(
-                "track", functools.partial(self._track_unarmed, cv), args, (cv,)))
-        else:
-            map_pc, pose, _ = self._frame(functools.partial(self._track_unarmed, cv), *args)
+        map_pc, pose, _ = self._online(
+            captured, "track", functools.partial(self._track_unarmed, cv), args, (cv,))
         return map_pc, pose[:, None]
 
     def localize(
@@ -985,7 +1007,7 @@ class ICPSLAM(nn.Module):
             pc = slam.map_update(pc, live.with_poses(poses))
 
         Arguments as :meth:`step`'s. Not available for ``odom='gt'``: there
-        is nothing to solve."""
+        is nothing to solve. Captured as :meth:`step` is."""
         if self.odom == "gt":
             raise ValueError(
                 "localize is not available for odom='gt'; ground-truth pipelines use the "
@@ -1001,22 +1023,18 @@ class ICPSLAM(nn.Module):
         _check_prev_transform(prev_transform, live_frame)
         live = self._with_normal_pitch(live_frame.to_channels_last())
         args = (pointclouds, live, prev_frame.poses[:, 0], prev_transform)
-        if self._plan(*args):
-            return self.frame_graphs("localize", self._localize_step, args).clone()
-        return self._localize_step(*args)
+        return self._online(self._plan(*args), "localize", self._localize_step, args)
 
     def map_update(self, pointclouds: Pointclouds, live_frame: RGBDImages) -> Pointclouds:
         r"""The map half of :meth:`step`: fuse ``live_frame`` at its own
-        poses."""
+        poses. Captured as :meth:`step` is."""
         if not isinstance(live_frame, RGBDImages):
             raise TypeError(
                 f"Expected live_frame to be of type RGBDImages. Got {type(live_frame)}.")
         if live_frame.poses is None:
             raise ValueError("live_frame must carry poses to fuse at.")
         live = self._with_normal_pitch(live_frame.to_channels_last())
-        if self._plan(pointclouds, live):
-            return clone_tree(self.frame_graphs("map", self._map, (pointclouds, live)))
-        return self._map(pointclouds, live)
+        return self._online(self._plan(pointclouds, live), "map", self._map, (pointclouds, live))
 
     def forward(self, frames: RGBDImages) -> Tuple[Pointclouds, torch.Tensor]:
         r"""Run SLAM over a batch of sequences. Returns ``(pointclouds,
@@ -1033,7 +1051,7 @@ class ICPSLAM(nn.Module):
         B, L, _, _ = frames.shape
         schedule = self._capacity_schedule(frames)
         map_pc = self.empty_map(B, schedule[0][1], device=frames.device, dtype=frames.dtype)
-        captured = self._plan(frames, grad_graphs=True)
+        captured = self._plan(frames)
         grad = captured and needs_grad(frames)
         run = self._runner(captured, grad)
         # a no-grad replay's outputs are the graph's: what is kept is a copy

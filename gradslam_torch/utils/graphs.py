@@ -74,22 +74,44 @@ which lives outside the pool.
 
 The kernels' launch counters (``ops.knn_cuda.launches``,
 ``ops.scatter_cuda.launches``) are Python integers that a wrapper raises when
-it runs. A replay runs no wrapper, so each graph records the launches its
-capture made (and the capture's own increments are taken back: a capture
-launches nothing), and every replay adds them: the counters read the same
-whether a run was captured or not, forward and backward.
+it runs, and the collectives' tallies (``parallel.collectives.BYTES`` and
+``CALLS``, ``collections.Counter`` by tag, registered with
+:func:`register_tally`) are raised by the helper that issues a collective.
+A replay runs no wrapper and no helper, so each graph records what its
+capture counted on every counter (and the capture's own increments are
+taken back: a capture launches and moves nothing), and every replay adds
+it: the counters read the same whether a run was captured or not, forward
+and backward.
 
-:func:`eager_reason` decides which calls are captured: ``use_jit``, inputs
-on the card, and an input that needs a gradient only where the caller
-captures gradients (``forward``; ``step``, ``localize`` and ``map_update``
-do not). Armed recovery is captured too: the caller splits the frame where
-the JAX body has its ``lax.cond`` into graphs around one read back
-(``ICPSLAM._track``). It is a pure function of those facts, so it is
-tested without a card.
+Collectives are captured like kernels: ``MapShardedPointFusion``'s frame
+body issues NCCL all-gathers and all-reduces through
+``parallel.collectives`` and is captured whole. Checked on the card by
+``tests/port/nccl_capture_probe.py`` (torch 2.11.0+cu128, NCCL 2.28.9, one
+rank): a blocking collective (``async_op=False``, as the helpers issue
+them) runs on the caller's current stream (the device trace puts NCCL's
+work on the stream of the body's kernels, eagerly and in a replay), so in
+a capture it is work on the capture stream and joins the graph with no
+event between streams; at world size 1 that work is device copies. A
+communicator that the first collective makes lazily, inside a warm-up
+under the sync debug mode "error", raised nothing; nor did a capture
+right after eager collectives, whose work NCCL's watchdog may still be
+polling, the replays, or destroying the group. Whether the process group
+records its watchdog's or timing events for a captured collective is not
+visible in a trace. The caller makes the process group; nothing here
+initialises a communicator.
+
+:func:`eager_reason` decides which calls are captured: ``use_jit`` and
+inputs on the card, with or without gradients (``forward``, ``step``,
+``localize`` and ``map_update`` capture theirs;
+``MapShardedPointFusion.forward`` runs under ``no_grad``). Armed recovery
+is captured too: the caller splits the frame where the JAX body has its
+``lax.cond`` into graphs around one read back (``ICPSLAM._track``). It is
+a pure function of those facts, so it is tested without a card.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import time
@@ -110,10 +132,16 @@ __all__ = [
     "eager_reason_for",
     "cache_key",
     "needs_grad",
+    "register_tally",
 ]
 
 # the modules whose ``launches`` count their kernel's launches
 LAUNCH_COUNTERS = (knn_cuda, scatter_cuda)
+# name -> counts by tag that a module registered (:func:`register_tally`)
+TALLIES: Dict[str, "collections.Counter[str]"] = {}
+# every counter's value: ``(module name, None)`` for a launch counter,
+# ``(tally name, tag)`` for a tally
+Counts = Dict[Tuple[str, Optional[str]], int]
 
 _TENSOR = "tensor"
 
@@ -167,19 +195,15 @@ def clone_tree(tree):
     return unflatten(spec, [t.clone() for t in leaves])
 
 
-def eager_reason(use_jit: bool, on_card: bool, needs_grad: bool,
-                 grad_graphs: bool = False) -> Optional[str]:
+def eager_reason(use_jit: bool, on_card: bool) -> Optional[str]:
     r"""``None`` when a pipeline call is captured and replayed as CUDA
-    graphs, else why it runs eagerly: ``use_jit`` off; inputs not on the
-    card (a CPU run has nothing to capture); an input that needs a gradient
-    under grad mode where the call does not capture gradients
-    (``grad_graphs`` False: ``step``, ``localize``, ``map_update``)."""
+    graphs, else why it runs eagerly: ``use_jit`` off, or inputs not on
+    the card (a CPU run has nothing to capture). Every call is captured
+    under autograd too."""
     if not use_jit:
         return "use_jit=False"
     if not on_card:
         return "inputs not on the card"
-    if needs_grad and not grad_graphs:
-        return "an input needs a gradient"
     return None
 
 
@@ -189,15 +213,10 @@ def needs_grad(*trees) -> bool:
         t.requires_grad for tree in trees for t in flatten(tree)[0])
 
 
-def eager_reason_for(use_jit: bool, *trees, grad_graphs: bool = False) -> Optional[str]:
+def eager_reason_for(use_jit: bool, *trees) -> Optional[str]:
     """:func:`eager_reason` read from the tensors of ``trees``."""
     leaves = [t for tree in trees for t in flatten(tree)[0]]
-    return eager_reason(
-        use_jit,
-        on_card=bool(leaves) and all(t.is_cuda for t in leaves),
-        needs_grad=needs_grad(*trees),
-        grad_graphs=grad_graphs,
-    )
+    return eager_reason(use_jit, on_card=bool(leaves) and all(t.is_cuda for t in leaves))
 
 
 def cache_key(name: str, options: tuple, leaves: List[torch.Tensor], spec: tuple) -> tuple:
@@ -206,13 +225,42 @@ def cache_key(name: str, options: tuple, leaves: List[torch.Tensor], spec: tuple
     return (name, options, spec, tuple((tuple(t.shape), t.dtype, t.device) for t in leaves))
 
 
-def _read_counters() -> Tuple[int, ...]:
-    return tuple(m.launches for m in LAUNCH_COUNTERS)
+def register_tally(name: str, tally: "collections.Counter[str]") -> None:
+    """Have every capture and replay count on ``tally`` (counts by tag)
+    as on the launch counters."""
+    TALLIES[name] = tally
 
 
-def _add_launches(launches: Tuple[int, ...]) -> None:
-    for counter, n in zip(LAUNCH_COUNTERS, launches):
-        counter.launches += n
+def _read_counters() -> Counts:
+    counts: Counts = {(m.__name__, None): m.launches for m in LAUNCH_COUNTERS}
+    for name, tally in TALLIES.items():
+        counts.update(((name, tag), n) for tag, n in tally.items())
+    return counts
+
+
+def _counted_since(before: Counts) -> Counts:
+    """What every counter counted since ``before`` (nonzero only)."""
+    return {k: n - before.get(k, 0) for k, n in _read_counters().items()
+            if n != before.get(k, 0)}
+
+
+def _set_counters(counts: Counts) -> None:
+    """Every counter put back to ``counts`` (from :func:`_read_counters`)."""
+    for m in LAUNCH_COUNTERS:
+        m.launches = counts[(m.__name__, None)]
+    for name, tally in TALLIES.items():
+        tally.clear()
+        tally.update({tag: n for (owner, tag), n in counts.items() if owner == name})
+
+
+def _add_counts(counts: Counts) -> None:
+    """``counts`` (from :func:`_counted_since`) added to the counters."""
+    modules = {m.__name__: m for m in LAUNCH_COUNTERS}
+    for (owner, tag), n in counts.items():
+        if owner in modules:
+            modules[owner].launches += n
+        else:
+            TALLIES[owner][tag] += n
 
 
 def _static_like(t: torch.Tensor, requires_grad: bool = False) -> torch.Tensor:
@@ -313,24 +361,23 @@ class _Arena:
 
 class CapturedCall:
     r"""One captured frame body: the graph, its static inputs and outputs,
-    the output structure, and the launches of each counter its capture
-    recorded."""
+    the output structure, and what its capture counted on each counter
+    (:data:`Counts`, nonzero only)."""
 
     def __init__(self, graph, static_in: List[torch.Tensor],
-                 static_out: List[torch.Tensor], out_spec: tuple,
-                 launches: Tuple[int, ...]):
+                 static_out: List[torch.Tensor], out_spec: tuple, counts: Counts):
         self.graph = graph
         self.static_in = static_in
         self.static_out = static_out
         self.out_spec = out_spec
-        self.launches = launches
+        self.counts = counts
 
     def run(self, leaves: List[torch.Tensor]) -> None:
         """``leaves`` copied into the static inputs, then a replay."""
         for dst, src in zip(self.static_in, leaves):
             _write(dst, src)
         self.graph.replay()
-        _add_launches(self.launches)
+        _add_counts(self.counts)
 
     def __call__(self, leaves: List[torch.Tensor]):
         self.run(leaves)
@@ -342,8 +389,8 @@ class _Backward(CapturedCall):
     inputs are the output gradients, its static outputs the input gradients
     of the inputs that got one (``present``)."""
 
-    def __init__(self, graph, static_grads, grads_in, present, launches):
-        super().__init__(graph, static_grads, grads_in, (), launches)
+    def __init__(self, graph, static_grads, grads_in, present, counts):
+        super().__init__(graph, static_grads, grads_in, (), counts)
         self.present = present
 
     def __call__(self, grads: List[torch.Tensor]) -> List[Optional[torch.Tensor]]:
@@ -492,7 +539,7 @@ class _GradCall:
                 outs = self.body(static_in)
             return outs, _alive(refs)
 
-        graph, (static_out, saved), launches = self.graphs._captured(
+        graph, (static_out, saved), counts = self.graphs._captured(
             self.key[0], "forward", captured, device)
         e = self.entry
         place = {id(x): j for j, x in enumerate(static_in)}
@@ -501,7 +548,7 @@ class _GradCall:
             raise RuntimeError(f"the {self.key[0]!r} frame body's captured forward carries "
                                "gradients on other outputs, or passes other inputs through, "
                                "than its warm-up")
-        e.forward = CapturedCall(graph, static_in, static_out, e.out_spec, launches)
+        e.forward = CapturedCall(graph, static_in, static_out, e.out_spec, counts)
         e.arena = _Arena(static_in, saved, static_out)
         ins = {x.untyped_storage().data_ptr(): j for j, x in enumerate(static_in)}
         e.restore_in = sorted({ins[p] for p in (t.untyped_storage().data_ptr() for t in saved)
@@ -556,10 +603,10 @@ class _GradCall:
             dst.copy_(src)
         got = self.graphs._warm(lambda: run(static_grads))
         present = [t is not None for t in got]
-        graph, grads_in, launches = self.graphs._captured(
+        graph, grads_in, counts = self.graphs._captured(
             self.key[0], "backward", lambda: [t for t in run(static_grads) if t is not None],
             static_grads[0].device)
-        self.entry.backward[mask] = _Backward(graph, static_grads, grads_in, present, launches)
+        self.entry.backward[mask] = _Backward(graph, static_grads, grads_in, present, counts)
         return got
 
     def _capture_backward_kept(self, mask, sel, want, g):
@@ -731,9 +778,9 @@ class FrameGraphs:
         return graph, out
 
     def _captured(self, name: str, what: str, fn: Callable, device):
-        r""":meth:`_graph` of ``fn``, with the launches its capture counted
-        taken back and returned: ``(graph, result, launches)``. A failed
-        capture raises."""
+        r""":meth:`_graph` of ``fn``, with what its capture counted taken
+        back and returned: ``(graph, result, counts)``. A failed capture
+        raises."""
         t0 = time.perf_counter()
         before = _read_counters()
         try:
@@ -742,11 +789,10 @@ class FrameGraphs:
             raise RuntimeError(
                 f"CUDA graph capture of the {name!r} frame {what} failed: {err}") from err
         finally:
-            launches = tuple(a - b for a, b in zip(_read_counters(), before))
-            for counter, n in zip(LAUNCH_COUNTERS, before):
-                counter.launches = n
+            counts = _counted_since(before)
+            _set_counters(before)
         self.capture_s += time.perf_counter() - t0
-        return graph, out, launches
+        return graph, out, counts
 
     def _capture(self, key: tuple, fn: Callable, leaves: List[torch.Tensor], spec: tuple):
         device = leaves[0].device
@@ -759,8 +805,8 @@ class FrameGraphs:
             return fn(*unflatten(spec, static_in))
 
         result = self._warm(warm, device)
-        graph, out, launches = self._captured(
+        graph, out, counts = self._captured(
             key[0], f"body (options {key[1]})", lambda: fn(*unflatten(spec, static_in)), device)
         static_out, out_spec = flatten(out)
-        self._entries[key] = CapturedCall(graph, static_in, static_out, out_spec, launches)
+        self._entries[key] = CapturedCall(graph, static_in, static_out, out_spec, counts)
         return result

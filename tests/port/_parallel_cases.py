@@ -6,7 +6,10 @@ package and the port's single-process runs.
 ``MAP_SHARDED`` runs in a world of 4: ``mesh4`` (1-D, K = 4), ``mesh2d``
 (2 x 2, ``('dp', 'map')``) and ``mesh2``, the K = 2 map row of ``mesh2d``
 that holds this rank (ranks 0-1 and 2-3 each run the K = 2 cases, the same
-inputs giving the same results). ``SHARDING`` runs in a world of 2.
+inputs giving the same results). Its ``captured_<row>`` cases run the
+``MS_CAPTURED`` rows again with the CUDA-graph capture emulated
+(``tests/port/_graph_emulation.py``), beside ``use_jit=False``.
+``SHARDING`` runs in a world of 2.
 """
 
 import numpy as np
@@ -66,7 +69,16 @@ MS_RUNS = {
                                  odom_sym_normals=True)),
     "knn_gate": ("mesh2", L3, dict(map_capacity=2 * 1024, odom="gradicp", odom_assoc="knn",
                                    odom_angle_gate=75.0, dsratio=2, numiters=6)),
+    "quantized_features": ("mesh2", dict(L3, features=True), dict(
+        map_capacity=2 * 512, quantize_colors=True, feature_channels=2)),
 }
+
+# the rows run again with the capture emulated (``tests/port/_graph_emulation.py``)
+# as ``captured_<row>``: gt, the 1-NN and the projective tracker, a prune
+# and the quantized layout with features, at K = 2
+MS_CAPTURED = ("gt_k2", "tracked", "projective", "prune_tracked", "quantized_features")
+# a run's arrays: this rank's shard, the counters and the poses
+MS_FIELDS = ("points", "normals", "colors", "features", "num_points", "num_dropped", "poses")
 
 # name -> (mesh, frames, constructor arguments, the error's expected text)
 MS_ERRORS = {
@@ -187,17 +199,112 @@ def _knn(ctx):
 
 
 def _use_jit(ctx):
+    """``use_jit`` on CPU tensors without the emulation: the run is eager,
+    and says why."""
     from gradslam_torch.parallel import MapShardedPointFusion
 
-    p = MapShardedPointFusion(map_capacity=4 * 64, mesh=ctx["mesh4"], use_jit=False)
-    return dict(K=np.asarray(p.K))
+    out = {}
+    for flag in (True, False):
+        p = MapShardedPointFusion(map_capacity=4 * 64, mesh=ctx["mesh4"], use_jit=flag)
+        p(frames_for(dict(B=1, L=2, H=8, W=8)))
+        out[f"reason_{flag}"] = np.asarray(p.last_eager_reason)
+        out[f"captured_{flag}"] = np.asarray(p.last_call_captured)
+        out[f"graphs_{flag}"] = np.asarray(len(p.frame_graphs))
+    return dict(out, K=np.asarray(p.K))
+
+
+def _counted_run(pipeline, frames):
+    """One run with every counter from 0: this rank's arrays (copies), the
+    kernels' launches and the collectives' bytes and calls by tag."""
+    from gradslam_torch.ops import knn_cuda, scatter_cuda
+    from gradslam_torch.parallel import collectives
+
+    knn_cuda.launches = scatter_cuda.launches = 0
+    collectives.reset_counts()
+    smap, poses = pipeline(frames)
+    arrays = {f: getattr(smap, f).clone() for f in MS_FIELDS[:-1]}
+    arrays["poses"] = poses.clone()
+    counts = dict(knn=knn_cuda.launches, scatter=scatter_cuda.launches,
+                  **{f"bytes_{k}": v for k, v in collectives.BYTES.items()},
+                  **{f"calls_{k}": v for k, v in collectives.CALLS.items()})
+    return arrays, smap, poses, counts
+
+
+def _captured(name):
+    """Row ``name`` with ``use_jit=False`` and then twice captured (the
+    capture emulated: the first call warms up and captures, the second
+    replays every frame after the first), launches counted at the
+    dispatchers: each run's arrays and counts (``eager_*``, ``first_*``,
+    ``second_*``), the first result as the caller held it after the second
+    call (``held_*``), and the captured pipeline's record."""
+    mesh, spec, kw = MS_RUNS[name]
+
+    def case(ctx):
+        import json
+
+        import pytest
+
+        from gradslam_torch.parallel import MapShardedPointFusion
+
+        from ._graph_emulation import count_at_dispatchers, emulate
+
+        frames = frames_for(spec)
+        out = {}
+        with pytest.MonkeyPatch.context() as mp:
+            count_at_dispatchers(mp)
+            runs = {"eager": _counted_run(MapShardedPointFusion(mesh=ctx[mesh], use_jit=False,
+                                                                **kw), frames)}
+            emulate(mp)
+            jit = MapShardedPointFusion(mesh=ctx[mesh], **kw)
+            for call in ("first", "second"):
+                runs[call] = _counted_run(jit, frames)
+                out[f"{call}_captured"] = np.asarray(jit.last_call_captured)
+            first = runs["first"]
+            out.update({f"held_{f}": v.numpy() for f, v in zip(
+                MS_FIELDS, (*(getattr(first[1], f) for f in MS_FIELDS[:-1]), first[2]))})
+        for call, (arrays, _, _, counts) in runs.items():
+            out.update({f"{call}_{f}": v.numpy() for f, v in arrays.items()})
+            out[f"{call}_counts"] = np.asarray(json.dumps(counts, sort_keys=True))
+        out["graphs"] = np.asarray(len(jit.frame_graphs))
+        out["keys"] = np.asarray(sorted({key[0] for key in jit.frame_graphs._entries}))
+        out["replays"] = np.asarray(jit.frame_graphs.replays)
+        return out
+
+    return case
+
+
+def _failed_capture(ctx):
+    """A capture of the sharded body that fails raises, and the pipeline
+    stores no graph."""
+    import pytest
+
+    from gradslam_torch.parallel import MapShardedPointFusion
+    from gradslam_torch.utils.graphs import FrameGraphs
+
+    from ._graph_emulation import emulate
+
+    def refuses(self, fn, device):
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    with pytest.MonkeyPatch.context() as mp:
+        emulate(mp)
+        mp.setattr(FrameGraphs, "_graph", refuses)
+        pipeline = MapShardedPointFusion(mesh=ctx["mesh2"], map_capacity=2 * 512)
+        try:
+            pipeline(frames_for(L3))
+            raised = ""
+        except RuntimeError as e:
+            raised = str(e)
+    return dict(raised=np.asarray(raised), graphs=np.asarray(len(pipeline.frame_graphs)))
 
 
 MAP_SHARDED = dict(
     setup=_map_sharded_setup,
     cases={**{n: _run(*v) for n, v in MS_RUNS.items()},
            **{n: _error(*v[:3]) for n, v in MS_ERRORS.items()},
-           "volume": _volume, "knn": _knn, "use_jit": _use_jit},
+           **{f"captured_{n}": _captured(n) for n in MS_CAPTURED},
+           "volume": _volume, "knn": _knn, "use_jit": _use_jit,
+           "failed_capture": _failed_capture},
 )
 
 # --------------------------------------------------------------------------- #

@@ -25,12 +25,12 @@
   three steps, and a held step's gradients are unchanged by the next; two
   frames through one key show the overwrite trap when the per-call copies
   are not written back; ``refine()``'s steps replay with the eager bits;
-  the captured gradients against jitted ``jax.grad``. The online calls stay
-  eager under grad; armed recovery is captured (``test_torch_graphs_armed.py``).
+  the captured gradients against jitted ``jax.grad``. The online calls are
+  captured under grad too (``test_torch_graphs_online.py`` holds their
+  bits); armed recovery is captured (``test_torch_graphs_armed.py``).
 """
 
 import contextlib
-import types
 
 import numpy as np
 import pytest
@@ -44,6 +44,7 @@ import gradslam_tpu as G  # noqa: E402
 from gradslam_torch import ICPSLAM, Pointclouds, PointFusion  # noqa: E402
 from gradslam_torch.interop import rgbdimages_from_numpy  # noqa: E402
 from gradslam_torch.ops import knn_cuda, scatter_cuda  # noqa: E402
+from gradslam_torch.parallel import collectives  # noqa: E402
 from gradslam_torch.slam import icpslam as icpslam_module  # noqa: E402
 from gradslam_torch.utils import graphs  # noqa: E402
 from gradslam_torch.utils.graphs import (  # noqa: E402
@@ -57,6 +58,8 @@ from gradslam_torch.utils.graphs import (  # noqa: E402
     unflatten,
 )
 from gradslam_tpu.datasets import synthetic_sequence  # noqa: E402
+
+from ._graph_emulation import StandInGraph, emulate, emulated_graph, fake_cuda  # noqa: E402
 
 L, H, W = 6, 24, 32
 SCHEDULE = [(2, 2 * H * W), (2, 4 * H * W), (2, 6 * H * W)]
@@ -75,16 +78,15 @@ def _same(a, b) -> bool:
 # ---------------------------------------------------------------------- #
 # Which calls are captured
 # ---------------------------------------------------------------------- #
-def _pipeline_reason(use_jit, on_card, grad, armed, grad_graphs=False):
+def _pipeline_reason(use_jit, on_card, grad, armed):
     """The reason a tracked pipeline, armed (``relocalize_below > 0``) or
-    not, records for a call on these facts (``_plan``; ``forward`` plans
-    with ``grad_graphs``)."""
+    not, records for a call on these facts (``_plan``)."""
     slam = PointFusion(odom="gradicp", use_jit=use_jit, relocalize_below=0.2 if armed else 0.0)
     depth = _frames(L_=2).depth_image.clone().requires_grad_(grad)
     with pytest.MonkeyPatch.context() as mp:
         if on_card:
             mp.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-        slam._plan(depth, grad_graphs=grad_graphs)
+        slam._plan(depth)
     return slam.last_eager_reason
 
 
@@ -93,38 +95,40 @@ def _pipeline_reason(use_jit, on_card, grad, armed, grad_graphs=False):
     (True, True, False, False, None),
     (False, True, False, False, "use_jit=False"),
     (True, False, False, False, "inputs not on the card"),
-    (True, True, True, False, "an input needs a gradient"),
+    (True, True, True, False, None),  # every call captures its gradients
     (True, True, False, True, None),
     (False, False, True, True, "use_jit=False"),
 ])
 def test_eager_reason(use_jit, on_card, grad, armed, want):
-    assert eager_reason(use_jit, on_card, grad) == want
+    assert eager_reason(use_jit, on_card) == want
     assert _pipeline_reason(use_jit, on_card, grad, armed) == want
 
 
-@pytest.mark.parametrize("on_card,grad,armed,grad_graphs,want", [
-    (True, True, False, True, None),  # forward captures its gradients
-    (True, True, True, True, None),  # ... armed too
-    (False, True, False, True, "inputs not on the card"),
-    (True, True, False, False, "an input needs a gradient"),  # step, localize, map_update
-    (True, False, False, False, None),
+@pytest.mark.parametrize("on_card,grad,armed,want", [
+    (True, True, False, None),  # forward, step, localize, map_update capture gradients
+    (True, True, True, None),  # ... armed too
+    (False, True, False, "inputs not on the card"),
+    (False, True, True, "inputs not on the card"),
+    (True, False, False, None),
 ])
-def test_eager_reason_under_grad(on_card, grad, armed, grad_graphs, want):
-    assert eager_reason(True, on_card, grad, grad_graphs) == want
-    assert _pipeline_reason(True, on_card, grad, armed, grad_graphs) == want
+def test_eager_reason_under_grad(on_card, grad, armed, want):
+    """Under grad a call on the card is captured: no call of the port runs
+    eagerly for needing a gradient."""
+    assert eager_reason(True, on_card) == want
+    assert _pipeline_reason(True, on_card, grad, armed) == want
 
 
 def test_eager_reason_reads_the_tensors():
     frames = _frames(L_=2)
     assert eager_reason_for(True, frames) == "inputs not on the card"
     depth = frames.depth_image.clone().requires_grad_()
-    # on a (pretended) card, a gradient input keeps the call eager only in grad mode
+    # on a (pretended) card every call is captured, in grad mode or not
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
         assert eager_reason_for(True, frames) is None
         assert _pipeline_reason(True, True, False, armed=True) is None
-        assert eager_reason_for(True, depth) == "an input needs a gradient"
-        assert eager_reason_for(True, depth, grad_graphs=True) is None
+        assert eager_reason_for(True, depth) is None
+        assert eager_reason_for(False, depth) == "use_jit=False"
         with torch.no_grad():
             assert eager_reason_for(True, depth) is None
 
@@ -187,72 +191,69 @@ def test_flatten_round_trips_pointclouds_and_rgbdimages_bit_for_bit():
 # ---------------------------------------------------------------------- #
 # The launch counters
 # ---------------------------------------------------------------------- #
-class _StandInGraph:
-    def __init__(self):
-        self.replays = 0
-
-    def replay(self):
-        self.replays += 1
-
-
 @pytest.fixture
 def counters(monkeypatch):
     monkeypatch.setattr(knn_cuda, "launches", 0)
     monkeypatch.setattr(scatter_cuda, "launches", 0)
+    saved = dict(collectives.BYTES), dict(collectives.CALLS)
+    collectives.reset_counts()
+    yield
+    collectives.reset_counts()
+    collectives.BYTES.update(saved[0])
+    collectives.CALLS.update(saved[1])
+
+
+def _tallies():
+    return dict(collectives.BYTES), dict(collectives.CALLS)
 
 
 def test_a_replay_adds_the_launches_its_capture_recorded(counters):
+    """A replay adds what its capture counted on every counter: the
+    kernels' launches and the collectives' bytes and calls by tag."""
     static_in, static_out = [torch.zeros(3)], [torch.ones(2)]
-    call = CapturedCall(_StandInGraph(), static_in, static_out, flatten(torch.ones(2))[1], (2, 3))
+    counts = {(knn_cuda.__name__, None): 2, (scatter_cuda.__name__, None): 3,
+              ("collectives.BYTES", "fusion"): 48, ("collectives.CALLS", "fusion"): 1}
+    call = CapturedCall(StandInGraph(), static_in, static_out, flatten(torch.ones(2))[1], counts)
     src = torch.arange(3.0)
     for n in (1, 2, 3):
         out = call([src])
         assert (knn_cuda.launches, scatter_cuda.launches) == (2 * n, 3 * n)
+        assert _tallies() == ({"fusion": 48 * n}, {"fusion": n})
         assert call.graph.replays == n and out is static_out[0]
         assert torch.equal(static_in[0], src)
 
 
-def _fake_cuda(monkeypatch, graph_cls=_StandInGraph):
-    """torch.cuda's capture calls as stand-ins that run on the CPU."""
-    stream = types.SimpleNamespace(wait_stream=lambda other: None)
-    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: stream)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: stream)
-    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: object())
-    monkeypatch.setattr(torch.cuda, "get_sync_debug_mode", lambda: 0)
-    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda mode: None)
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", graph_cls)
-    monkeypatch.setattr(torch.cuda, "graph",
-                        lambda g, pool=None, stream=None, capture_error_mode="global":
-                        contextlib.nullcontext())
-
-
 def _body(x):
-    """Stands in for a frame body: two 1-NN and one scatter launch."""
+    """Stands in for a frame body: two 1-NN and one scatter launch, and
+    one collective's count."""
     knn_cuda.launches += 2
     scatter_cuda.launches += 1
+    collectives._count("fusion", x)
     return x + 1
 
 
 def test_capture_takes_back_its_increments_and_replays_add_them(monkeypatch, counters):
-    _fake_cuda(monkeypatch)
+    fake_cuda(monkeypatch)
     cache = FrameGraphs()
     x = torch.zeros(4)
     first = cache("body", _body, (x,))
     assert torch.equal(first, x + 1)  # the warm-up's result
     assert (knn_cuda.launches, scatter_cuda.launches) == (2, 1)  # the warm-up only
+    assert _tallies() == ({"fusion": 16}, {"fusion": 1})
     assert len(cache) == 1 and cache.capture_s >= 0.0
     for n in (1, 2):
         cache("body", _body, (x,))
         assert (knn_cuda.launches, scatter_cuda.launches) == (2 + 2 * n, 1 + n)
+        assert _tallies() == ({"fusion": 16 * (1 + n)}, {"fusion": 1 + n})
     cache("body", _body, (torch.zeros(5),))  # a new shape: warm-up and capture again
     assert len(cache) == 2 and (knn_cuda.launches, scatter_cuda.launches) == (8, 4)
+    assert _tallies() == ({"fusion": 68}, {"fusion": 4})
     cache.clear()
     assert len(cache) == 0 and cache._pool is None
 
 
 def test_a_failed_capture_raises_and_stores_nothing(monkeypatch, counters):
-    _fake_cuda(monkeypatch)
+    fake_cuda(monkeypatch)
     calls = []
 
     def breaks_under_capture(x):
@@ -275,7 +276,7 @@ def test_the_capture_runs_with_the_garbage_collector_off(monkeypatch):
     and captures in the default ("global") error mode."""
     import gc
 
-    _fake_cuda(monkeypatch)
+    fake_cuda(monkeypatch)
     modes = []
     monkeypatch.setattr(torch.cuda, "graph", lambda g, pool=None, stream=None,
                         capture_error_mode="global": modes.append(capture_error_mode)
@@ -297,80 +298,9 @@ def test_the_capture_runs_with_the_garbage_collector_off(monkeypatch):
 # ---------------------------------------------------------------------- #
 # The pipelines, with the capture emulated on the CPU
 # ---------------------------------------------------------------------- #
-_REAL_STATIC_LIKE = graphs._static_like
-_OUTSIDE_POOL = set()  # storages of the static tensors made outside the graphs' pool
-
-
-def _static_outside_pool(t, requires_grad=False):
-    out = _REAL_STATIC_LIKE(t, requires_grad)
-    _OUTSIDE_POOL.add(out.untyped_storage().data_ptr())
-    return out
-
-
-def _one_per_run(t):
-    """``t``'s elements with an expanded (stride-0) dimension taken once."""
-    return t.data[tuple(0 if st == 0 else slice(None) for st in t.stride())]
-
-
-def _poison(t):
-    if t.untyped_storage().data_ptr() in _OUTSIDE_POOL or t.numel() == 0:
-        return
-    if t.dtype.is_floating_point:
-        _one_per_run(t).fill_(float("nan"))
-    else:
-        _one_per_run(t).fill_(True if t.dtype == torch.bool else -7)
-
-
-def _emulated_graph(self, fn, device):
-    """FrameGraphs._graph on the CPU: ``fn`` runs once (the capture) and the
-    tensors it returns are the static ones; a replay runs ``fn`` again and
-    writes what it returns into them (outputs, saved residuals, gradients),
-    as a replay rewrites its graph's memory, unseen by autograd.
-
-    The graphs of a ``FrameGraphs`` share one pool, so a graph captured
-    later may hold its outputs in memory that an earlier graph uses as
-    scratch: a replay poisons the pool tensors of every graph captured after
-    it (NaN, -7, True; static inputs, made outside the pool, are left
-    alone). A caller that reads a graph's outputs after another graph's
-    replay reads poison, as it reads garbage on the card."""
-    out = fn()
-    static = flatten(out)[0]
-    order = self.__dict__.setdefault("_emulated_order", [])
-    later = len(order) + 1
-    order.append(static)
-
-    def replay():
-        before = [m.launches for m in graphs.LAUNCH_COUNTERS]  # a replay runs no wrapper
-        with torch.no_grad():
-            fresh = flatten(fn())[0]
-        for counter, n in zip(graphs.LAUNCH_COUNTERS, before):
-            counter.launches = n
-        with torch.no_grad():
-            for dst, src in zip(static, fresh):
-                _one_per_run(dst).copy_(_one_per_run(src))
-            for tensors in order[later:]:
-                for t in tensors:
-                    _poison(t)
-
-    return types.SimpleNamespace(replay=replay), out
-
-
-def _emulate(mp):
-    """Calls on CPU tensors taken as on the card, the capture emulated."""
-    _fake_cuda(mp)
-    mp.setattr(FrameGraphs, "_graph", _emulated_graph)
-    mp.setattr(graphs, "_static_like", _static_outside_pool)
-    _OUTSIDE_POOL.clear()  # an earlier test's storages may be reused
-
-    def on_card(use_jit, *trees, grad_graphs=False):
-        return eager_reason(use_jit, True, graphs.needs_grad(*trees), grad_graphs)
-
-    mp.setattr(icpslam_module, "eager_reason_for", on_card)
-
-
 @pytest.fixture
 def emulated(monkeypatch):
-    _emulate(monkeypatch)
+    emulate(monkeypatch)
 
 
 TRACKED = dict(odom="gradicp", dsratio=4, numiters=3, motion_model="constant_velocity")
@@ -436,21 +366,24 @@ def test_step_localize_and_map_update_captured_give_the_eager_bits(emulated):
 
 
 def test_gradients_and_armed_recovery_run_eagerly(emulated):
-    """Under grad the online calls (``step``, ``map_update``) stay eager,
-    with their reason and autograd's gradients. Armed recovery no longer
-    runs eagerly: an armed ``forward`` is captured, with and without
-    gradients, as a gate and a fuse graph a capacity segment
+    """Under grad the online calls (``step``, ``map_update``) are captured
+    as ``forward`` is: each call replays forward and backward graphs
+    (``test_torch_graphs_online.py`` holds their bits). Armed recovery no
+    longer runs eagerly either: an armed ``forward`` is captured, with and
+    without gradients, as a gate and a fuse graph a capacity segment
     (``test_torch_graphs_armed.py`` holds its bits)."""
     frames = _frames(L_=3)
     depth = frames.depth_image.clone().requires_grad_()
     grad_frames = frames.__class__(frames.rgb_image, depth, frames.intrinsics, frames.poses)
     slam = PointFusion(odom="gt")
     pc, _ = slam.step(slam.empty_map(1, 3 * H * W, device="cpu"), grad_frames[:, 0])
-    assert not slam.last_call_captured and slam.last_eager_reason == "an input needs a gradient"
-    pc = slam.map_update(pc, grad_frames[:, 1])
-    assert slam.last_eager_reason == "an input needs a gradient"
+    assert slam.last_call_captured and slam.last_eager_reason is None
+    for f in (1, 2):  # the second map update replays the first's graphs
+        pc = slam.map_update(pc, grad_frames[:, f])
+        assert slam.last_call_captured and slam.last_eager_reason is None
     pc.points.sum().backward()
-    assert depth.grad is not None and len(slam.frame_graphs) == 0
+    assert depth.grad is not None and slam.frame_graphs.counts()["backward"] > 0
+    assert slam.frame_graphs.replays > 0
     # five frames: from the third tracked frame on, each frame's inputs
     # that need a gradient are the same and its keys replay
     frames = _frames(L_=5)
@@ -475,7 +408,7 @@ def test_emulated_capture_against_the_jax_packages_jit():
     jpc, _ = G.PointFusion(odom="gt", map_capacity=SCHEDULE, use_jit=True)(G.RGBDImages(
         jnp.asarray(rgb), jnp.asarray(depth), jnp.asarray(K), jnp.asarray(P)))
     with pytest.MonkeyPatch.context() as mp:
-        _emulate(mp)
+        emulate(mp)
         slam = PointFusion(odom="gt", map_capacity=SCHEDULE)
         slam(_frames())
         pc, _ = slam(_frames())
@@ -608,8 +541,8 @@ def test_two_frames_through_one_key_keep_their_own_residuals(monkeypatch, remat)
     the eager gradients. With the writes of each call's saved inputs,
     outputs and residuals back into the graph turned into no-ops, the
     backward reads the last frame's: the gradients differ (the trap)."""
-    _fake_cuda(monkeypatch)
-    monkeypatch.setattr(FrameGraphs, "_graph", _emulated_graph)
+    fake_cuda(monkeypatch)
+    monkeypatch.setattr(FrameGraphs, "_graph", emulated_graph)
     want = _two_frames_one_key(None, remat)
     fg = FrameGraphs()
     for _ in range(2):
@@ -658,8 +591,8 @@ def test_an_in_place_edit_of_a_saved_output_raises_as_eagerly(monkeypatch):
     of the call's arena: an in-place edit of it before the backward raises,
     as it does eagerly, on the warm-up call and on replayed ones, instead
     of changing the residuals the backward reads."""
-    _fake_cuda(monkeypatch)
-    monkeypatch.setattr(FrameGraphs, "_graph", _emulated_graph)
+    fake_cuda(monkeypatch)
+    monkeypatch.setattr(FrameGraphs, "_graph", emulated_graph)
 
     def body(x, k):
         y = torch.exp(x * k)
@@ -693,7 +626,7 @@ def test_refine_steps_replay_with_the_eager_bits(monkeypatch):
         real_init(self, *a, **k)
         made.append(self)
 
-    _emulate(monkeypatch)
+    emulate(monkeypatch)
     monkeypatch.setattr(PointFusion, "__init__", init)
     got = example.refine(**kw)
     assert got == want
@@ -719,7 +652,7 @@ def test_captured_gradients_against_the_jax_packages_grad(grad_clip, name, bar, 
     tracked = name == "tracked"
     jd, jk = _jax_grads(GP, data, kw, tracked)
     with pytest.MonkeyPatch.context() as mp:
-        _emulate(mp)
+        emulate(mp)
         slam = PointFusion(remat=remat, **kw)
         for _ in range(2):  # the second step replays every frame
             pc, poses, gd, gk = _grad_step(slam, data[:4])

@@ -35,17 +35,15 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 import gradslam_torch as T  # noqa: E402
-from gradslam_torch.odometry import icputils  # noqa: E402
 from gradslam_torch.ops import knn_cuda, scatter_cuda  # noqa: E402
-from gradslam_torch.slam import health as health_module  # noqa: E402
 from gradslam_torch.slam import icpslam as icpslam_module  # noqa: E402
-from gradslam_torch.structures import pointclouds as pointclouds_module  # noqa: E402
 from gradslam_torch.utils import graphs as graphs_module  # noqa: E402
 from gradslam_torch.utils.graphs import clone_tree  # noqa: E402
 
 from . import test_torch_recovery as R  # noqa: E402
 from ._parity import both_frames  # noqa: E402
-from .test_torch_graphs import _emulate, _grad_step, _same, _same_grads  # noqa: E402
+from ._graph_emulation import count_at_dispatchers, emulate  # noqa: E402
+from .test_torch_graphs import _grad_step, _same, _same_grads  # noqa: E402
 
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
@@ -89,12 +87,7 @@ class Counted:
     def __init__(self, mp):
         self.reads = {}
         self.frame = None
-        for module in (icputils, health_module):
-            real_nn = module.nn_points_auto
-            mp.setattr(module, "nn_points_auto", self._knn(real_nn))
-        for name in ("_scatter_rows", "_scatter_rows_into"):
-            mp.setattr(pointclouds_module, name,
-                       self._scatter(getattr(pointclouds_module, name)))
+        count_at_dispatchers(mp)
         real_read = icpslam_module._read_back
 
         def read_back(flags):
@@ -109,20 +102,6 @@ class Counted:
             return real_track(slam, map_pc, prev_pose, prev_delta, anchor, f, *args, **kwargs)
 
         mp.setattr(T.ICPSLAM, "_track", track)
-
-    @staticmethod
-    def _knn(real):
-        def nn(src, tgt, mask=None):
-            knn_cuda.launches += 1
-            return real(src, tgt, mask)
-        return nn
-
-    @staticmethod
-    def _scatter(real):
-        def scatter(*args):
-            scatter_cuda.launches += 1
-            return real(*args)
-        return scatter
 
     def run(self, slam, frames):
         knn_cuda.launches = scatter_cuda.launches = 0
@@ -152,7 +131,7 @@ def armed_runs(name: str) -> dict:
         counted = Counted(mp)
         eager = T.PointFusion(use_jit=False, **kw)
         got["eager"] = (*counted.run(eager, frames), eager.recovery_log)
-        _emulate(mp)
+        emulate(mp)
         real_write, self_writes = graphs_module._write, []
 
         def write(dst, src):
@@ -241,7 +220,7 @@ def test_armed_clean_clip_captured_is_the_unarmed_captured_run(monkeypatch, arme
     rgb, d, K, poses = T.synthetic_sequence(1, 8, R.H, R.W)
     _, frames = both_frames(rgb, d, K, poses)
     counted = Counted(monkeypatch)
-    _emulate(monkeypatch)
+    emulate(monkeypatch)
     base = T.PointFusion(**CLEAN)
     base(frames)
     want = clone_tree(base(frames))
@@ -307,7 +286,7 @@ def test_armed_captured_gradients_give_the_eager_bits(monkeypatch, name, remat):
     refreshes. Three iterations a solve and four a recovery solve: the
     bits, not the recovery, are under test."""
     arrays, kw, want, ran = eager_grad_steps(name)
-    _emulate(monkeypatch)
+    emulate(monkeypatch)
     jit = T.PointFusion(remat=remat, **kw)
     got = []
     for s, r in zip(GRAD_SCALES, ran):

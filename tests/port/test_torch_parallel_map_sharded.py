@@ -6,7 +6,10 @@ devices, and against the port's single-process ``PointFusion``: every case of
 One spawned world of 4 processes runs every case once
 (``tests/port/_parallel_cases.py``: K = 4, the K = 2 map rows of a 2 x 2
 mesh, and the 2 x 2 mesh with ``batch_axis``); the JAX references run in
-this process meanwhile.
+this process meanwhile. ``use_jit``: the rows of ``C.MS_CAPTURED`` run
+again with their frames replayed from CUDA graphs, the capture emulated on
+the CPU, and are held bit for bit against ``use_jit=False`` (arrays,
+launches, collective bytes and calls) and against JAX's jitted pipeline.
 
 Tolerances: against JAX shard by shard (each rank's rows against the JAX
 shard of the same index, since appends are dealt round-robin alike):
@@ -37,7 +40,8 @@ from . import _parallel_worlds as worlds  # noqa: E402
 # each rank's (batch block, shard) on the meshes of the world
 LAYOUT = {"mesh4": [[0, 1, 2, 3]], "mesh2": [[0, 1]], "mesh2d": [[0, 1], [2, 3]]}
 JAX_CASES = ("gt_k4", "gt_k2", "prune_gt", "prune_tracked", "tracked", "quantized",
-             "features", "overflow", "mesh2d_gt", "mesh2d_gradicp", "projective")
+             "features", "overflow", "mesh2d_gt", "mesh2d_gradicp", "projective",
+             "quantized_features")
 TRACKED = {n for n, (_, _, kw) in C.MS_RUNS.items() if kw.get("odom", "gt") != "gt"}
 
 
@@ -82,11 +86,12 @@ def _port(world, name):
     return lambda key, rank=0: worlds.value(world[0], name, key, rank)
 
 
-def _assembled(world, name, key):
-    """The whole ``(B, CAP, c)`` buffer from the ranks' shards."""
+def _assembled(world, name, key, case=None):
+    """The whole ``(B, CAP, c)`` buffer from the ranks' shards (of the
+    world's ``case``, by default the row's own)."""
     rows = LAYOUT[C.MS_RUNS[name][0]]
-    return np.concatenate([np.concatenate([worlds.value(world[0], name, key, r) for r in row],
-                                          axis=1) for row in rows], axis=0)
+    return np.concatenate([np.concatenate([worlds.value(world[0], case or name, key, r)
+                                           for r in row], axis=1) for row in rows], axis=0)
 
 
 def _sorted_rows(x):
@@ -101,30 +106,83 @@ def _single(name):
     return PointFusion(**kw)(C.frames_for(spec))
 
 
-@pytest.mark.parametrize("name", JAX_CASES)
-def test_shard_by_shard_equals_jax(world, name):
-    """Each rank's rows equal the JAX shard of the same index: counters
-    exact, rows within 1e-5 (gt) or 1e-4 (tracked), poses likewise."""
+def _hold_to_jax(world, name, case=None, prefix=""):
+    """Each rank's rows (the world's ``case``, keys ``prefix + field``)
+    against the JAX shard of the same index: counters exact, rows within
+    1e-5 (gt) or 1e-4 (tracked), poses likewise; packed colours within one
+    level."""
     ref = world[1][name]
-    port = _port(world, name)
-    np.testing.assert_array_equal(port("num_points"), ref["num_points"])
-    np.testing.assert_array_equal(port("num_dropped"), ref["num_dropped"])
+    case = case or name
+    port = _port(world, case)
+    np.testing.assert_array_equal(port(prefix + "num_points"), ref["num_points"])
+    np.testing.assert_array_equal(port(prefix + "num_dropped"), ref["num_dropped"])
     tol = 1e-4 if name in TRACKED else 1e-5
-    np.testing.assert_allclose(port("poses"), ref["poses"], atol=tol)
+    np.testing.assert_allclose(port(prefix + "poses"), ref["poses"], atol=tol)
     for key in ("points", "normals", "features"):
-        got = _assembled(world, name, key)
+        got = _assembled(world, name, prefix + key, case)
         assert got.shape == ref[key].shape
         np.testing.assert_allclose(got, ref[key], atol=tol, err_msg=key)
-    got = _assembled(world, name, "colors")
-    if name == "quantized":
+    got = _assembled(world, name, prefix + "colors", case)
+    if ref["colors"].shape[-1] == 1:  # packed
         from gradslam_torch.slam.fusionutils import unpack_colors
 
-        assert got.shape[-1] == ref["colors"].shape[-1] == 1
+        assert got.shape[-1] == 1
         got = unpack_colors(torch.tensor(got)).numpy()
         want = unpack_colors(torch.tensor(ref["colors"])).numpy()
         assert np.abs(got - want).max() <= 1.0 / 255 + 1e-6
     else:
         np.testing.assert_allclose(got, ref["colors"], atol=tol)
+
+
+@pytest.mark.parametrize("name", JAX_CASES)
+def test_shard_by_shard_equals_jax(world, name):
+    """Each rank's rows equal the JAX shard of the same index: counters
+    exact, rows within 1e-5 (gt) or 1e-4 (tracked), poses likewise."""
+    _hold_to_jax(world, name)
+
+
+@pytest.mark.parametrize("name", C.MS_CAPTURED)
+def test_captured_gives_the_eager_bits(world, name):
+    """The row with its frames replayed from CUDA graphs (the capture
+    emulated under gloo, K = 2) against ``use_jit=False`` in the same
+    world, on every rank: the first and the second call bit-equal to
+    eager, with equal launch counts (counted at the dispatchers) and
+    equal collective bytes and calls by tag; the first result, as the
+    caller held it, unchanged by the second call; one graph for the
+    pipeline's one key, replayed."""
+    import json
+
+    case = f"captured_{name}"
+    key = "fuse" if C.MS_RUNS[name][2].get("odom", "gt") == "gt" else "track"
+    for rank in range(4):
+        port = _port(world, case)
+        for call in ("first", "second", "held"):
+            for field in C.MS_FIELDS:
+                np.testing.assert_array_equal(port(f"{call}_{field}", rank),
+                                              port(f"eager_{field}", rank),
+                                              err_msg=f"{call} {field}, rank {rank}")
+        counts = {c: json.loads(str(port(f"{c}_counts", rank))) for c in ("eager", "first",
+                                                                         "second")}
+        assert counts["first"] == counts["eager"] == counts["second"], counts
+        assert counts["eager"]["bytes_fusion"] > 0 and counts["eager"]["scatter"] > 0
+        assert port("first_captured", rank) and port("second_captured", rank)
+        assert int(port("graphs", rank)) == 1 and list(port("keys", rank)) == [key]
+        assert int(port("replays", rank)) > 0
+
+
+@pytest.mark.parametrize("name", C.MS_CAPTURED)
+def test_captured_shard_by_shard_equals_jax(world, name):
+    """The replayed (second) call of each captured row against the JAX
+    package's jitted ``MapShardedPointFusion`` on a 2-device virtual CPU
+    mesh, at ``test_shard_by_shard_equals_jax``'s tolerances."""
+    _hold_to_jax(world, name, f"captured_{name}", "second_")
+
+
+def test_a_failed_sharded_capture_raises_and_stores_nothing(world):
+    for rank in range(4):
+        res = _port(world, "failed_capture")
+        assert "capture of the 'fuse' frame body" in str(res("raised", rank))
+        assert int(res("graphs", rank)) == 0
 
 
 @pytest.mark.parametrize("name", sorted(n for n, v in C.MS_RUNS.items() if v[0] == "mesh2"))
@@ -257,7 +315,15 @@ def test_sharded_knn_matches_single_device(world):
 
 
 def test_use_jit_accepted_and_ignored(world):
-    assert int(_port(world, "use_jit")("K")) == 4
+    """``use_jit`` is honoured: on the card (or under the emulated capture,
+    ``test_captured_gives_the_eager_bits``) the frames replay CUDA graphs;
+    on CPU tensors the run is eager and says why."""
+    port = _port(world, "use_jit")
+    assert int(port("K")) == 4
+    assert str(port("reason_True")) == "inputs not on the card"
+    assert str(port("reason_False")) == "use_jit=False"
+    for flag in (True, False):
+        assert not port(f"captured_{flag}") and int(port(f"graphs_{flag}")) == 0
 
 
 def test_no_process_group_raises_naming_init():
