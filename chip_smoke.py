@@ -282,6 +282,7 @@ Exits non-zero, printing no result, when no CUDA device is available.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -549,16 +550,20 @@ def kidnap_jump(P=None) -> tuple:
 
 def kidnap_rows(jump) -> dict:
     """The kidnap rows' options on top of ``KIDNAP_BASE``: the 1-NN tracker
-    and the projective tracker armed with the JAX test's grids, and the
-    unarmed tracker."""
+    and the projective tracker armed with the JAX test's grids, the
+    unarmed tracker, and the 1-NN tracker with the keyframe anchor armed
+    too (its relocalization's body runs the drift gate on the pose it
+    leaves, whose flags the host reads once more)."""
     zero = (0.0, 0.0, 0.0)
     back = tuple(-x for x in jump)
+    knn = dict(relocalize_below=0.5, relocalize_grid=dict(
+        yaw_deg=(0.0,), translations=(zero, tuple(jump), back)))
     return {
-        "knn": dict(relocalize_below=0.5, relocalize_grid=dict(
-            yaw_deg=(0.0,), translations=(zero, tuple(jump), back))),
+        "knn": knn,
         "projective": dict(odom_assoc="projective", odom_angle_gate=60.0, relocalize_below=0.5,
                            relocalize_grid=dict(yaw_deg=(0.0,), translations=(zero, tuple(jump)))),
         "unarmed": {},
+        "knn_anchor": dict(knn, anchor_every=3),
     }
 
 
@@ -1740,22 +1745,24 @@ class PhaseTrace:
     with a marker kernel (``torch.cuda._sleep``) and a synchronize, left out
     of the numbers.
 
-    Given the pipeline ``slam``, its recovery branches (``BRANCHES``, run
-    eagerly between the graphs) launch a short marker kernel where they
-    start and end (in the forward, and where the remat recompute starts: it
-    stops at the last tensor the backward needs), and where the gradient
-    reaches a branch's pose and leaves it for the pose it started from.
-    ``branch`` then holds, for each phase with marks, ``(the device seconds
-    from the first mark to the last, the phase's device span, the
-    marks)``: the phase split at its branches."""
+    Given the pipeline ``slam``, the run of each recovery branch
+    (``BRANCHES``, the keys ``ICPSLAM._track`` runs them under: a graph of
+    their own when captured) is bracketed by a short marker kernel where
+    it starts and ends in the forward, and where the gradient reaches a
+    branch's pose and leaves it for the pose it started from (the branch's
+    backward, with the remat recompute). The marks go around the run, never
+    inside a body, which a capture would record. ``branch`` then holds, for
+    each phase with marks, ``(the device seconds from the first mark to the
+    last, the phase's device span, the marks)``: the phase split at its
+    branches."""
 
     MARKER = "spin_kernel"
     MARK_NS = 10_000  # a branch's mark spins for under 10 us, the session's for more
-    BRANCHES = ("_relocalize", "_anchor_resolve")
+    BRANCHES = ("relocalize", "anchor")  # the keys ICPSLAM._track runs the branches under
 
     def __init__(self, slam=None):
         self.busy, self.events, self.forward_b, self.kernels = 0.0, 0, None, {}
-        self.slam, self.branch, self.phase = slam, {}, None
+        self.slam, self.branch = slam, {}
 
     @staticmethod
     def _mark(*_):
@@ -1766,25 +1773,28 @@ class PhaseTrace:
         if self.slam is None:
             yield
             return
+        real_runner = self.slam._runner
 
-        def marked(real):
-            def branch(*args):
+        def runner(*modes):
+            real_run = real_runner(*modes)
+
+            def run(name, body, args, options=()):
+                if name not in self.BRANCHES:
+                    return real_run(name, body, args, options)
                 self._mark()
-                out = real(*args)
-                if self.phase == "forward" and out[0].requires_grad:  # not the recompute
+                out = real_run(name, body, args, options)
+                if out[0].requires_grad:
                     out[0].register_hook(self._mark)
                     args[2].register_hook(self._mark)  # the pose the branch started from
                 self._mark()
                 return out
-            return branch
+            return run
 
-        for attr in self.BRANCHES:
-            setattr(self.slam, attr, marked(getattr(self.slam, attr)))
+        self.slam._runner = runner
         try:
             yield
         finally:
-            for attr in self.BRANCHES:
-                delattr(self.slam, attr)
+            del self.slam._runner
 
     @contextlib.contextmanager
     def __call__(self, name: str):
@@ -1795,7 +1805,6 @@ class PhaseTrace:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(100_000)
             torch.cuda.synchronize()
-            self.phase = name
             with self._marked():
                 yield
             torch.cuda.synchronize()
@@ -1818,6 +1827,72 @@ class PhaseTrace:
         if len(marks) > 1:
             span = (max(b for _, b in spans) - min(a for a, _ in spans)) * 1e-9
             self.branch[name] = ((marks[-1][0] - marks[0][1]) * 1e-9, span, len(marks))
+
+
+class GraphLedger:
+    """What a pipeline's ``FrameGraphs`` (``slam.frame_graphs``) does while
+    the ledger is active, by key name (``'gate'``, ``'relocalize'``,
+    ...), read from its ``by_key`` tallies: the graphs it captures
+    (``captured``: every kind, frame, forward and backward), the seconds
+    the captures take (``capture_s``) and its replays (``replays``: of any
+    of the key's graphs, forward or backward)."""
+
+    KINDS = ("frame", "forward", "backward")
+
+    def __init__(self, slam):
+        self.graphs = slam.frame_graphs
+        self.captured = collections.Counter()
+        self.capture_s = collections.Counter()
+        self.replays = collections.Counter()
+
+    def _read(self) -> dict:
+        return {name: dict(tally) for name, tally in self.graphs.by_key.items()}
+
+    def __enter__(self):
+        self._before = self._read()
+        return self
+
+    def __exit__(self, *exc):
+        for name, tally in self._read().items():
+            was = self._before.get(name, {})
+            self.captured[name] += sum(tally.get(k, 0) - was.get(k, 0) for k in self.KINDS)
+            self.capture_s[name] += tally.get("capture_s", 0) - was.get("capture_s", 0)
+            self.replays[name] += tally.get("replays", 0) - was.get("replays", 0)
+
+    def branches(self) -> str:
+        """The recovery branches' graphs in this ledger: captures (and their
+        seconds) and replays."""
+        return ", ".join(f"{k} captured {self.captured[k]} ({self.capture_s[k]:.4f} s) replayed "
+                         f"{self.replays[k]}" for k in PhaseTrace.BRANCHES)
+
+
+def graphs_by_key(frame_graphs) -> dict:
+    """A pipeline's graphs by key name and kind (``frame``, ``forward``,
+    ``backward``), from its ``by_key`` tallies."""
+    out = {name: {k: tally[k] for k in GraphLedger.KINDS if tally[k]}
+           for name, tally in sorted(frame_graphs.by_key.items())}
+    return {name: kinds for name, kinds in out.items() if kinds}
+
+
+def check_branch_graphs(tag: str, branches: dict, ledgers: dict, per_frame: int) -> None:
+    """A captured run's recovery branches from graphs of their own: each
+    branch that ran (``branches``, its frames by key) captured in the first
+    call (``ledgers['first']``) and, in the later calls, replayed
+    ``per_frame`` times on each of its frames (the forward's graph, and
+    under grad the backward's) and captured no more."""
+    for kind, frames in branches.items():
+        if not frames:
+            continue
+        first = ledgers["first"]
+        later = {call: ledger for call, ledger in ledgers.items() if call != "first"}
+        if not first.captured[kind] or any(
+                (led.captured[kind], led.replays[kind]) != (0, per_frame * len(frames))
+                for led in later.values()):
+            raise AssertionError(
+                f"{tag}: the {kind!r} branch (frames {frames}) is not captured once and "
+                f"replayed {per_frame} times a frame: " + "; ".join(
+                    f"{call} captured {led.captured[kind]} replayed {led.replays[kind]}"
+                    for call, led in ledgers.items()))
 
 
 class ScatterSpy:
@@ -1973,8 +2048,9 @@ def grad_row(name: str, remat: bool):
     and, for ``GRAD_EAGER_PROFILED`` rows, a profiled one. Captured: a
     first step (the warm-ups and the forward
     captures), a second (the backward captures of the warm-up frames'
-    keys), a steady step (every frame's forward and backward replayed) and
-    a profiled one. Every step's launches in the forward and the backward
+    keys), a steady step (every frame's forward and backward replayed, a
+    recovery branch's from graphs of its own: :func:`check_branch_graphs`)
+    and a profiled one. Every step's launches in the forward and the backward
     phase equal :func:`grad_launches`' for the frames its branches ran on,
     and every step runs them on the first step's frames. Captured against
     eager: map, poses and depth gradients SHA-256-equal, the intrinsics
@@ -1999,9 +2075,12 @@ def grad_row(name: str, remat: bool):
         steps, secs = [], []
         steady = 1 if mode == "eager" else 2  # the steady step's index
         profile = mode == "captured" or name in GRAD_EAGER_PROFILED
-        trace, kept = None, 0
+        trace, kept, ledgers = None, 0, {}
         for i in range(steady + 1 + profile):
             spy = ScatterSpy() if mode == "eager" and i == 0 else contextlib.nullcontext()
+            ledger = ledgers.setdefault(
+                "first" if i < steady else "steady" if i == steady else "profiled",
+                GraphLedger(slam))
             if i > steady:  # the profiled step
                 trace, kept = PhaseTrace(slam), slam.frame_graphs.kept_bytes
             torch.cuda.synchronize()
@@ -2009,7 +2088,7 @@ def grad_row(name: str, remat: bool):
                 torch.cuda.reset_peak_memory_stats()
                 start = torch.cuda.memory_allocated()
             t0 = time.perf_counter()
-            with spy:
+            with spy, ledger:
                 out = grad_step(slam, inputs, spy if isinstance(spy, ScatterSpy) else None,
                                 trace or contextlib.nullcontext)
             torch.cuda.synchronize()
@@ -2053,6 +2132,15 @@ def grad_row(name: str, remat: bool):
             LAUNCHES[f"grad_{name}_remat_{'on' if remat else 'off'}"] = {
                 k: launches["forward"][k] + launches["backward"][k] for k in ("knn", "scatter")}
         graphs = slam.frame_graphs.counts()
+        by_key = graphs_by_key(slam.frame_graphs)
+        if use_jit:  # each branch's forward and backward graph replayed a frame
+            check_branch_graphs(f"grad {tag}", branches, ledgers, 2)
+        elif any(led.captured or led.replays for led in ledgers.values()):
+            raise AssertionError(f"grad {tag} eager: graphs captured or replayed")
+        branch_graphs = ""
+        if use_jit and any(branches.values()):
+            branch_graphs = "; ".join(f"{step} step(s): {led.branches()}"
+                                      for step, led in ledgers.items())
         results[mode] = steps
         grads[mode] = (out[2], out[3])
         counts = out[0].num_points
@@ -2068,6 +2156,7 @@ def grad_row(name: str, remat: bool):
         rows[mode] = dict(first_s=secs[0], steady_s=t, peak_b=peak, start_b=start,
                           busy_s=busy, events=trace and trace.events,
                           branch=trace and trace.branch, graphs=graphs, capture_s=capture_s,
+                          by_key=by_key, branch_graphs=branch_graphs,
                           forward_b=trace and trace.forward_b, kept_b=kept, **memory)
         if trace is None:
             profiled = "; not profiled (PERF.md §6 holds PR 14's profile of this step)"
@@ -2082,7 +2171,8 @@ def grad_row(name: str, remat: bool):
                 + f"; allocated after its forward {trace.forward_b} B, its arenas {kept} B")
         log(f"grad {tag} {mode} {shape} capacity {cap}: first step {secs[0]:.4f} s, steady "
             f"{B * L / t:.4f} frames/s ({t:.4f} s a step), peak memory {peak} B ({peak - start} "
-            f"B over the step's start), graphs {graphs} captured in {capture_s:.4f} s, map "
+            f"B over the step's start), graphs {graphs} captured in {capture_s:.4f} s (by key "
+            f"{by_key}{f'; the branches, {branch_graphs}' if branch_graphs else ''}), map "
             f"{points} points, max |g| depth {gmax[0]:.6e}, intrinsics {gmax[1]:.6e}; launches "
             f"in every step (counters): forward {launches['forward']}, backward phase "
             f"{launches['backward']}" + profiled + f"; memory: the forwards' saved tensors "
@@ -2744,18 +2834,21 @@ def captured_beside_eager(frames, pc, poses, branches: dict, path: str, kw: dict
     """An armed row's run with ``use_jit=False`` (its result ``pc``,
     ``poses``, its branch frames, its launches in ``LAUNCHES[path]``)
     beside the row captured: a first call (warm-ups and captures) and a
-    second, every frame replayed, give the eager run's SHA-256 digest of
-    poses and map on the same branch frames, with the launches that the
+    second, every frame replayed (the recovery branches' graphs too, each
+    captured in the first call and replayed once on each of its frames in
+    the second: :class:`GraphLedger`), give the eager run's SHA-256 digest
+    of poses and map on the same branch frames, with the launches that the
     counters add up (``CAPTURED_LAUNCHES``) equal to eager's; a profiled
     replayed call's device trace shows no more ``knn1_search`` and
     ``scatter_rows<`` events than :func:`recovery_launches` derives.
     Returns a report."""
     want = map_digest(pc, poses)
     slam = PointFusion(**kw)
-    secs = {}
+    secs, ledgers = {}, {}
     for call in ("first", "replayed"):
-        pc2, poses2, secs[call] = counted_run(slam, frames, f"{path}_{call}", kw, shape,
-                                              CAPTURED_LAUNCHES)
+        with GraphLedger(slam) as ledgers[call]:
+            pc2, poses2, secs[call] = counted_run(slam, frames, f"{path}_{call}", kw, shape,
+                                                  CAPTURED_LAUNCHES)
         if not slam.last_call_captured:
             raise AssertionError(f"{path}: not captured ({slam.last_eager_reason})")
         if (map_digest(pc2, poses2), branch_frames(slam)) != (want, branches):
@@ -2764,6 +2857,7 @@ def captured_beside_eager(frames, pc, poses, branches: dict, path: str, kw: dict
         if CAPTURED_LAUNCHES[f"{path}_{call}"] != LAUNCHES[path]:
             raise AssertionError(f"{path}: launches captured {call} "
                                  f"{CAPTURED_LAUNCHES[f'{path}_{call}']}, eager {LAUNCHES[path]}")
+    check_branch_graphs(path, branches, ledgers, 1)
     trace = device_profile(lambda: slam(frames))
     expect = recovery_launches(kw, shape, slam.recovery_log)
     if any(trace["kernels"][k] > expect[k] for k in expect):
@@ -2772,7 +2866,9 @@ def captured_beside_eager(frames, pc, poses, branches: dict, path: str, kw: dict
     return (f"captured: first and replayed call SHA-256-equal to eager ({want[:16]}), branches "
             f"{branches}, the counters' launches {LAUNCHES[path]} in each, the replayed call's "
             f"device trace {trace['kernels']} (at most the derived); first {secs['first']:.4f} s, "
-            f"replayed {secs['replayed']:.4f} s")
+            f"replayed {secs['replayed']:.4f} s; graphs by key "
+            f"{graphs_by_key(slam.frame_graphs)}; branch graphs, first call: "
+            f"{ledgers['first'].branches()}; replayed call: {ledgers['replayed'].branches()}")
 
 
 def post_kidnap_m(poses: np.ndarray, gt: np.ndarray) -> float:
@@ -2783,9 +2879,12 @@ def post_kidnap_m(poses: np.ndarray, gt: np.ndarray) -> float:
 
 def kidnap_phase(golden) -> dict:
     """(1) The kidnapped clip at full width, armed with the 1-NN tracker,
-    armed with the projective one, and unarmed; then the relocalization on
-    its own, the hypotheses as a batch of 5 and one after another. Returns
-    the 1-NN kernel's inputs at the relocalization's B=5 shape."""
+    armed with the projective one, unarmed, and armed with the 1-NN
+    tracker and the anchor, each held to its JAX CPU golden (the
+    relocalization frames, the drift gate's re-solve frames, the
+    post-kidnap error); then the relocalization on its own, the
+    hypotheses as a batch of 5 and one after another. Returns the 1-NN
+    kernel's inputs at the relocalization's B=5 shape."""
     rgb, depth, K, P, jump = kidnap_clip()
     frames = rgbdimages_from_numpy(rgb, depth, K, P, device="cuda")
     _, _, Hk, Wk = KIDNAP_SHAPE
@@ -2805,18 +2904,20 @@ def kidnap_phase(golden) -> dict:
         post = post_kidnap_m(poses[0].cpu().numpy(), P[0])
         ref = float(golden[f"kidnap_{name}_post_ate_m"])
         readings = golden[f"kidnap_{name}_health"]
-        want = [f + 1 for f, h in enumerate(readings) if h < row.get("relocalize_below", 0)]
-        got = slam.recovery_log["relocalize"]
+        want = ([f + 1 for f, h in enumerate(readings) if h < row.get("relocalize_below", 0)],
+                [f + 1 for f, d in enumerate(golden[f"kidnap_{name}_drift"]) if d])
+        got = (slam.recovery_log["relocalize"], slam.recovery_log["anchor"])
         if name == "unarmed":
             if not post > KIDNAP_UNARMED_MIN_M:
                 raise AssertionError(f"kidnap unarmed: post-kidnap {post} m, not lost")
         elif not (post < KIDNAP_ATE_BAR_M and post <= KIDNAP_GOLDEN_FACTOR * ref and got == want):
             raise AssertionError(f"kidnap {name}: post-kidnap {post} m (golden {ref} m), "
-                                 f"relocalized at {got}, golden at {want}")
+                                 f"relocalized and re-solved at {got}, golden at {want}")
         health = " ".join(f"{float(h[0]):.3f}" for h in slam.recovery_log["health"])
         log(f"kidnap {name} {Hk}x{Wk}x{shape[1]}: post-kidnap unaligned RMSE {post:.4e} m "
-            f"(JAX CPU golden {ref:.4e} m), relocalized at frames {got} (golden {want}), "
-            f"gate readings [{health}] (golden [{' '.join(f'{h:.3f}' for h in readings)}]), "
+            f"(JAX CPU golden {ref:.4e} m), relocalized at frames {got[0]}, anchor re-solves at "
+            f"{got[1]} (golden {want[0]}, {want[1]}), gate readings [{health}] (golden "
+            f"[{' '.join(f'{h:.3f}' for h in readings)}]), "
             f"launches {LAUNCHES[f'kidnap_{name}']} as derived, {secs:.3f} s "
             f"({'captured' if slam.last_call_captured else 'eager'}), map "
             f"{int(pc.num_points[0])} (golden {int(golden[f'kidnap_{name}_num_points'])})"

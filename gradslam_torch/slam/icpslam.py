@@ -26,16 +26,18 @@ once. Armed (``relocalize_below > 0``), a CUDA graph has no data-dependent
 branch, so each tracked frame is split where the JAX body has its
 ``lax.cond``\ s: a gate body (prediction, localization, the health gate
 and, with ``anchor_every``, the drift gate), one read back of its flags to
-the host, the recovery branches as Python ``if``\ s, run eagerly only on
-the frames that need them, and a fuse body (map update, motion, the
-anchor's refresh). The two bodies are captured and replayed like the
-unarmed frame; a frame where no branch runs reads back once, with or
-without the anchor, where JAX reads nothing. ``remat=True`` runs each
-frame's bodies (the one ``jax.checkpoint`` wraps in JAX) under
-non-reentrant ``torch.utils.checkpoint``: their activations are dropped
-after the forward and recomputed in the backward. Under autograd
-``forward`` replays each frame's forward and backward from CUDA graphs as
-well, with or without ``remat`` (``FrameGraphs.grad``), as JAX jits
+the host, the recovery branches as Python ``if``\ s, each a body of its own
+run only on the frames that need it (the relocalization, with the anchor
+followed by the drift gate and a second read; the anchor re-solve), and a
+fuse body (map update, motion, the anchor's refresh). Every body is
+captured and replayed like the unarmed frame, as JAX compiles both
+``lax.cond`` branches into its scan body; a frame where no branch runs
+reads back once, with or without the anchor, where JAX reads nothing.
+``remat=True`` runs each frame's bodies (the one ``jax.checkpoint`` wraps
+in JAX) under non-reentrant ``torch.utils.checkpoint``: their activations
+are dropped after the forward and recomputed in the backward. Under
+autograd ``forward`` replays each frame's forward and backward from CUDA
+graphs as well, with or without ``remat`` (``FrameGraphs.grad``), as JAX jits
 ``value_and_grad`` through the scan; the gradient of a frame with a branch
 flows through the branch that ran, as ``jax.grad`` through ``lax.cond``.
 """
@@ -84,7 +86,7 @@ from .health import (
     _window_health_knn,
     _window_health_projective,
 )
-from .relocalize import perturbation_grid, relocalize
+from .relocalize import _compose_grid, _grid_deltas, relocalize
 
 __all__ = ["ICPSLAM", "split_prune_segments"]
 
@@ -118,6 +120,15 @@ def split_prune_segments(start: int, n: int, prune_every: int):
             out.append((end - s, False))
             s = end
     return out
+
+
+def _through_views(args: tuple) -> tuple:
+    """``args`` with each tensor that requires a gradient taken through one
+    view (``view_as``): the gradients of its uses inside an eager call then
+    sum at that view before the caller's uses' are added, in the order a
+    captured call's backward sums them, so that both give the same bits."""
+    leaves, spec = flatten(args)
+    return unflatten(spec, [t.view_as(t) if t.requires_grad else t for t in leaves])
 
 
 def _read_back(flags: torch.Tensor) -> list:
@@ -206,9 +217,10 @@ class ICPSLAM(nn.Module):
 
             Armed recovery (``relocalize_below > 0``) is captured too,
             with or without gradients: each tracked frame replays a gate
-            graph, reads its flags back once, runs a recovery branch
-            eagerly where one is needed (ordinary autograd between the
-            graphs), and replays a fuse graph (see ``relocalize_below``).
+            graph, reads its flags back once, replays a recovery branch's
+            graph where one is needed (the relocalization's, the anchor
+            re-solve's), and replays a fuse graph (see
+            ``relocalize_below``).
 
             After each call ``last_call_captured`` says whether it ran so
             and ``last_eager_reason`` why not. Calls with ``use_jit=False``
@@ -241,9 +253,9 @@ class ICPSLAM(nn.Module):
             only where it scores strictly better. Tracked odometry only.
             The gates run in the frame's gate body and the host reads their
             flags once a frame (the JAX package decides its ``lax.cond`` on
-            the device and reads nothing); the branches run eagerly on the
-            frames that need them, where the anchor's gate is read once
-            more after a relocalization.
+            the device and reads nothing); each branch is a body of its own,
+            run on the frames that need it, where the anchor's gate is read
+            once more after a relocalization.
         relocalize_grid: the grid's ``yaw_deg`` and ``translations``.
         relocalize_dsratio, relocalize_numiters: the recovery solves'
             stride and iterations.
@@ -436,6 +448,7 @@ class ICPSLAM(nn.Module):
         self.anchor_below = float(anchor_below)
         self.anchor_dsratio = anchor_dsratio
         self.recovery_log = {"health": [], "relocalize": [], "anchor": []}
+        self._deltas = {}  # (dtype, device) -> the relocalization grid's deltas
         dot_gate = None if odom_angle_gate is None else math.cos(math.radians(odom_angle_gate))
 
         def make_provider(n_iters, assoc):
@@ -668,19 +681,32 @@ class ICPSLAM(nn.Module):
         return _window_health_knn(frames_pc, window, robust_scale=self.robust_scale,
                                   dist_thresh=self.dist_thresh)
 
+    def _grid_deltas(self, pose: torch.Tensor) -> torch.Tensor:
+        """The relocalization grid's deltas ``(K, 4, 4)`` on ``pose``'s
+        dtype and device, made once (a copy from the host, which no capture
+        may hold) and then an input of the branch body."""
+        key = (pose.dtype, pose.device)
+        if key not in self._deltas:
+            self._deltas[key] = _grid_deltas(pose.dtype, pose.device, **self.relocalize_grid)
+        return self._deltas[key]
+
     def _relocalize(self, map_pc: Pointclouds, live: RGBDImages, poses: torch.Tensor,
-                    inlier: torch.Tensor):
+                    inlier: torch.Tensor, deltas: torch.Tensor, anchor=None):
         """The relocalization branch, run where any sequence's gate reading
         ``inlier`` (:meth:`_health_gate`, the gate half) is below
         ``relocalize_below``. Returns ``(poses, taken)``, ``taken`` the
-        sequences ``(B,)`` that took the recovered pose.
-        Relocalize from a grid around the solved pose (the hypotheses one
-        after another, as the JAX in-scan branch does, and without the
-        tracking ``dist_thresh``, which would starve the far-off starts) and
-        take the recovered pose of each unhealthy sequence where it scores
-        strictly better than the failed solve, both scored by the full
-        health at the pipeline's ``dsratio``. ``live``'s poses are not
-        read."""
+        sequences ``(B,)`` that took the recovered pose; given an
+        ``anchor``, then the drift gate's ``(inliers, drifting, flags)`` on
+        the pose it leaves (:meth:`_anchor_gate`; ``flags`` any and all
+        drifting, what the host reads next), as the JAX body runs
+        ``_maybe_anchor_recover`` on the pose ``_maybe_relocalize`` returns.
+        Relocalize from the grid ``deltas`` (:meth:`_grid_deltas`) around
+        the solved pose (the hypotheses one after another, as the JAX
+        in-scan branch does, and without the tracking ``dist_thresh``,
+        which would starve the far-off starts) and take the recovered pose
+        of each unhealthy sequence where it scores strictly better than the
+        failed solve, both scored by the full health at the pipeline's
+        ``dsratio``. ``live``'s poses are not read."""
         unhealthy = inlier < self.relocalize_below
         target = Pointclouds(points=map_pc.points, num_points=map_pc.num_points,
                              normals=map_pc.normals)
@@ -689,14 +715,17 @@ class ICPSLAM(nn.Module):
         kw = dict(dsratio=self.dsratio, robust_scale=self.robust_scale,
                   dist_thresh=self.dist_thresh, icp_capacity=None)
         h1 = health(target, live.with_poses(poses), **kw)
-        anchors = perturbation_grid(poses[:, 0], **self.relocalize_grid)
         rec, _info = relocalize(
-            target, live, anchors, odom=self.odom, dsratio=self.relocalize_dsratio,
-            numiters=self.relocalize_numiters, robust_scale=self.robust_scale,
-            hypothesis_mode="scan")
+            target, live, _compose_grid(poses[:, 0], deltas), odom=self.odom,
+            dsratio=self.relocalize_dsratio, numiters=self.relocalize_numiters,
+            robust_scale=self.robust_scale, hypothesis_mode="scan")
         h2 = health(target, live.with_poses(rec), **kw)
         take = unhealthy & (h2["inlier_frac"] > h1["inlier_frac"])
-        return torch.where(take[:, None, None, None], rec, poses), take
+        poses = torch.where(take[:, None, None, None], rec, poses)
+        if anchor is None:
+            return poses, take
+        inl, drifting = self._anchor_gate(anchor, live, poses)
+        return poses, take, inl, drifting, torch.stack([drifting.any(), drifting.all()])
 
     def _anchor_snapshot(self, live: RGBDImages) -> Tuple[torch.Tensor, ...]:
         """The frozen keyframe ``(points, normals, counts)``: the frame's
@@ -738,7 +767,10 @@ class ICPSLAM(nn.Module):
         (:meth:`_anchor_gate`): one Tukey 1-NN solve against the anchor from
         the solved pose at ``2 * robust_scale``, its pose taken where its
         absolute inlier fraction is higher than the gate's ``inl``. Returns
-        ``(poses, taken)``."""
+        ``(poses, taken, drifting)``: ``drifting`` as it came, so that the
+        fuse body reads it from this body's static input when captured (an
+        output of the relocalization's graph may lie in this graph's
+        scratch)."""
         a_pts, a_nrm, a_cnt = anchor
         frames_pc = downsample_rgbdimages(live.with_poses(poses), self.dsratio)
         prov_cls = GradICPOdometryProvider if self.odom == "gradicp" else ICPOdometryProvider
@@ -748,7 +780,7 @@ class ICPSLAM(nn.Module):
         rec = orthonormalize_rotations(compose_transformations(X[:, 0], poses[:, 0]))[:, None]
         in2, _cond2, _assoc2 = self._anchor_health(anchor, live, rec[:, 0])
         take = drifting & (in2 > inl)
-        return torch.where(take[:, None, None, None], rec, poses), take
+        return torch.where(take[:, None, None, None], rec, poses), take, drifting
 
     # ------------------------------------------------------------------ #
     # Forward
@@ -767,9 +799,14 @@ class ICPSLAM(nn.Module):
         forward and backward graphs of ``frame_graphs.grad`` (the result is
         the caller's), else the no-grad frame graph (the result is the
         graph's static outputs, which the next replay of that graph
-        overwrites). Otherwise eagerly, through :meth:`_frame`."""
+        overwrites). Otherwise eagerly, through :meth:`_frame`, each input
+        that needs a gradient taken through one view first, as
+        :meth:`_online` does: the gradients of its uses inside the body
+        reach it summed, as from a captured body."""
         def run(name, body, args, options=()):
             if not captured:
+                if needs_grad(*args):
+                    args = _through_views(args)
                 return self._frame(body, *args)
             if grad:
                 return self.frame_graphs.grad(name, body, args, options, remat=self.remat)
@@ -797,8 +834,7 @@ class ICPSLAM(nn.Module):
                 return self.frame_graphs.grad(name, body, args, options, remat=self.remat)
             return clone_tree(self.frame_graphs(name, body, args, options))
         if needs_grad(*args):
-            leaves, spec = flatten(args)
-            args = unflatten(spec, [t.view_as(t) if t.requires_grad else t for t in leaves])
+            args = _through_views(args)
         return self._frame(body, *args)
 
     def _frame(self, body, *args):
@@ -872,35 +908,42 @@ class ICPSLAM(nn.Module):
         return pose, inlier, inl, drifting, flags, map_pc, anchor
 
     def _track(self, map_pc: Pointclouds, prev_pose: torch.Tensor, prev_delta: torch.Tensor,
-               anchor, f: int, frame: RGBDImages, run=None):
+               anchor, f: int, frame: RGBDImages, run=None, owned=lambda tree: tree):
         r"""One armed tracked frame ``f`` (global index), split where the
         JAX body has its ``lax.cond``\ s: the gate body (:meth:`_gate`),
-        one read back of its flags, the recovery branches eagerly on the
-        frames that need them, and the fuse body (:meth:`_fuse`; a refresh
-        frame, ``f % anchor_every == 0`` with some sequence not drifting,
-        has its own). ``run`` runs the two bodies (:meth:`_runner`; eager by
-        default); a branch runs through :meth:`_frame`. ``frame`` is the
-        sequence-length-1 frame (its poses are not read). Returns ``(map,
-        pose (B, 4, 4), motion (B, 4, 4), anchor, events)``: ``events``
-        holds the gate's reading (``'health'``) and, for each branch
-        (``'relocalize'``, ``'anchor'``), None where it did not run, else
-        the sequences ``(B,)`` that took its pose."""
+        one read back of its flags, the recovery branches on the frames
+        that need them (:meth:`_relocalize`, with an anchor followed by a
+        second read of its drift gate's flags; :meth:`_anchor_resolve`), and
+        the fuse body (:meth:`_fuse`; a refresh frame, ``f % anchor_every
+        == 0`` with some sequence not drifting, has its own). ``run`` runs
+        every body (:meth:`_runner`; eager by default): captured, each
+        branch is a graph of its own (keys ``'relocalize'`` and
+        ``'anchor'``), so a branch frame replays the gate, reads, replays
+        the branch (and reads again after a relocalization with an anchor)
+        and replays the fuse. ``frame`` is the sequence-length-1 frame (its
+        poses are not read). Returns ``(map, pose (B, 4, 4), motion (B, 4,
+        4), anchor, events)``: ``events`` holds the gate's reading
+        (``'health'``, through ``owned`` before a branch runs: a later
+        graph's replay may overwrite the gate graph's outputs) and, for
+        each branch (``'relocalize'``, ``'anchor'``), None where it did not
+        run, else the sequences ``(B,)`` that took its pose."""
         run = run or self._runner(False, False)
         cv = self.motion_model == "constant_velocity"
         pose, inlier, inl, drifting, flags, map_pc, anchor = run(
             "gate", functools.partial(self._gate, cv),
             (map_pc, prev_pose, prev_delta, anchor, frame), (cv,))
         unhealthy, *drift = _read_back(flags)
-        events = {"health": inlier, "relocalize": None, "anchor": None}
+        events = {"health": owned(inlier), "relocalize": None, "anchor": None}
         if unhealthy:
-            pose, events["relocalize"] = self._frame(self._relocalize, map_pc, frame, pose,
-                                                     inlier)
+            out = run("relocalize", self._relocalize,
+                      (map_pc, frame, pose, inlier, self._grid_deltas(pose), anchor))
+            pose, events["relocalize"] = out[:2]
             if anchor is not None:  # the drift gate on the pose the branch left
-                inl, drifting = self._frame(self._anchor_gate, anchor, frame, pose)
-                drift = _read_back(torch.stack([drifting.any(), drifting.all()]))
+                inl, drifting, flags = out[2:]
+                drift = _read_back(flags)
         if anchor is not None and drift[0]:
-            pose, events["anchor"] = self._frame(self._anchor_resolve, anchor, frame, pose, inl,
-                                                 drifting)
+            pose, events["anchor"], drifting = run(
+                "anchor", self._anchor_resolve, (anchor, frame, pose, inl, drifting))
         refresh = anchor is not None and f % self.anchor_every == 0 and not drift[1]
         map_pc, pose, delta, fresh = run(
             "fuse", functools.partial(self._fuse, cv),
@@ -1094,8 +1137,8 @@ class ICPSLAM(nn.Module):
                 for f in range(start + 1, start + 1 + sub_n):
                     if self.relocalize_below > 0:
                         map_pc, prev_pose, prev_delta, anchor, events = self._track(
-                            map_pc, prev_pose, prev_delta, anchor, f, frames[:, f], run)
-                        log["health"].append(owned(events["health"]))
+                            map_pc, prev_pose, prev_delta, anchor, f, frames[:, f], run, owned)
+                        log["health"].append(events["health"])
                         for kind in ("relocalize", "anchor"):
                             if events[kind] is not None:
                                 log[kind].append(f)

@@ -33,12 +33,15 @@ from .health import _association_health
 
 __all__ = ["perturbation_grid", "relocalize"]
 
+_YAW_DEG = (0.0, -15.0, 15.0, -30.0, 30.0)  # perturbation_grid's defaults
+_TRANSLATIONS = ((0.0, 0.0, 0.0),)
+
 
 def perturbation_grid(
     poses: torch.Tensor,
     *,
-    yaw_deg: Sequence[float] = (0.0, -15.0, 15.0, -30.0, 30.0),
-    translations: Sequence[Sequence[float]] = ((0.0, 0.0, 0.0),),
+    yaw_deg: Sequence[float] = _YAW_DEG,
+    translations: Sequence[Sequence[float]] = _TRANSLATIONS,
 ) -> torch.Tensor:
     r"""A camera-local hypothesis grid around ``poses (B, 4, 4)``
     (camera-to-world): every translation offset (metres, camera frame:
@@ -50,6 +53,16 @@ def perturbation_grid(
     poses = torch.as_tensor(poses)
     if poses.ndim != 3 or tuple(poses.shape[-2:]) != (4, 4):
         raise ValueError(f"poses must have shape (B, 4, 4). Got {tuple(poses.shape)}.")
+    deltas = _grid_deltas(poses.dtype, poses.device, yaw_deg=yaw_deg, translations=translations)
+    return _compose_grid(poses, deltas)
+
+
+def _grid_deltas(dtype: torch.dtype, device, *, yaw_deg: Sequence[float] = _YAW_DEG,
+                 translations: Sequence[Sequence[float]] = _TRANSLATIONS) -> torch.Tensor:
+    r""":func:`perturbation_grid`'s camera-side deltas ``(K, 4, 4)``, made
+    from host numbers: a copy from the host, so a caller that composes the
+    grid inside a CUDA graph makes them once, outside the capture, and
+    passes them in (``ICPSLAM``'s relocalization branch)."""
     if len(yaw_deg) == 0 or len(translations) == 0:
         raise ValueError("yaw_deg and translations must be non-empty.")
     xis = []
@@ -59,7 +72,12 @@ def perturbation_grid(
             raise ValueError(f"each translation must be a 3-sequence. Got {t}.")
         for yd in yaw_deg:
             xis.append(t + (0.0, math.radians(float(yd)), 0.0))  # twist (v, omega)
-    deltas = se3_exp(torch.tensor(xis, dtype=poses.dtype, device=poses.device))  # (K, 4, 4)
+    return se3_exp(torch.tensor(xis, dtype=dtype, device=device))
+
+
+def _compose_grid(poses: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
+    """The grid ``(B, K, 4, 4)``: ``poses (B, 4, 4)`` composed with each of
+    the ``deltas (K, 4, 4)`` on the camera side."""
     return torch.einsum("bij,kjl->bkil", poses, deltas)
 
 

@@ -104,9 +104,12 @@ initialises a communicator.
 inputs on the card, with or without gradients (``forward``, ``step``,
 ``localize`` and ``map_update`` capture theirs;
 ``MapShardedPointFusion.forward`` runs under ``no_grad``). Armed recovery
-is captured too: the caller splits the frame where the JAX body has its
-``lax.cond`` into graphs around one read back (``ICPSLAM._track``). It is
-a pure function of those facts, so it is tested without a card.
+is captured too, its branches included: the caller splits the frame where
+the JAX body has its ``lax.cond``\ s into a gate graph, one read back, a
+graph for each recovery branch that runs (the relocalization, then a
+second read where an anchor is armed; the anchor re-solve) and a fuse
+graph (``ICPSLAM._track``). It is a pure function of those facts, so it is
+tested without a card.
 """
 
 from __future__ import annotations
@@ -489,7 +492,7 @@ class _GradCall:
                     for o, j in zip(flatten(out)[0], e.through)], list(leaves)
         fwd = e.forward
         fwd.run(leaves)
-        self.graphs.replays += 1
+        self.graphs._replayed(self.key[0])
         arena = e.arena.gather(leaves[0].device)  # this frame's saved tensors
         self.graphs.kept_bytes += arena.numel()
         outs = []
@@ -540,7 +543,7 @@ class _GradCall:
             return outs, _alive(refs)
 
         graph, (static_out, saved), counts = self.graphs._captured(
-            self.key[0], "forward", captured, device)
+            self.key[0], "forward", "forward", captured, device)
         e = self.entry
         place = {id(x): j for j, x in enumerate(static_in)}
         if (tuple(o.requires_grad for o in static_out) != e.diff
@@ -585,7 +588,7 @@ class _GradCall:
             e.arena.scatter(saved[-1])  # this frame's saved tensors
             if bwd is None:
                 return self._scatter(want, self._capture_backward_kept(mask, sel, want, g))
-        self.graphs.replays += 1
+        self.graphs._replayed(self.key[0])
         return self._scatter(want, bwd(g))
 
     def _scatter(self, want, got) -> List[Optional[torch.Tensor]]:
@@ -604,7 +607,7 @@ class _GradCall:
         got = self.graphs._warm(lambda: run(static_grads))
         present = [t is not None for t in got]
         graph, grads_in, counts = self.graphs._captured(
-            self.key[0], "backward", lambda: [t for t in run(static_grads) if t is not None],
+            self.key[0], "backward", "backward", lambda: [t for t in run(static_grads) if t is not None],
             static_grads[0].device)
         self.entry.backward[mask] = _Backward(graph, static_grads, grads_in, present, counts)
         return got
@@ -665,9 +668,12 @@ class FrameGraphs:
     ``capture_s`` sums the seconds spent capturing (the warm-ups excluded),
     ``replays`` counts the replays and ``kept_bytes`` the bytes of the
     arenas that replayed forwards without ``remat`` gave their calls;
-    ``len()`` is the number of graphs, :meth:`counts` the number of each
-    kind, :meth:`saved_bytes` the bytes the captured forwards' saved
-    tensors live in."""
+    ``by_key`` holds, for each key name (``'gate'``, ``'relocalize'``,
+    ...), the graphs captured of each kind (``'frame'``, ``'forward'``,
+    ``'backward'``), their capture seconds (``'capture_s'``) and the
+    replays of any of them (``'replays'``). ``len()`` is the number of
+    graphs, :meth:`counts` the number of each kind, :meth:`saved_bytes`
+    the bytes the captured forwards' saved tensors live in."""
 
     def __init__(self):
         self._entries: Dict[tuple, CapturedCall] = {}
@@ -678,6 +684,8 @@ class FrameGraphs:
         self.capture_s = 0.0
         self.replays = 0
         self.kept_bytes = 0
+        self.by_key: Dict[str, collections.Counter] = collections.defaultdict(
+            collections.Counter)
 
     def counts(self) -> Dict[str, int]:
         """The graphs of each kind: ``frame`` (no grad; with ``remat`` also
@@ -704,6 +712,7 @@ class FrameGraphs:
         self.capture_s = 0.0
         self.replays = 0
         self.kept_bytes = 0
+        self.by_key.clear()
 
     def __call__(self, name: str, fn: Callable, args: tuple, options: tuple = ()):
         r"""``fn(*args)``, from the graph of this call's key: replayed when
@@ -730,7 +739,7 @@ class FrameGraphs:
                       leaves: List[torch.Tensor]):
         entry = self._entries.get(key)
         if entry is not None:
-            self.replays += 1
+            self._replayed(key[0])
             return entry(leaves)
         return self._capture(key, fn, leaves, spec)
 
@@ -777,10 +786,11 @@ class FrameGraphs:
         torch.cuda.current_stream(device).wait_stream(self._stream)
         return graph, out
 
-    def _captured(self, name: str, what: str, fn: Callable, device):
-        r""":meth:`_graph` of ``fn``, with what its capture counted taken
-        back and returned: ``(graph, result, counts)``. A failed capture
-        raises."""
+    def _captured(self, name: str, kind: str, what: str, fn: Callable, device):
+        r""":meth:`_graph` of ``fn``, a graph of ``kind`` (``'frame'``,
+        ``'forward'``, ``'backward'``) for the key ``name``, with what its
+        capture counted taken back and returned: ``(graph, result,
+        counts)``. A failed capture raises."""
         t0 = time.perf_counter()
         before = _read_counters()
         try:
@@ -791,8 +801,15 @@ class FrameGraphs:
         finally:
             counts = _counted_since(before)
             _set_counters(before)
-        self.capture_s += time.perf_counter() - t0
+        secs = time.perf_counter() - t0
+        self.capture_s += secs
+        self.by_key[name][kind] += 1
+        self.by_key[name]["capture_s"] += secs
         return graph, out, counts
+
+    def _replayed(self, name: str) -> None:
+        self.replays += 1
+        self.by_key[name]["replays"] += 1
 
     def _capture(self, key: tuple, fn: Callable, leaves: List[torch.Tensor], spec: tuple):
         device = leaves[0].device
@@ -806,7 +823,7 @@ class FrameGraphs:
 
         result = self._warm(warm, device)
         graph, out, counts = self._captured(
-            key[0], f"body (options {key[1]})", lambda: fn(*unflatten(spec, static_in)), device)
+            key[0], "frame", f"body (options {key[1]})", lambda: fn(*unflatten(spec, static_in)), device)
         static_out, out_spec = flatten(out)
         self._entries[key] = CapturedCall(graph, static_in, static_out, out_spec, counts)
         return result

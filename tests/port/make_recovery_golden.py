@@ -18,14 +18,20 @@ For each row the file holds the poses (``<row>_poses``), the final map count
 (``<row>_num_points``), ``<row>_num_dropped``, the Umeyama-aligned ATE
 (``<row>_ate_m``), the unaligned translation RMSE (``<row>_ate_unaligned_m``)
 and, for the kidnap rows, the unaligned translation RMSE over frames 8-10
-(``<row>_post_ate_m``) and the in-scan health gate's inlier fraction of each
+(``<row>_post_ate_m``), the in-scan health gate's inlier fraction of each
 tracked frame (``<row>_health``, ``(L - 1,)``; empty for the unarmed row),
-read through a ``jax.debug.callback`` on ``ICPSLAM._health_gate``. Regenerate
-it from the root of the repo with
+read through a ``jax.debug.callback`` on ``ICPSLAM._health_gate``, and
+whether the drift gate flagged the sequence on each tracked frame
+(``<row>_drift``, ``(L - 1,)`` bool, read through a callback on
+``ICPSLAM._maybe_anchor_recover``, which runs on the pose the relocalization
+returns; empty for the rows without the anchor). Regenerate it from the root
+of the repo with
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/port/make_recovery_golden.py
 
-(about 10 minutes and a few GB of memory on the CPU).
+(about 10 minutes and a few GB of memory on the CPU). Given row names (for
+example ``kidnap_knn_anchor``), it runs those rows only and writes them into
+the existing file, whose other rows it keeps.
 """
 
 import os
@@ -50,6 +56,7 @@ from gradslam_tpu.slam.icpslam import ICPSLAM  # noqa: E402
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "recovery_jax_cpu.npz")
 
 HEALTH = []  # the health gate's readings of the current run, in frame order
+DRIFT = []  # the drift gate's flags of the current run, in frame order
 
 
 def _record_health():
@@ -61,6 +68,14 @@ def _record_health():
         return inlier
 
     ICPSLAM._health_gate = recorded
+    anchor_recover = ICPSLAM._maybe_anchor_recover
+
+    def drift_recorded(self, anchor, live, poses):
+        poses, drifting = anchor_recover(self, anchor, live, poses)
+        jax.debug.callback(lambda x: DRIFT.append(np.asarray(x)), drifting, ordered=True)
+        return poses, drifting
+
+    ICPSLAM._maybe_anchor_recover = drift_recorded
 
 
 def run_row(out: dict, name: str, arrays, **kw) -> np.ndarray:
@@ -68,6 +83,7 @@ def run_row(out: dict, name: str, arrays, **kw) -> np.ndarray:
     rgb, depth, K, P = arrays
     frames = RGBDImages(jnp.asarray(rgb), jnp.asarray(depth), jnp.asarray(K), jnp.asarray(P))
     HEALTH.clear()
+    DRIFT.clear()
     t0 = time.perf_counter()
     pc, poses = PointFusion(**kw)(frames)
     poses = np.asarray(poses)[0]
@@ -83,32 +99,46 @@ def run_row(out: dict, name: str, arrays, **kw) -> np.ndarray:
     return err
 
 
-def main():
+def main(only=()):
+    """Every row, or only the rows named in ``only`` (merged into the
+    existing file)."""
     _record_health()
-    out = {}
+    out = dict(np.load(OUT)) if only else {}
+
+    def wanted(row):
+        return not only or row in only
+
     rgb, depth, K, P, jump = cs.kidnap_clip()
     _, _, H, W = cs.KIDNAP_SHAPE
     L = len(cs.KIDNAP_ORDER)
     out["kidnap_jump"] = np.asarray(jump, np.float64)
     for name, kw in cs.kidnap_rows(jump).items():
+        if not wanted(f"kidnap_{name}"):
+            continue
         err = run_row(out, f"kidnap_{name}", (rgb, depth, K, P),
                       map_capacity=L * H * W, **cs.KIDNAP_BASE, **kw)
         post = float(np.sqrt(np.mean(np.sum(err[8:] ** 2, axis=-1))))
         out[f"kidnap_{name}_post_ate_m"] = post
         health = np.asarray(HEALTH, np.float32).reshape(-1)
         out[f"kidnap_{name}_health"] = health
+        out[f"kidnap_{name}_drift"] = np.asarray(DRIFT, bool).reshape(-1)
         print(f"  post-kidnap unaligned RMSE {post:.4e} m, health " + " ".join(
-            f"{h:.3f}" for h in health), flush=True)
+            f"{h:.3f}" for h in health) + ", drifting at frames "
+            f"{[f + 1 for f, d in enumerate(out[f'kidnap_{name}_drift']) if d]}", flush=True)
 
     B_, L_, H_, W_ = cs.DRIFT_SHAPE
     drift = hard_sequence(B_, L_, H_, W_, outlier_frac=0.0)
     for name, kw in cs.DRIFT_ROWS.items():
-        run_row(out, f"drift_{name}", drift, map_capacity=L_ * H_ * W_, **cs.DRIFT_BASE, **kw)
+        if wanted(f"drift_{name}"):
+            run_row(out, f"drift_{name}", drift, map_capacity=L_ * H_ * W_, **cs.DRIFT_BASE,
+                    **kw)
 
     easy = synthetic_sequence(cs.B, cs.L, cs.H, cs.W, seed=0)
     for name, kw in cs.SUBPIXEL_ROWS.items():
-        run_row(out, f"subpixel_{name}", easy, **kw)
-    run_row(out, "hard_subpixel", hard_sequence(cs.B, cs.L, cs.H, cs.W), **cs.HARD_SUBPIXEL)
+        if wanted(f"subpixel_{name}"):
+            run_row(out, f"subpixel_{name}", easy, **kw)
+    if wanted("hard_subpixel"):
+        run_row(out, "hard_subpixel", hard_sequence(cs.B, cs.L, cs.H, cs.W), **cs.HARD_SUBPIXEL)
 
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     np.savez(OUT, **out)
@@ -116,4 +146,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(tuple(sys.argv[1:]))

@@ -193,6 +193,9 @@ def test_goldens_hold_what_chip_smoke_reads(golden):
         for name, row in cs.kidnap_rows(jump).items():
             health = data[f"kidnap_{name}_health"]
             assert health.shape == ((Lk - 1,) if row.get("relocalize_below") else (0,))
+            drift = data[f"kidnap_{name}_drift"]
+            assert drift.dtype == bool
+            assert drift.shape == ((Lk - 1,) if row.get("anchor_every") else (0,))
             assert data[f"kidnap_{name}_post_ate_m"].shape == ()
     for row, length in rows.items():
         assert data[f"{row}_poses"].shape == (length, 4, 4)
