@@ -299,6 +299,12 @@ import time
 import warnings
 from pathlib import Path
 
+# Kineto tears CUPTI down after each profiler session. Left up, CUPTI slows
+# every later replay of a CUDA graph with conditional nodes by 20-30% (the
+# armed captured rows after one profiled run; PERF.md §7), and the script
+# profiles before it times them.
+os.environ.setdefault("TEARDOWN_CUPTI", "1")
+
 import numpy as np
 import torch
 
@@ -345,6 +351,7 @@ from gradslam_torch.slam.fusionutils import (
     fuse_with_map,
     update_map_fusion,
 )
+from gradslam_torch.slam import icpslam as icpslam_module
 from gradslam_torch.structures import pointclouds as pointclouds_module
 from gradslam_torch.structures.io import load_ply
 from gradslam_torch.structures.pointclouds import scatter_rows, scatter_rows_into
@@ -1895,6 +1902,96 @@ def check_branch_graphs(tag: str, branches: dict, ledgers: dict, per_frame: int)
                     for call, led in ledgers.items()))
 
 
+def check_armed_graph(tag: str, ledgers: dict, tracked: int) -> None:
+    """A captured no-grad armed run as one graph a frame (key ``'armed'``,
+    its branches conditional nodes inside it): its graphs captured in the
+    first call (``ledgers['first']``), replayed once on each of the
+    ``tracked`` frames of every later call and captured no more there, and
+    no other key's graph (gate, branch, fuse) captured or replayed."""
+    first = ledgers["first"]
+    later = {call: led for call, led in ledgers.items() if call != "first"}
+    others = {k for led in ledgers.values() for k in (*led.captured, *led.replays)
+              if k != "armed" and (led.captured[k] or led.replays[k])}
+    if not first.captured["armed"] or others or any(
+            (led.captured["armed"], led.replays["armed"]) != (0, tracked)
+            for led in later.values()):
+        raise AssertionError(
+            f"{tag}: not one 'armed' graph replayed a frame ({tracked} frames; other keys "
+            f"{sorted(others)}): " + "; ".join(
+                f"{call} captured {led.captured['armed']} replayed {led.replays['armed']}"
+                for call, led in ledgers.items()))
+
+
+class ReadBacks:
+    """Counts the armed frame's host reads (``icpslam._read_back``: the
+    gate's flags, or the predicates of a captured run) while active, by the
+    tracked frame the pipeline ``slam`` was on (its health log's length
+    + 1: ``L`` after the last frame)."""
+
+    def __init__(self, slam):
+        self.slam, self.reads = slam, collections.Counter()
+
+    def __enter__(self):
+        self._real = icpslam_module._read_back
+
+        def read_back(flags):
+            self.reads[len(self.slam.recovery_log["health"]) + 1] += 1
+            return self._real(flags)
+
+        icpslam_module._read_back = read_back
+        return self
+
+    def __exit__(self, *exc):
+        icpslam_module._read_back = self._real
+
+
+def conditional_check() -> str:
+    """The conditional nodes' route (``graphs.CONDITIONAL_ROUTE``) on the
+    card: a body with two :func:`graphs.when` nodes, the second's predicate
+    decided from what the first wrote, captured and replayed for each pair
+    of predicates against the same body decided on the host, bit for bit,
+    with ``settle``'s predicates and the 1-NN launches it adds. Returns a
+    report with CUDA's, the driver's and torch's versions."""
+    g = torch.Generator().manual_seed(0)
+    src = torch.randn(1, 4800, 3, generator=g).cuda()
+    tgt = torch.randn(1, 9600, 3, generator=g).cuda()
+
+    def body(gate, decide):
+        outs = [torch.zeros(1, device="cuda"), torch.zeros(1, dtype=torch.int64, device="cuda")]
+
+        def branch(scale):
+            d, idx = nn_points_auto(src * scale, tgt)
+            return d.sum(-1), idx.to(torch.int64).sum(-1)
+
+        outs = decide(gate[0] > 0, lambda: branch(1.0), outs)
+        return decide((outs[0].sum() != 0) & (gate[1] > 0), lambda: branch(2.0), outs)
+
+    graphs = graphs_module.FrameGraphs()
+    seen = []
+    for gates in ((1.0, 1.0), (1.0, 1.0), (0.0, 1.0), (1.0, 0.0), (0.0, 0.0)):
+        gate = torch.tensor(gates, device="cuda")
+        knn_cuda.launches = 0
+        got = [t.clone() for t in graphs("check", lambda x: body(x, graphs_module.when), (gate,))]
+        took, launches = graphs.settle(), knn_cuda.launches
+        knn_cuda.launches = 0
+        want = body(gate, lambda p, f, o: list(f()) if bool(p) else o)
+        expect = [bool(gates[0]), bool(gates[0] and gates[1])]
+        if (not all(torch.equal(a, b) for a, b in zip(got, want)) or took != [expect]
+                or launches != knn_cuda.launches):
+            raise AssertionError(f"conditional nodes, gates {gates}: predicates {took} (expected "
+                                 f"{[expect]}), launches {launches} against {knn_cuda.launches}, "
+                                 f"bits equal {[torch.equal(a, b) for a, b in zip(got, want)]}")
+        seen.append(took[0])
+    knn_cuda.launches = 0
+    driver = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+                            capture_output=True, text=True).stdout.strip()
+    return (f"conditional nodes: {graphs_module.CONDITIONAL_ROUTE} (torch {torch.__version__}'s "
+            f"CUDAGraph.begin_capture_to_if_node: "
+            f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}), CUDA runtime "
+            f"{torch.version.cuda}, driver {driver}: replays bit-equal to the host's decisions "
+            f"with predicates {seen}, the 1-NN launches added where they read true")
+
+
 class ScatterSpy:
     """Keeps the real inputs the scatter's dispatchers
     (``structures/pointclouds.py:_scatter_rows``, ``_scatter_rows_into``)
@@ -2800,7 +2897,7 @@ def lockstep(kw: dict, arrays: tuple, tag: str) -> list:
 
     def track(state, f, frame):  # one tracked frame, eagerly: armed or not
         if slam.relocalize_below > 0:
-            return slam._track(*state, f, frame)
+            return slam._track(*state, slam._refresh_frame(f), frame)
         return (*slam._track_unarmed(cv, *state[:3], frame), state[3],
                 {"relocalize": None, "anchor": None})
 
@@ -2834,19 +2931,21 @@ def captured_beside_eager(frames, pc, poses, branches: dict, path: str, kw: dict
     """An armed row's run with ``use_jit=False`` (its result ``pc``,
     ``poses``, its branch frames, its launches in ``LAUNCHES[path]``)
     beside the row captured: a first call (warm-ups and captures) and a
-    second, every frame replayed (the recovery branches' graphs too, each
-    captured in the first call and replayed once on each of its frames in
-    the second: :class:`GraphLedger`), give the eager run's SHA-256 digest
-    of poses and map on the same branch frames, with the launches that the
-    counters add up (``CAPTURED_LAUNCHES``) equal to eager's; a profiled
+    second, every frame replayed as one graph whose branches are
+    conditional nodes decided on the device (:func:`check_armed_graph`),
+    give the eager run's SHA-256 digest of poses and map on the same branch
+    frames, with the launches that the counters add up
+    (``CAPTURED_LAUNCHES``, the branches' where their predicates read true)
+    equal to eager's, and one host read a call, after the last frame (none
+    on a branch frame, where eager reads once or twice); a profiled
     replayed call's device trace shows no more ``knn1_search`` and
     ``scatter_rows<`` events than :func:`recovery_launches` derives.
     Returns a report."""
     want = map_digest(pc, poses)
     slam = PointFusion(**kw)
-    secs, ledgers = {}, {}
+    secs, ledgers, reads = {}, {}, {}
     for call in ("first", "replayed"):
-        with GraphLedger(slam) as ledgers[call]:
+        with GraphLedger(slam) as ledgers[call], ReadBacks(slam) as reads[call]:
             pc2, poses2, secs[call] = counted_run(slam, frames, f"{path}_{call}", kw, shape,
                                                   CAPTURED_LAUNCHES)
         if not slam.last_call_captured:
@@ -2857,18 +2956,30 @@ def captured_beside_eager(frames, pc, poses, branches: dict, path: str, kw: dict
         if CAPTURED_LAUNCHES[f"{path}_{call}"] != LAUNCHES[path]:
             raise AssertionError(f"{path}: launches captured {call} "
                                  f"{CAPTURED_LAUNCHES[f'{path}_{call}']}, eager {LAUNCHES[path]}")
-    check_branch_graphs(path, branches, ledgers, 1)
+        if reads[call].reads != {shape[1]: 1}:
+            raise AssertionError(f"{path}: the captured {call} call read back "
+                                 f"{dict(reads[call].reads)} "
+                                 f"(by frame), not once after its last frame")
+    check_armed_graph(path, ledgers, shape[1] - 1)
+    before = collections.Counter(slam.frame_graphs.branch_launches)
     trace = device_profile(lambda: slam(frames))
     expect = recovery_launches(kw, shape, slam.recovery_log)
+    # the launches inside the conditional bodies that ran: what ``settle``
+    # added to the counters
+    inside = {k: slam.frame_graphs.branch_launches[(m.__name__, None)]
+              - before[(m.__name__, None)] for k, m in (("knn", knn_cuda), ("scatter", scatter_cuda))}
     if any(trace["kernels"][k] > expect[k] for k in expect):
         raise AssertionError(f"{path}: the replayed call's device trace shows {trace['kernels']}, "
-                             f"more than the {expect} derived")
+                             f"more than the {expect} derived ({inside} of them inside conditional "
+                             f"bodies; {trace['stale']} events of an earlier session left out)")
     return (f"captured: first and replayed call SHA-256-equal to eager ({want[:16]}), branches "
             f"{branches}, the counters' launches {LAUNCHES[path]} in each, the replayed call's "
-            f"device trace {trace['kernels']} (at most the derived); first {secs['first']:.4f} s, "
+            f"device trace {trace['kernels']} (at most the derived; {inside} of the launches "
+            f"inside conditional bodies); first {secs['first']:.4f} s, "
             f"replayed {secs['replayed']:.4f} s; graphs by key "
-            f"{graphs_by_key(slam.frame_graphs)}; branch graphs, first call: "
-            f"{ledgers['first'].branches()}; replayed call: {ledgers['replayed'].branches()}")
+            f"{graphs_by_key(slam.frame_graphs)} (first call captured "
+            f"{ledgers['first'].captured['armed']} in {ledgers['first'].capture_s['armed']:.4f} s, "
+            f"replayed call {ledgers['replayed'].replays['armed']} replays); one read a call")
 
 
 def post_kidnap_m(poses: np.ndarray, gt: np.ndarray) -> float:
@@ -2975,24 +3086,40 @@ def device_profile(run) -> dict:
     launches of the port's kernels that the trace shows (``kernels``, as
     :class:`PhaseTrace` counts them); the device-to-device copies
     (``copies``, ``copy_s``: a graph's static inputs written before its
-    replay, and the copies inside the graphs and eager code)."""
+    replay, and the copies inside the graphs and eager code). The session
+    starts with a marker kernel (``torch.cuda._sleep``) and a synchronize;
+    events that started before the marker ended belong to an earlier
+    session and are left out with the marker (``stale``). Kernels inside
+    a CUDA graph conditional body are named rightly only where CUPTI is
+    torn down after each session (``TEARDOWN_CUPTI=1``, set above): left
+    up, it reported them on a stream of their own, the 1-NN's three
+    kernels named in reverse order at about 1.3 us each and in other
+    numbers than the body launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
         run()
         torch.cuda.synchronize()
     # the raw trace: the profiler's own parse into a tree of events takes
     # seconds a run at 100,000 events
-    device = [e for e in prof.profiler.kineto_results.events()
+    events = [e for e in prof.profiler.kineto_results.events()
               if e.device_type() == DeviceType.CUDA]
+    ours = [e for e in events if PhaseTrace.MARKER not in e.name()]
+    marks = [e.start_ns() + e.duration_ns() for e in events
+             if PhaseTrace.MARKER in e.name() and e.duration_ns() >= PhaseTrace.MARK_NS]
+    start = max(marks) if marks else -1
+    device = [e for e in ours if e.start_ns() > start]
+    stale = len(ours) - len(device)
     busy = union_s([(e.start_ns(), e.start_ns() + e.duration_ns()) for e in device], 1e-9)
     check_profile("device_events", busy, len(device))
     copies = [e.duration_ns() for e in device if "Memcpy DtoD" in e.name()]
     return dict(busy_s=busy, events=len(device), copies=len(copies), copy_s=sum(copies) * 1e-9,
                 kernels={k: sum(kernel in e.name() for e in device)
-                         for k, kernel in COUNTED_KERNELS.items()})
+                         for k, kernel in COUNTED_KERNELS.items()}, stale=stale)
 
 
 def device_events(run) -> tuple:
@@ -3044,7 +3171,8 @@ ARMED_ROUNDS = 4  # rounds of one run of each armed row, the order reversed ever
 def armed_phase(frames) -> dict:
     """(2) The armed healthy rows on the easy clip against the unarmed one,
     each eager (``use_jit=False``) and captured (``use_jit=True``: the
-    armed rows as a gate graph, one read back and a fuse graph a frame):
+    armed rows as one graph a frame, its branches conditional nodes
+    decided on the device, and one read back a run):
     the same bits in every run, no branch run, launches equal between the
     modes (the captured runs' counts, added up on replay, in
     ``CAPTURED_LAUNCHES``, and their device trace showing no more kernels
@@ -3053,10 +3181,12 @@ def armed_phase(frames) -> dict:
     of each a round, so that each ratio pairs runs made next to each other.
     Then one profiled run of each row (:func:`device_profile`) counts its
     synchronizing operations under the sync debug mode "warn"
-    (:func:`device_syncs`): one a tracked frame more than the unarmed row
-    of the same mode. Last, the device time of one copy of the final map,
-    which a captured armed frame makes once more than an unarmed one (the
-    fuse graph's static inputs written from the gate's)."""
+    (:func:`device_syncs`): eagerly one a tracked frame more than the
+    unarmed row, captured at most one a run more than the captured unarmed
+    row (the predicates' one read). Last, the device time of one copy of
+    the final map, the cost a split armed frame (gate and fuse graphs, as
+    under grad) pays once more than an unarmed one: the fuse graph's
+    static inputs written from the gate's."""
     shape = (B, L, H, W)
     names = (*ARMED_ROWS, "unarmed_read_back", *(f"{n}_captured" for n in ARMED_ROWS))
 
@@ -3110,11 +3240,11 @@ def armed_phase(frames) -> dict:
         captured = name.endswith("_captured")
         syncs = []
         t0 = time.perf_counter()
+        expect = recovery_launches(row_kw(name), shape, slams[name].recovery_log)
         with (ReadBackEachFrame(slams[name]) if name == "unarmed_read_back"
               else contextlib.nullcontext()):
             prof = device_profile(lambda: syncs.append(device_syncs(lambda: slams[name](frames))))
         wall[name] += time.perf_counter() - t0
-        expect = recovery_launches(row_kw(name), shape, slams[name].recovery_log)
         if captured and any(prof["kernels"][k] > expect[k] for k in expect):
             raise AssertionError(f"armed {name}: the device trace shows {prof['kernels']}, more "
                                  f"than the {expect} derived")
@@ -3134,10 +3264,12 @@ def armed_phase(frames) -> dict:
         base = rows[f"unarmed{mode}"]["syncs"]
         read_back = () if mode else ("unarmed_read_back",)
         for name in ("relocalize", "relocalize_anchor", *read_back):
-            if rows[name + mode]["syncs"] - base != L - 1:
+            more = rows[name + mode]["syncs"] - base
+            if (more > 1) if mode else (more != L - 1):
                 raise AssertionError(f"armed {name + mode}: {rows[name + mode]['syncs']} "
                                      f"synchronizing operations a run, the unarmed row {base}: "
-                                     "not one more a tracked frame")
+                                     + ("more than one more a run" if mode
+                                        else "not one more a tracked frame"))
     m = graphs_module.flatten(pc)[0]
     copy = [torch.empty_like(t) for t in m]
     map_ms = device_ms(lambda: [d.copy_(t) for d, t in zip(copy, m)], 20)
@@ -3164,6 +3296,10 @@ def armed_phase(frames) -> dict:
         + "; captured, against the captured unarmed row (the port's reading of the 0.95x "
         "frames/s bar, reported): " + against("unarmed_captured", (
             "relocalize_captured", "relocalize_anchor_captured"))
+        + " (frames/s against the captured unarmed row: " + ", ".join(
+            f"{name} {float(np.mean(secs['unarmed_captured'])) / float(np.mean(secs[name])):.4f}x"
+            for name in ("relocalize_captured", "relocalize_anchor_captured"))
+        + ", JAX's bar 0.95x, not barred)"
         + "; captured against eager: " + "; ".join(
             f"{name} {paired(name + '_captured', name)}" for name in ARMED_ROWS)
         + f"; one copy of the final map ({int(pc.num_points[0])} points, "
@@ -5106,7 +5242,7 @@ def graph_phase(clips: dict) -> None:
     armed = PointFusion(**dict(ARMED_BASE, map_capacity=4 * 120 * 160), relocalize_below=0.2)
     armed(small)
     keys = sorted({key[0] for key in armed.frame_graphs._entries})
-    if not armed.last_call_captured or keys != ["fuse", "gate"]:
+    if not armed.last_call_captured or keys != ["armed"]:
         raise AssertionError(f"graph armed row: captured {armed.last_call_captured} "
                              f"({armed.last_eager_reason}), graphs {keys}")
     if not bool(torch.isfinite(d.grad).all()):
@@ -5132,6 +5268,7 @@ def main() -> int:
     load_library()
     log(f"kernel build + load: {time.perf_counter() - t0:.2f} s")
     log("ptxas report:\n" + (_build.build_log.strip() or "(library already built)"))
+    log(conditional_check())
     t0 = time.perf_counter()
     frameio.load_library()
     log(f"frame decoder library (gradslam_torch/datasets/csrc/frameio.cpp, "

@@ -106,6 +106,12 @@ def load_library() -> ctypes.CDLL:
     lib.gradslam_scatter_rows.argtypes = [
         vp, vp, ctypes.c_ulonglong, ci, cll, cll, vp, ci, vp, ci, ci, ci, ci, cll, vp]
     lib.gradslam_scatter_rows.restype = ci
+    lib.gradslam_if_begin.argtypes = [vp, vp, vp]
+    lib.gradslam_if_begin.restype = ci
+    lib.gradslam_if_end.argtypes = [vp]
+    lib.gradslam_if_end.restype = ci
+    lib.gradslam_cuda_error.argtypes = [ci]
+    lib.gradslam_cuda_error.restype = ctypes.c_char_p
     return lib
 
 

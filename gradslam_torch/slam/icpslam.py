@@ -22,17 +22,20 @@ from the device inside the frame or solver loops, so with ``use_jit`` (the
 default, as in JAX) its frame body runs on the card as a CUDA graph,
 captured once for each capacity segment and replayed for each frame
 (:mod:`gradslam_torch.utils.graphs`), as ``jax.jit`` compiles the scan body
-once. Armed (``relocalize_below > 0``), a CUDA graph has no data-dependent
-branch, so each tracked frame is split where the JAX body has its
-``lax.cond``\ s: a gate body (prediction, localization, the health gate
-and, with ``anchor_every``, the drift gate), one read back of its flags to
-the host, the recovery branches as Python ``if``\ s, each a body of its own
-run only on the frames that need it (the relocalization, with the anchor
-followed by the drift gate and a second read; the anchor re-solve), and a
-fuse body (map update, motion, the anchor's refresh). Every body is
-captured and replayed like the unarmed frame, as JAX compiles both
-``lax.cond`` branches into its scan body; a frame where no branch runs
-reads back once, with or without the anchor, where JAX reads nothing.
+once. Armed (``relocalize_below > 0``) and captured without gradients, a
+tracked frame is one graph too (:meth:`ICPSLAM._armed`), whose recovery
+branches are CUDA graph conditional nodes decided on the device, as the
+JAX body decides its three ``lax.cond``\ s: the gate (prediction,
+localization, the health gate and, with ``anchor_every``, the drift gate),
+the relocalization (with the anchor, the drift gate on the pose it
+leaves), the anchor re-solve, and the fuse (map update, motion, the
+anchor's refresh in a conditional of its own); the run reads the branch
+frames back once, after its last frame. Eagerly, and under autograd, the
+frame is split where the JAX body has its ``lax.cond``\ s: a gate body,
+one read back of its flags to the host, the recovery branches as Python
+``if``\ s, each a body of its own run only on the frames that need it (a
+second read after a relocalization with the anchor), and a fuse body;
+captured, each is a graph of its own (:meth:`ICPSLAM._track`).
 ``remat=True`` runs each frame's bodies (the one ``jax.checkpoint`` wraps
 in JAX) under non-reentrant ``torch.utils.checkpoint``: their activations
 are dropped after the forward and recomputed in the backward. Under
@@ -77,6 +80,7 @@ from ..utils.graphs import (
     flatten,
     needs_grad,
     unflatten,
+    when,
 )
 from ..utils.precision import disable_tf32
 from .fusionutils import find_active_map_points, prune_map, update_map_aggregate
@@ -133,8 +137,10 @@ def _through_views(args: tuple) -> tuple:
 
 def _read_back(flags: torch.Tensor) -> list:
     """The host's read of an armed frame's gate flags (any unhealthy; with
-    the anchor, any and all drifting): the one place a tracked ``forward``
-    waits for the device, once a frame where no branch runs."""
+    the anchor, any and all drifting), or, captured without gradients, of
+    every frame's branch predicates at once: the one place a tracked
+    ``forward`` waits for the device, once a frame where no branch runs
+    when the host decides, once a run when the device does."""
     return flags.tolist()
 
 
@@ -215,12 +221,14 @@ class ICPSLAM(nn.Module):
             their forward and backward graphs the same way, each call one
             autograd node of its own, as JAX jits them under ``jax.grad``.
 
-            Armed recovery (``relocalize_below > 0``) is captured too,
-            with or without gradients: each tracked frame replays a gate
-            graph, reads its flags back once, replays a recovery branch's
-            graph where one is needed (the relocalization's, the anchor
-            re-solve's), and replays a fuse graph (see
-            ``relocalize_below``).
+            Armed recovery (``relocalize_below > 0``) is captured too:
+            without gradients each tracked frame replays one graph whose
+            recovery branches are conditional nodes decided on the device,
+            and the run reads the branch frames back once, at its end;
+            under autograd each tracked frame replays a gate graph, reads
+            its flags back once, replays a recovery branch's graph where
+            one is needed (the relocalization's, the anchor re-solve's),
+            and replays a fuse graph (see ``relocalize_below``).
 
             After each call ``last_call_captured`` says whether it ran so
             and ``last_eager_reason`` why not. Calls with ``use_jit=False``
@@ -251,11 +259,12 @@ class ICPSLAM(nn.Module):
             relocalize` runs from a :func:`~gradslam_torch.slam.relocalize.
             perturbation_grid` around the solved pose; its pose is taken
             only where it scores strictly better. Tracked odometry only.
-            The gates run in the frame's gate body and the host reads their
-            flags once a frame (the JAX package decides its ``lax.cond`` on
-            the device and reads nothing); each branch is a body of its own,
-            run on the frames that need it, where the anchor's gate is read
-            once more after a relocalization.
+            Captured without gradients, the branches are decided on the
+            device inside the frame's graph, as the JAX package decides its
+            ``lax.cond``; eagerly and under autograd the host reads the
+            gates' flags once a frame, and each branch is a body of its
+            own, run on the frames that need it, where the anchor's gate is
+            read once more after a relocalization.
         relocalize_grid: the grid's ``yaw_deg`` and ``translations``.
         relocalize_dsratio, relocalize_numiters: the recovery solves'
             stride and iterations.
@@ -868,10 +877,16 @@ class ICPSLAM(nn.Module):
         if cv:  # world-frame motion of this frame, the next prediction
             delta = compose_transformations(pose[:, 0], inverse_transformation(prev_pose))
         if anchor is not None:
-            anchor = tuple(
-                torch.where(drifting.reshape((-1,) + (1,) * (new.ndim - 1)), old, new)
-                for new, old in zip(self._anchor_snapshot(live), anchor))
+            anchor = self._refreshed(live, anchor, drifting)
         return map_pc, pose[:, 0], delta, anchor
+
+    def _refreshed(self, live: RGBDImages, anchor: Tuple[torch.Tensor, ...],
+                   drifting: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The anchor refreshed from ``live`` (at its pose) except where
+        ``drifting``."""
+        return tuple(
+            torch.where(drifting.reshape((-1,) + (1,) * (new.ndim - 1)), old, new)
+            for new, old in zip(self._anchor_snapshot(live), anchor))
 
     def _track_unarmed(self, cv: bool, map_pc: Pointclouds, prev_pose: torch.Tensor,
                        prev_delta: Optional[torch.Tensor], frame: RGBDImages):
@@ -889,8 +904,10 @@ class ICPSLAM(nn.Module):
         on the solved pose: the health gate and, given an ``anchor``, the
         drift gate. Returns ``(pose (B, 1, 4, 4), inlier, anchor inliers,
         drifting, flags, map, anchor)``; the anchor's inliers and
-        ``drifting`` are None without one. ``flags`` is what the host
-        reads: any unhealthy, and with an anchor any and all drifting.
+        ``drifting`` are None without one. ``flags`` decide the branches
+        (read by the host, or the predicates of :meth:`_armed`'s
+        conditionals): any unhealthy, and with an anchor any and all
+        drifting.
 
         The map and the anchor come back as they went in, and the branches
         and the fuse body read these: captured, they are this graph's
@@ -907,49 +924,107 @@ class ICPSLAM(nn.Module):
         flags = torch.stack([unhealthy, drifting.any(), drifting.all()])
         return pose, inlier, inl, drifting, flags, map_pc, anchor
 
+    def _refresh_frame(self, f: int) -> bool:
+        """Whether global frame ``f`` refreshes the anchor (where no sequence
+        drifts): every ``anchor_every``-th frame."""
+        return self.anchor_every > 0 and f % self.anchor_every == 0
+
     def _track(self, map_pc: Pointclouds, prev_pose: torch.Tensor, prev_delta: torch.Tensor,
-               anchor, f: int, frame: RGBDImages, run=None, owned=lambda tree: tree):
-        r"""One armed tracked frame ``f`` (global index), split where the
-        JAX body has its ``lax.cond``\ s: the gate body (:meth:`_gate`),
-        one read back of its flags, the recovery branches on the frames
-        that need them (:meth:`_relocalize`, with an anchor followed by a
-        second read of its drift gate's flags; :meth:`_anchor_resolve`), and
-        the fuse body (:meth:`_fuse`; a refresh frame, ``f % anchor_every
-        == 0`` with some sequence not drifting, has its own). ``run`` runs
-        every body (:meth:`_runner`; eager by default): captured, each
-        branch is a graph of its own (keys ``'relocalize'`` and
-        ``'anchor'``), so a branch frame replays the gate, reads, replays
-        the branch (and reads again after a relocalization with an anchor)
-        and replays the fuse. ``frame`` is the sequence-length-1 frame (its
-        poses are not read). Returns ``(map, pose (B, 4, 4), motion (B, 4,
-        4), anchor, events)``: ``events`` holds the gate's reading
-        (``'health'``, through ``owned`` before a branch runs: a later
-        graph's replay may overwrite the gate graph's outputs) and, for
-        each branch (``'relocalize'``, ``'anchor'``), None where it did not
-        run, else the sequences ``(B,)`` that took its pose."""
+               anchor, refresh: bool, frame: RGBDImages, run=None, owned=lambda tree: tree,
+               cond=None, deltas=None):
+        r"""One armed tracked frame, in the JAX body's order: the gate body
+        (:meth:`_gate`), the relocalization where any sequence is unhealthy
+        (:meth:`_relocalize`, with an anchor followed by the drift gate on
+        the pose it leaves), the anchor re-solve where any drifts
+        (:meth:`_anchor_resolve`), and the fuse body (:meth:`_fuse`; on a
+        ``refresh`` frame, :meth:`_refresh_frame`, with the anchor's
+        refresh where some sequence is not drifting). ``frame`` is the
+        sequence-length-1 frame (its poses are not read).
+
+        ``cond`` None decides on the host: one read back of the gate's flags
+        (and one more of the drift gate's after a relocalization with an
+        anchor), and each branch a body of its own run through ``run``
+        (:meth:`_runner`; eager by default) on the frames that need it:
+        captured, each body is a graph of its own (keys ``'gate'``,
+        ``'relocalize'``, ``'anchor'``, ``'fuse'``). ``cond`` given
+        (:func:`~gradslam_torch.utils.graphs.when`, inside :meth:`_armed`)
+        decides each branch on the device, as JAX's ``lax.cond``: the
+        branch's outputs start as copies of what passes through (no
+        sequence taking its pose), and nothing is read; ``deltas`` are then
+        the relocalization grid's, an input of the body.
+
+        Returns ``(map, pose (B, 4, 4), motion (B, 4, 4), anchor,
+        events)``: ``events`` holds the gate's reading (``'health'``,
+        through ``owned`` before a branch runs: a later graph's replay may
+        overwrite the gate graph's outputs) and, for each branch
+        (``'relocalize'``, ``'anchor'``), the sequences ``(B,)`` that took
+        its pose: on the host None where the branch did not run, on the
+        device all false there."""
         run = run or self._runner(False, False)
         cv = self.motion_model == "constant_velocity"
         pose, inlier, inl, drifting, flags, map_pc, anchor = run(
             "gate", functools.partial(self._gate, cv),
             (map_pc, prev_pose, prev_delta, anchor, frame), (cv,))
-        unhealthy, *drift = _read_back(flags)
         events = {"health": owned(inlier), "relocalize": None, "anchor": None}
-        if unhealthy:
-            out = run("relocalize", self._relocalize,
-                      (map_pc, frame, pose, inlier, self._grid_deltas(pose), anchor))
+        untaken = None  # on the device, what a branch that does not run leaves
+        if cond is None:
+            flags = _read_back(flags)
+            if flags[0]:
+                deltas = self._grid_deltas(pose)
+        else:  # no sequence took its pose
+            untaken = torch.zeros_like(inlier, dtype=torch.bool)
+
+        def branch(pred, name, body, args, through):
+            if cond is None:
+                return run(name, body, args) if pred else None
+            return cond(pred, lambda: body(*args), [t.clone() for t in through])
+
+        drift = flags[1:]  # any and all drifting, with an anchor
+        out = branch(flags[0], "relocalize", self._relocalize,
+                     (map_pc, frame, pose, inlier, deltas, anchor),
+                     (pose, untaken, *(() if anchor is None else (inl, drifting, drift))))
+        if out is not None:
             pose, events["relocalize"] = out[:2]
             if anchor is not None:  # the drift gate on the pose the branch left
-                inl, drifting, flags = out[2:]
-                drift = _read_back(flags)
-        if anchor is not None and drift[0]:
-            pose, events["anchor"], drifting = run(
-                "anchor", self._anchor_resolve, (anchor, frame, pose, inl, drifting))
-        refresh = anchor is not None and f % self.anchor_every == 0 and not drift[1]
-        map_pc, pose, delta, fresh = run(
-            "fuse", functools.partial(self._fuse, cv),
-            (map_pc, pose, prev_pose, frame, *((anchor, drifting) if refresh else ())),
-            (cv, refresh))
-        return map_pc, pose, delta if cv else prev_delta, fresh if refresh else anchor, events
+                inl, drifting, drift = out[2:]
+                if cond is None:
+                    drift = _read_back(drift)
+        if anchor is not None:
+            out = branch(drift[0], "anchor", self._anchor_resolve,
+                         (anchor, frame, pose, inl, drifting), (pose, untaken, drifting))
+            if out is not None:
+                pose, events["anchor"], drifting = out
+        refresh = refresh and anchor is not None
+        if cond is None:
+            refresh = refresh and not drift[1]
+            map_pc, pose, delta, fresh = run(
+                "fuse", functools.partial(self._fuse, cv),
+                (map_pc, pose, prev_pose, frame, *((anchor, drifting) if refresh else ())),
+                (cv, refresh))
+            return map_pc, pose, delta if cv else prev_delta, fresh if refresh else anchor, events
+        fused, pose_out, delta, _ = self._fuse(cv, map_pc, pose, prev_pose, frame)
+        if refresh:  # where some sequence is not drifting
+            anchor = tuple(cond(~drift[1], lambda: self._refreshed(
+                frame.with_poses(pose), anchor, drifting), [t.clone() for t in anchor]))
+        return fused, pose_out, delta if cv else prev_delta, anchor, events
+
+    def _armed(self, refresh: bool, map_pc: Pointclouds, prev_pose: torch.Tensor,
+               prev_delta: torch.Tensor, anchor, deltas: torch.Tensor, frame: RGBDImages):
+        r"""The armed tracked frame as one no-grad body, captured as one graph
+        whose branches are conditional nodes decided on the device, as the
+        JAX scan body runs its three ``lax.cond``\ s: :meth:`_track` with
+        :func:`~gradslam_torch.utils.graphs.when`. Returns ``(map, pose (B,
+        4, 4), motion, anchor, health, relocalization taken, anchor re-solve
+        taken)`` (the last None without an anchor); whether each branch ran
+        stays on the device with the graph's predicates
+        (:meth:`~gradslam_torch.utils.graphs.FrameGraphs.settle`)."""
+        def direct(name, body, args, options=()):
+            return body(*args)
+
+        map_pc, pose, delta, anchor, events = self._track(
+            map_pc, prev_pose, prev_delta, anchor, refresh, frame, run=direct, cond=when,
+            deltas=deltas)
+        return map_pc, pose, delta, anchor, events["health"], events["relocalize"], events["anchor"]
 
     def _localize_step(self, map_pc: Pointclouds, live: RGBDImages, prev_pose: torch.Tensor,
                        prev_transform: Optional[torch.Tensor]) -> torch.Tensor:
@@ -1129,15 +1204,29 @@ class ICPSLAM(nn.Module):
         anchor = self._anchor_snapshot(live0) if self.anchor_every > 0 else None
         cv = self.motion_model == "constant_velocity"
         track = functools.partial(self._track_unarmed, cv)
+        # armed, captured and without grad: one graph a frame, its branches
+        # decided on the device; the branch frames are read once, at the end
+        on_device = self.relocalize_below > 0 and captured and not grad
+        deltas = self._grid_deltas(prev_pose) if on_device else None
+        armed_frames = []
         start = 0  # tracked frames done; global frame = start + 1
         for i, (n, cap_seg) in enumerate(schedule):
             n_track = n - 1 if i == 0 else n  # frame 0 was mapped above
             map_pc = map_pc.with_capacity(cap_seg)
             for sub_n, prune_after in split_prune_segments(start + 1, n_track, self.prune_every):
                 for f in range(start + 1, start + 1 + sub_n):
-                    if self.relocalize_below > 0:
+                    refresh = self._refresh_frame(f)
+                    if on_device:
+                        map_pc, prev_pose, prev_delta, anchor, health, *_ = run(
+                            "armed", functools.partial(self._armed, refresh),
+                            (map_pc, prev_pose, prev_delta, anchor, deltas, frames[:, f]),
+                            (cv, refresh, anchor is not None))
+                        log["health"].append(owned(health))
+                        armed_frames.append(f)
+                    elif self.relocalize_below > 0:
                         map_pc, prev_pose, prev_delta, anchor, events = self._track(
-                            map_pc, prev_pose, prev_delta, anchor, f, frames[:, f], run, owned)
+                            map_pc, prev_pose, prev_delta, anchor, refresh, frames[:, f], run,
+                            owned)
                         log["health"].append(events["health"])
                         for kind in ("relocalize", "anchor"):
                             if events[kind] is not None:
@@ -1152,4 +1241,10 @@ class ICPSLAM(nn.Module):
                 if prune_after:
                     map_pc = self._prune(map_pc)
                 start += sub_n
+        if armed_frames:  # the one read: which branches ran, and their launches
+            took = self.frame_graphs.settle(_read_back)[-len(armed_frames):]
+            for f, ran in zip(armed_frames, took):
+                for kind, r in zip(("relocalize", "anchor"), ran):
+                    if r:
+                        log[kind].append(f)
         return owned(map_pc), torch.stack(poses, dim=1)

@@ -103,18 +103,28 @@ initialises a communicator.
 :func:`eager_reason` decides which calls are captured: ``use_jit`` and
 inputs on the card, with or without gradients (``forward``, ``step``,
 ``localize`` and ``map_update`` capture theirs;
-``MapShardedPointFusion.forward`` runs under ``no_grad``). Armed recovery
-is captured too, its branches included: the caller splits the frame where
-the JAX body has its ``lax.cond``\ s into a gate graph, one read back, a
-graph for each recovery branch that runs (the relocalization, then a
-second read where an anchor is armed; the anchor re-solve) and a fuse
-graph (``ICPSLAM._track``). It is a pure function of those facts, so it is
-tested without a card.
+``MapShardedPointFusion.forward`` runs under ``no_grad``). It is a pure
+function of those facts, so it is tested without a card.
+
+:func:`when` is the counterpart of ``jax.lax.cond`` inside a captured body:
+a CUDA graph conditional (IF) node whose predicate the graph computes and
+decides on the device, opened by the port's own C entry points
+(``ops/csrc/conditional.cu``; the card's torch 2.11 has no
+``CUDAGraph.begin_capture_to_if_node``). The node's body is captured on a
+stream of its own into a pool of its own (torch's allocator routes that
+stream's allocations there while the node is open), and its launches are
+counted apart: each replay keeps its predicates on the device, and
+:meth:`FrameGraphs.settle` reads them all at once and adds each body's
+launches where its predicate was true. A no-grad armed frame is one such
+graph (``ICPSLAM._armed``); under autograd the armed frame is split where
+JAX has its ``lax.cond``\ s into a gate graph, a read back, a graph for
+each branch that runs and a fuse graph (``ICPSLAM._track``).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import time
@@ -136,6 +146,7 @@ __all__ = [
     "cache_key",
     "needs_grad",
     "register_tally",
+    "when",
 ]
 
 # the modules whose ``launches`` count their kernel's launches
@@ -362,18 +373,153 @@ class _Arena:
             t.shape, t.stride(), (off + _span(t)[0] - lo) // t.element_size())
 
 
+class _Branches:
+    r"""What :func:`when` records in one warm-up (``capturing`` False) or
+    capture of a frame body: each conditional's predicate and what its body
+    counted on every counter (taken back from the counters). ``owner`` is
+    the :class:`FrameGraphs` whose conditional bodies' stream and pool
+    (:meth:`FrameGraphs._branch_resources`) the bodies use on ``device``."""
+
+    def __init__(self, capturing: bool, owner: "FrameGraphs" = None, device=None):
+        self.capturing = capturing
+        self.owner = owner
+        self.device = device
+        self.preds: List[torch.Tensor] = []
+        self.counts: List[Counts] = []
+
+
+_RECORDING: List[_Branches] = []  # the warm-up or capture under way, innermost last
+# how a captured conditional node is made on the card (the only route:
+# torch 2.11.0+cu128 has no CUDAGraph.begin_capture_to_if_node)
+CONDITIONAL_ROUTE = "gradslam_torch/ops/csrc/conditional.cu (gradslam_if_begin, gradslam_if_end)"
+
+
+@contextlib.contextmanager
+def _recording(branches: _Branches):
+    _RECORDING.append(branches)
+    try:
+        yield branches
+    finally:
+        _RECORDING.pop()
+
+
+def when(pred: torch.Tensor, body: Callable, outs: List[torch.Tensor]) -> List[torch.Tensor]:
+    r"""``jax.lax.cond(pred, body, lambda: outs)`` inside a frame body that
+    :class:`FrameGraphs` warms up and captures: ``outs``, tensors made
+    before the call and holding the values that pass through, take what
+    ``body()`` returns (one tensor each) where the 0-dim bool ``pred`` on
+    the device is true. Returns ``outs``.
+
+    Captured, it is an IF conditional node (:func:`_if_node`) whose body
+    graph holds ``body``'s kernels and the copies into ``outs``, decided on
+    the device on every replay. In the warm-up (the key's first call, under
+    the sync debug mode "error") ``pred`` is not read: ``body()`` runs
+    whatever it holds, on the stream the captured body will use, and
+    ``outs`` take ``torch.where(pred, new, out)``, so both sides are warmed
+    before the capture and the result is the eager bits. Either way what
+    ``body`` counted on the launch counters and tallies is taken back and
+    kept with ``pred``: :meth:`FrameGraphs.settle` adds it where ``pred``
+    was true. Outside a warm-up or capture it raises: an eager caller
+    decides on the host."""
+    if not _RECORDING:
+        raise RuntimeError("when() runs inside a frame body that FrameGraphs warms up or "
+                           "captures; an eager caller branches on the host")
+    branches = _RECORDING[-1]
+    before = _read_counters()
+    try:
+        if branches.capturing:
+            _if_node(branches, pred, body, outs)
+        else:
+            _select(branches.owner._branch_resources(branches.device)[0], pred, body, outs)
+    finally:
+        counted = _counted_since(before)
+        _set_counters(before)
+    branches.preds.append(pred)
+    branches.counts.append(counted)
+    return outs
+
+
+def _select(stream, pred: torch.Tensor, body: Callable, outs: List[torch.Tensor]) -> None:
+    """:func:`when` in a warm-up: ``body()`` on ``stream`` and ``outs``
+    chosen by ``pred`` there, the caller's stream waiting for it."""
+    current = torch.cuda.current_stream(pred.device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        for out, new in zip(outs, body()):
+            out.copy_(torch.where(pred, new, out))
+    current.wait_stream(stream)
+
+
+def _pool_hooks() -> Tuple[Callable, Callable]:
+    """torch's allocator hooks that route the current stream's allocations
+    to a pool until ended."""
+    begin = getattr(torch._C, "_cuda_beginAllocateCurrentStreamToPool", None)
+    end = getattr(torch._C, "_cuda_endAllocateToPool", None)
+    if begin is None or end is None:
+        raise RuntimeError(
+            f"torch {torch.__version__} lacks _cuda_beginAllocateCurrentStreamToPool or "
+            "_cuda_endAllocateToPool: a captured conditional node's body cannot allocate "
+            "into a graph pool")
+    return begin, end
+
+
+def _if_node(branches: _Branches, pred: torch.Tensor, body: Callable,
+             outs: List[torch.Tensor]) -> None:
+    r"""An IF node in the graph the current stream captures, holding
+    ``body()`` and its copies into ``outs``: ``gradslam_if_begin``
+    (``ops/csrc/conditional.cu``) adds the node and the kernel that sets
+    its handle from ``pred``, and starts capturing the owner's branch
+    stream into the node's body; the body runs on that stream with its
+    allocations routed to the owner's branch pool (an entry holds a
+    reference to the pool, which the owner gives back when it goes);
+    ``gradslam_if_end`` closes it. A CUDA error raises with its name."""
+    from ..ops._build import load_library
+
+    lib = load_library()
+    begin, end = _pool_hooks()
+    owner = branches.owner
+    stream, pool = owner._branch_resources(branches.device)
+    device = pred.device.index if pred.device.index is not None else torch.cuda.current_device()
+    capture = torch.cuda.current_stream(pred.device).cuda_stream
+    body_stream = stream.cuda_stream
+
+    def check(err: int, what: str) -> None:
+        if err:
+            raise RuntimeError(f"{what} failed: {lib.gradslam_cuda_error(err).decode()}")
+
+    check(lib.gradslam_if_begin(capture, pred.data_ptr(), body_stream),
+          "opening a CUDA graph conditional node (gradslam_if_begin)")
+    try:
+        with torch.cuda.stream(stream):
+            begin(device, pool)
+            owner._branch_pool_refs[1] += 1
+            try:
+                for out, new in zip(outs, body()):
+                    out.copy_(new)
+            finally:
+                end(device, pool)
+    finally:
+        err = lib.gradslam_if_end(body_stream)
+    check(err, "closing a CUDA graph conditional node (gradslam_if_end)")
+
+
 class CapturedCall:
     r"""One captured frame body: the graph, its static inputs and outputs,
-    the output structure, and what its capture counted on each counter
-    (:data:`Counts`, nonzero only)."""
+    the output structure, what its capture counted on each counter
+    (:data:`Counts`, nonzero only) outside its conditional nodes, and each
+    conditional node's predicate (a tensor of the graph) and what its body
+    counted (:func:`when`)."""
 
     def __init__(self, graph, static_in: List[torch.Tensor],
-                 static_out: List[torch.Tensor], out_spec: tuple, counts: Counts):
+                 static_out: List[torch.Tensor], out_spec: tuple, counts: Counts,
+                 preds: List[torch.Tensor] = (), branch_counts: List[Counts] = ()):
         self.graph = graph
         self.static_in = static_in
         self.static_out = static_out
         self.out_spec = out_spec
         self.counts = counts
+        self.preds = list(preds)
+        self.branch_counts = list(branch_counts)
 
     def run(self, leaves: List[torch.Tensor]) -> None:
         """``leaves`` copied into the static inputs, then a replay."""
@@ -661,6 +807,15 @@ class _FrameFunction(torch.autograd.Function):
         return (None, *got)
 
 
+def _release_pool(pool, refs: list) -> None:
+    """The allocator's references to a conditional bodies' pool (``refs``:
+    ``[device index, count]``) given back, so its memory can be freed."""
+    device, n = refs
+    refs[1] = 0
+    for _ in range(n):
+        torch._C._cuda_releasePool(device.index or 0, pool)
+
+
 class FrameGraphs:
     r"""A pipeline's CUDA graphs, one for each key, sharing one memory pool
     and one capture stream; :meth:`clear` frees them and the pool.
@@ -673,7 +828,13 @@ class FrameGraphs:
     ``'backward'``), their capture seconds (``'capture_s'``) and the
     replays of any of them (``'replays'``). ``len()`` is the number of
     graphs, :meth:`counts` the number of each kind, :meth:`saved_bytes`
-    the bytes the captured forwards' saved tensors live in."""
+    the bytes the captured forwards' saved tensors live in.
+
+    A body with conditionals (:func:`when`) leaves, at its warm-up and at
+    each replay, its predicates on the device beside what each
+    conditional's body counts; :meth:`settle` reads them all at once, and
+    ``branch_launches`` tallies what it added to the counters (by counter:
+    the launches inside conditional bodies)."""
 
     def __init__(self):
         self._entries: Dict[tuple, CapturedCall] = {}
@@ -681,6 +842,14 @@ class FrameGraphs:
         self._remat: Dict[tuple, _GradEntry] = {}  # under autograd, remat=True
         self._pool = None
         self._stream = None
+        # the conditional nodes' bodies: their stream and pool, and the
+        # references the allocator holds to that pool (one an entry)
+        self._branch_stream = None
+        self._branch_pool = None
+        self._branch_pool_refs = [None, 0]  # [device index, references]
+        # (predicates on the device, what each conditional's body counted)
+        self._pending: List[Tuple[torch.Tensor, List[Counts]]] = []
+        self.branch_launches: "collections.Counter" = collections.Counter()
         self.capture_s = 0.0
         self.replays = 0
         self.kept_bytes = 0
@@ -709,6 +878,11 @@ class FrameGraphs:
         self._kept.clear()
         self._remat.clear()
         self._pool = self._stream = None
+        self._pending.clear()
+        self.branch_launches.clear()
+        if self._branch_pool is not None:
+            self._release_branch_pool()
+        self._branch_pool = self._branch_stream = None
         self.capture_s = 0.0
         self.replays = 0
         self.kept_bytes = 0
@@ -735,12 +909,41 @@ class FrameGraphs:
         outs = _FrameFunction.apply(call, *leaves)
         return unflatten(call.entry.out_spec, outs)
 
+    def settle(self, read: Callable = lambda flags: flags.tolist()) -> List[List[bool]]:
+        r"""One read (``read``, of one bool tensor) of the predicates of every
+        body with conditionals (:func:`when`) warmed up or replayed since
+        the last settle: each conditional's body counts are added to the
+        counters where its predicate was true. Returns each such call's
+        predicates, in order."""
+        if not self._pending:
+            return []
+        flags = read(torch.cat([preds for preds, _ in self._pending]))
+        took, i = [], 0
+        for _, counts in self._pending:
+            mine = [bool(x) for x in flags[i:i + len(counts)]]
+            i += len(counts)
+            for ran, c in zip(mine, counts):
+                if ran:
+                    _add_counts(c)
+                    self.branch_launches.update(c)
+            took.append(mine)
+        self._pending.clear()
+        return took
+
+    def _defer(self, preds: List[torch.Tensor], counts: List[Counts]) -> None:
+        """A call's predicates, copied on the device (a replay overwrites
+        the graph's), kept with what each body counts until :meth:`settle`."""
+        if preds:
+            self._pending.append((torch.stack(preds), counts))
+
     def _replay_frame(self, key: tuple, fn: Callable, spec: tuple,
                       leaves: List[torch.Tensor]):
         entry = self._entries.get(key)
         if entry is not None:
             self._replayed(key[0])
-            return entry(leaves)
+            out = entry(leaves)
+            self._defer(entry.preds, entry.branch_counts)
+            return out
         return self._capture(key, fn, leaves, spec)
 
     def _side_stream(self, device):
@@ -748,6 +951,22 @@ class FrameGraphs:
             self._stream = torch.cuda.Stream(device)
             self._pool = torch.cuda.graph_pool_handle()
         return self._stream
+
+    def _branch_resources(self, device) -> tuple:
+        """The stream the conditional bodies (:func:`when`) run on and the
+        pool their captures allocate from, made at the first such body."""
+        if self._branch_stream is None:
+            self._branch_stream = torch.cuda.Stream(device)
+            self._branch_pool = torch.cuda.graph_pool_handle()
+            self._branch_pool_refs[:] = [device, 0]
+            # the allocator's references to the pool go with this cache (its
+            # graphs, which read the pool's memory, go with it too)
+            weakref.finalize(self, _release_pool, self._branch_pool,
+                             self._branch_pool_refs).atexit = False
+        return self._branch_stream, self._branch_pool
+
+    def _release_branch_pool(self) -> None:
+        _release_pool(self._branch_pool, self._branch_pool_refs)
 
     def _warm(self, fn: Callable, device=None):
         r"""``fn()`` on the side stream with synchronisation an error: a
@@ -821,9 +1040,14 @@ class FrameGraphs:
                 dst.copy_(src)
             return fn(*unflatten(spec, static_in))
 
-        result = self._warm(warm, device)
-        graph, out, counts = self._captured(
-            key[0], "frame", f"body (options {key[1]})", lambda: fn(*unflatten(spec, static_in)), device)
+        with _recording(_Branches(False, self, device)) as warmed:
+            result = self._warm(warm, device)
+        self._defer(warmed.preds, warmed.counts)
+        with _recording(_Branches(True, self, device)) as branches:
+            graph, out, counts = self._captured(
+                key[0], "frame", f"body (options {key[1]})",
+                lambda: fn(*unflatten(spec, static_in)), device)
         static_out, out_spec = flatten(out)
-        self._entries[key] = CapturedCall(graph, static_in, static_out, out_spec, counts)
+        self._entries[key] = CapturedCall(graph, static_in, static_out, out_spec, counts,
+                                          branches.preds, branches.counts)
         return result

@@ -11,6 +11,14 @@ collectives (under gloo every rank replays in step) but counts nothing:
 every counter of ``graphs`` (the kernels' launches, the collectives' bytes
 and calls) is put back after it, as on the card.
 
+A conditional node (``graphs.when`` in a capture, ``graphs._if_node`` on
+the card) is emulated too: at the capture its body runs whatever the
+predicate holds, as the card captures it, but writes nothing; at a replay
+it runs, and writes into its outputs, only where the predicate reads true
+(the emulation reads it; the port never does). Each replay writes its
+predicates into the captured ones, which ``FrameGraphs`` keeps beside the
+replay, and poisons them with the graph's other pool tensors.
+
 :func:`count_at_dispatchers` raises the kernels' launch counters where the
 card would launch them: on the CPU no wrapper launches.
 """
@@ -79,6 +87,20 @@ def _poison(t):
         _one_per_run(t).fill_(True if t.dtype == torch.bool else -7)
 
 
+_REPLAYING = [False]  # whether a conditional node runs in an emulated replay
+
+
+def emulated_if_node(branches, pred, body, outs):
+    """graphs._if_node on the CPU: the capture runs ``body`` and writes
+    nothing; a replay runs it where ``pred`` reads true, as the card does,
+    and writes what it returns into ``outs``."""
+    if not _REPLAYING[0]:
+        body()
+    elif bool(pred):
+        for out, value in zip(outs, body()):
+            out.copy_(value)
+
+
 def emulated_graph(self, fn, device):
     """FrameGraphs._graph on the CPU: ``fn`` runs once (the capture) and the
     tensors it returns are the static ones; a replay runs ``fn`` again and
@@ -90,20 +112,29 @@ def emulated_graph(self, fn, device):
     scratch: a replay poisons the pool tensors of every graph captured after
     it (NaN, -7, True; static inputs, made outside the pool, are left
     alone). A caller that reads a graph's outputs after another graph's
-    replay reads poison, as it reads garbage on the card."""
+    replay reads poison, as it reads garbage on the card. A body's
+    conditional nodes' predicates are graph tensors too: a replay writes
+    them, and poisons them in later graphs."""
+    recording = graphs._RECORDING[-1] if graphs._RECORDING else None
+    first = len(recording.preds) if recording is not None else 0
     out = fn()
+    preds = list(recording.preds[first:]) if recording is not None else []
     static = flatten(out)[0]
     order = self.__dict__.setdefault("_emulated_order", [])
     later = len(order) + 1
-    order.append(static)
+    order.append(static + preds)
 
     def replay():
         before = graphs._read_counters()  # a replay runs no wrapper and no helper
-        with torch.no_grad():
-            fresh = flatten(fn())[0]
+        _REPLAYING[0] = True
+        try:
+            with torch.no_grad(), graphs._recording(graphs._Branches(True)) as fresh_branches:
+                fresh = flatten(fn())[0]
+        finally:
+            _REPLAYING[0] = False
         graphs._set_counters(before)
         with torch.no_grad():
-            for dst, src in zip(static, fresh):
+            for dst, src in zip(static + preds, fresh + fresh_branches.preds):
                 _one_per_run(dst).copy_(_one_per_run(src))
             for tensors in order[later:]:
                 for t in tensors:
@@ -122,6 +153,7 @@ def emulate(mp):
     (``mp``: a ``pytest.MonkeyPatch``)."""
     fake_cuda(mp)
     mp.setattr(FrameGraphs, "_graph", emulated_graph)
+    mp.setattr(graphs, "_if_node", emulated_if_node)
     mp.setattr(graphs, "_static_like", _static_outside_pool)
     _OUTSIDE_POOL.clear()  # an earlier test's storages may be reused
     for module in (icpslam_module, map_sharded_module):

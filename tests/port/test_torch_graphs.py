@@ -369,9 +369,10 @@ def test_gradients_and_armed_recovery_run_eagerly(emulated):
     """Under grad the online calls (``step``, ``map_update``) are captured
     as ``forward`` is: each call replays forward and backward graphs
     (``test_torch_graphs_online.py`` holds their bits). Armed recovery no
-    longer runs eagerly either: an armed ``forward`` is captured, with and
-    without gradients, as a gate and a fuse graph a capacity segment
-    (``test_torch_graphs_armed.py`` holds its bits)."""
+    longer runs eagerly either: an armed ``forward`` is captured, without
+    gradients as one graph a frame whose branches are conditional nodes
+    (key ``'armed'``), under autograd as a gate and a fuse graph a capacity
+    segment (``test_torch_graphs_armed.py`` holds its bits)."""
     frames = _frames(L_=3)
     depth = frames.depth_image.clone().requires_grad_()
     grad_frames = frames.__class__(frames.rgb_image, depth, frames.intrinsics, frames.poses)
@@ -392,7 +393,7 @@ def test_gradients_and_armed_recovery_run_eagerly(emulated):
     armed = PointFusion(odom="gradicp", dsratio=4, numiters=2, relocalize_below=0.2)
     armed(frames)
     assert armed.last_call_captured and armed.last_eager_reason is None
-    assert sorted({key[0] for key in armed.frame_graphs._entries}) == ["fuse", "gate"]
+    assert sorted({key[0] for key in armed.frame_graphs._entries}) == ["armed"]
     pc, _ = armed(grad_frames)
     assert armed.last_call_captured and armed.last_eager_reason is None
     depth.grad = None
