@@ -118,13 +118,18 @@ Phases (each raises on failure; nothing is caught):
     640x480x30's peak. (c) gt 640x480x30 and gradICP 320x240x30 with remat
     against the JAX package's CPU gradients (``tests/port/data/
     grad_jax_cpu.npz``, bars ``GRAD_GOLDEN_BARS``). (d) A profile of one gt
-    640x480x30 remat step. (e) The armed row (``ARMED_GRAD_ROW``: the
+    640x480x30 remat step. (e) The armed rows (``ARMED_GRAD_ROWS``: the
     kidnap 1-NN row at 640x480x11 with remat, its relocalization on frame
-    8 crossed by the gradient), the last of ``GRAD_ROWS``, as (b): its
-    launches derived from its branch frames, the same branch frames in
-    every step of both modes, the profiled step's phases split at the
-    branch (``PhaseTrace``). (f) The online step loop under grad
-    (``ONLINE_GRAD_ROWS``: gt and gradICP 1-NN ``step`` at 640x480x30,
+    8 crossed by the gradient, and the same row with the anchor armed,
+    ``anchor_every=3``), the last of ``GRAD_ROWS``, as (b): their
+    launches derived from their branch frames, the same branch frames in
+    every step of both modes; captured, each tracked frame one ``'armed'``
+    graph pair whose branches and their VJPs are conditional nodes
+    decided on the device, at most two reads a step
+    (``check_armed_grad_graph``); then the bytes each conditional body
+    saves on an eager step without remat (``conditional_body_bytes``),
+    beside the row's eager peak. (f) The online step loop under grad
+    (``ONLINE_GRAD_ROWS``: gt and gradICP 1-NN ``step`` at 640x480x15,
     remat on), eager and captured (``online_grad_row``): map and poses
     SHA-256-equal, depth gradients SHA-256-equal where two eager steps
     agree, else and the intrinsics within ``GRAD_SUM_ORDER_BAR`` of max
@@ -352,6 +357,7 @@ from gradslam_torch.slam.fusionutils import (
     update_map_fusion,
 )
 from gradslam_torch.slam import icpslam as icpslam_module
+from gradslam_torch.slam.icpslam import armed_on_device
 from gradslam_torch.structures import pointclouds as pointclouds_module
 from gradslam_torch.structures.io import load_ply
 from gradslam_torch.structures.pointclouds import scatter_rows, scatter_rows_into
@@ -439,9 +445,12 @@ EXAMPLE_REFINE = dict(H=24, W=32, L=3, steps=25, lr=0.08)
 GRADICP = dict(odom="gradicp", dsratio=4, numiters=10)
 GRAD_ROWS = {
     "gt_B8_160x120x4": ((8, 4, 120, 160), 76_800, dict(odom="gt"), (False,)),
-    "gt_B8_320x240x8": ((8, 8, 240, 320), 614_400, dict(odom="gt"), (True,)),
+    # 4 frames, not the bench row's 8: the script's time limit (PERF.md §4)
+    "gt_B8_320x240x4": ((8, 4, 240, 320), 614_400, dict(odom="gt"), (True,)),
     "gt_640x480x30": ((1, 30, 480, 640), 540_672, dict(odom="gt"), (False, True)),
-    "knn_320x240x30": ((1, 30, 240, 320), 147_456, GRADICP, (False, True)),
+    "knn_320x240x30": ((1, 30, 240, 320), 147_456, GRADICP, (True,)),
+    # remat off on 15 of its 30 frames: the script's time limit (PERF.md §4)
+    "knn_320x240x15": ((1, 15, 240, 320), 147_456, GRADICP, (False,)),
     # 15 frames, not the bench row's 30: the script's time limit (PERF.md §6)
     "knn_640x480x15": ((1, 15, 480, 640), 540_672, GRADICP, (True,)),
     "projective_640x480x30": ((1, 30, 480, 640), 540_672,
@@ -516,7 +525,7 @@ GRAD_GOLDEN_BARS = {"gt": dict(_GOLDEN_BARS, pixels_p99=1e-4),
 # by as much as the largest (gt 640x480x30: 0.884 of max |g|, at 2,099 of
 # 9,216,000 pixels, tests/port/grad_golden_witness.py); the share and the
 # 99th percentile hold the rest.
-GRAD_CPU_ROWS = ("gt_B8_160x120x4", "gt_B8_320x240x8")
+GRAD_CPU_ROWS = ("gt_B8_160x120x4", "gt_B8_320x240x4")
 GRAD_CPU_BARS = dict(GRAD_GOLDEN_BARS["gt"], pixels_worst=None)
 GRAD_CPU_COUNT_REL = 0.002  # each clip's map count within 0.2% of the CPU's (§2)
 
@@ -576,13 +585,21 @@ def kidnap_rows(jump) -> dict:
 
 # (e) of the gradient phase, armed recovery under grad: the kidnap 1-NN row
 # at 640x480x11 with remat, its relocalization on frame 8 crossed by the
-# gradient; its inputs the kidnapped clip (GRAD_CLIPS), its launches derived
-# from the frames its branches ran on (grad_launches)
+# gradient, and the same row with the keyframe anchor armed too
+# (anchor_every=3: the anchor re-solve's and the refresh's conditionals
+# under grad); captured, each tracked frame is one graph pair with its
+# branches decided on the device (icpslam.armed_on_device). Their inputs
+# the kidnapped clip (GRAD_CLIPS), their launches derived from the frames
+# their branches ran on (grad_launches)
 ARMED_GRAD_ROW = "kidnap_knn_640x480x11"
+ARMED_ANCHOR_GRAD_ROW = "kidnap_knn_anchor_640x480x11"
+ARMED_GRAD_ROWS = (ARMED_GRAD_ROW, ARMED_ANCHOR_GRAD_ROW)
 _KL = len(KIDNAP_ORDER)
-GRAD_ROWS[ARMED_GRAD_ROW] = ((1, _KL, *KIDNAP_SHAPE[2:]), _KL * KIDNAP_SHAPE[2] * KIDNAP_SHAPE[3],
-                             dict(KIDNAP_BASE, **kidnap_rows(kidnap_jump())["knn"]), (True,))
-GRAD_CLIPS = {ARMED_GRAD_ROW: lambda: kidnap_clip()[:4]}
+for _name, _row in zip(ARMED_GRAD_ROWS, ("knn", "knn_anchor")):
+    GRAD_ROWS[_name] = ((1, _KL, *KIDNAP_SHAPE[2:]), _KL * KIDNAP_SHAPE[2] * KIDNAP_SHAPE[3],
+                        dict(KIDNAP_BASE, **kidnap_rows(kidnap_jump())[_row]), (True,))
+_kidnap_arrays = functools.lru_cache(maxsize=1)(lambda: kidnap_clip()[:4])
+GRAD_CLIPS = {name: _kidnap_arrays for name in ARMED_GRAD_ROWS}
 # rows whose eager steps end in a profiled one too (device busy share eager
 # -> captured, the step split at its branch): an eager step under the
 # profiler took 1.3-3.2x its unprofiled time (PERF.md §6, PR 15), and PR 14
@@ -1922,6 +1939,31 @@ def check_armed_graph(tag: str, ledgers: dict, tracked: int) -> None:
                 for call, led in ledgers.items()))
 
 
+def check_armed_grad_graph(tag: str, ledgers: dict, tracked: int, reads: list) -> None:
+    """A captured armed gradient run with its branches decided on the
+    device: each tracked frame one ``FrameGraphs.grad`` call of the key
+    ``'armed'`` (the no-grad frame graph forward, a graph of the recompute
+    and its VJP backward, the branches and their VJPs conditional nodes in
+    them), so every step after the first ones (``ledgers['first']``)
+    replays two ``'armed'`` graphs on each of the ``tracked`` frames and
+    captures none, no other key's graph (gate, branch, fuse) is captured or
+    replayed in any step, and each step reads back at most twice
+    (``reads``, by step: after the forward's last frame and after the
+    backward's)."""
+    first = ledgers["first"]
+    later = {call: led for call, led in ledgers.items() if call != "first"}
+    others = {k for led in ledgers.values() for k in (*led.captured, *led.replays)
+              if k != "armed" and (led.captured[k] or led.replays[k])}
+    if not first.captured["armed"] or others or any(
+            (led.captured["armed"], led.replays["armed"]) != (0, 2 * tracked)
+            for led in later.values()) or max(reads) > 2:
+        raise AssertionError(
+            f"{tag}: not one 'armed' graph pair replayed a frame ({tracked} frames; other keys "
+            f"{sorted(others)}; reads by step {reads}): " + "; ".join(
+                f"{call} captured {led.captured['armed']} replayed {led.replays['armed']}"
+                for call, led in ledgers.items()))
+
+
 class ReadBacks:
     """Counts the armed frame's host reads (``icpslam._read_back``: the
     gate's flags, or the predicates of a captured run) while active, by the
@@ -1945,6 +1987,96 @@ class ReadBacks:
         icpslam_module._read_back = self._real
 
 
+def decide_on_host(pred, body, args, outs):
+    """:func:`graphs.when`'s decision made on the host (one read)."""
+    return list(body(*args)) if bool(pred) else outs
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bits as integers: NaN and -0.0 compare as written."""
+    return t.detach().view(torch.int32) if t.dtype == torch.float32 else t.detach()
+
+
+def conditional_grad_check(device: str = "cuda") -> str:
+    """A differentiable :func:`graphs.when` through ``FrameGraphs.grad``
+    with remat (the armed gradient step's design, on a toy body): the
+    body's 1-NN search and scatter (forward), and its scatter's backward,
+    inside conditionals decided on the device in the forward graph and in
+    the backward graph (the recompute and its VJP). Six steps through one
+    cache, predicates true and false (warm-ups, captures, replays), each
+    against the same body decided on the host, bit for bit: the outputs,
+    the three inputs' gradients, the launches of the forward and of the
+    backward phase (the recompute's and the VJP's), one read of the
+    backward's predicates after it. Where the predicate is false the
+    branch's input takes negative values, whose square roots (NaN) the
+    body would keep as residuals: the gradients stay the pass-through's,
+    finite."""
+    g = torch.Generator().manual_seed(0)
+    B, N = 2, 4800
+    tgt = torch.randn(B, 2 * N, 3, generator=g).to(device)
+    dest = torch.stack([torch.randperm(2 * N, generator=g)[:N] for _ in range(B)]).to(device)
+    x0 = (torch.rand(B, N, 3, generator=g) + 0.1).to(device)
+    w0 = torch.randn(B, 1, 3, generator=g).to(device)
+    t0 = torch.randn(B, 2 * N, 3, generator=g).to(device)
+
+    def branch(x, w, table):
+        d, _ = nn_points_auto(x.detach(), tgt)
+        y = scatter_rows_into(table * 1.5, dest, torch.sqrt(x) * w)
+        return [y * d[:, :1, None]]
+
+    def body(x, w, table, gate, decide):
+        y = decide(gate[0] > 0, branch, (x, w, table), [table * 2.0])[0]
+        # every input used outside the branch too, as the armed frame's are
+        return (y ** 2).sum((1, 2)) + (x * w).sum((1, 2))
+
+    def step(run, gate, poisoned):
+        x = (-x0 if poisoned else x0).clone().requires_grad_()
+        w, table = w0.clone().requires_grad_(), t0.clone().requires_grad_()
+        knn_cuda.launches = scatter_cuda.launches = 0
+        out = run(x, w, table, gate)
+        fwd = (knn_cuda.launches, scatter_cuda.launches)
+        knn_cuda.launches = scatter_cuda.launches = 0
+        out.sum().backward()
+        bwd = (knn_cuda.launches, scatter_cuda.launches)
+        return [bits(t) for t in (out, x.grad, w.grad, table.grad)], fwd, bwd
+
+    graphs = graphs_module.FrameGraphs()
+    reads = []
+
+    def read(flags):
+        reads.append(1)
+        return flags.tolist()
+
+    def captured(x, w, table, gate):
+        out = graphs.grad("check_grad", lambda *a: body(*a, graphs_module.when),
+                          (x, w, table, gate), remat=True, read=read)
+        graphs.settle()  # the forward's predicates, as ICPSLAM.forward reads them
+        return out
+
+    seen = []
+    for on, poisoned in ((1.0, False), (1.0, False), (0.0, True), (0.0, False), (1.0, False),
+                         (0.0, True)):
+        gate = torch.tensor([on], device=device)
+        reads.clear()
+        got, fwd, bwd = step(captured, gate, poisoned)
+        want, hfwd, hbwd = step(lambda *a: body(*a, decide_on_host), gate, poisoned)
+        recompute = tuple(f + b for f, b in zip(hfwd, hbwd))
+        same = [torch.equal(a, b) for a, b in zip(got, want)]
+        finite = all(bool(torch.isfinite(t.view(torch.float32)).all()) for t in got[1:])
+        if not all(same) or not finite or fwd != hfwd or bwd != recompute or len(reads) != 1:
+            raise AssertionError(
+                f"differentiable conditional, gate {on} poisoned {poisoned}: bits equal {same}, "
+                f"gradients finite {finite}, launches forward {fwd} (host {hfwd}), backward {bwd} "
+                f"(host with its recompute {recompute}), backward reads {len(reads)}")
+        seen.append((bool(on), fwd, bwd))
+    knn_cuda.launches = scatter_cuda.launches = 0
+    return (f"differentiable conditional nodes: six gradient steps through FrameGraphs.grad with "
+            f"remat, each bit-equal to the host's decisions (outputs and the three gradients), "
+            f"graphs {graphs.counts()}, (predicate, forward launches, backward-phase launches) "
+            f"{seen}, one read of the backward's predicates a step; NaN residuals of a false "
+            f"branch left out of the gradients")
+
+
 def conditional_check() -> str:
     """The conditional nodes' route (``graphs.CONDITIONAL_ROUTE``) on the
     card: a body with two :func:`graphs.when` nodes, the second's predicate
@@ -1963,8 +2095,8 @@ def conditional_check() -> str:
             d, idx = nn_points_auto(src * scale, tgt)
             return d.sum(-1), idx.to(torch.int64).sum(-1)
 
-        outs = decide(gate[0] > 0, lambda: branch(1.0), outs)
-        return decide((outs[0].sum() != 0) & (gate[1] > 0), lambda: branch(2.0), outs)
+        outs = decide(gate[0] > 0, branch, (1.0,), outs)
+        return decide((outs[0].sum() != 0) & (gate[1] > 0), branch, (2.0,), outs)
 
     graphs = graphs_module.FrameGraphs()
     seen = []
@@ -1974,7 +2106,7 @@ def conditional_check() -> str:
         got = [t.clone() for t in graphs("check", lambda x: body(x, graphs_module.when), (gate,))]
         took, launches = graphs.settle(), knn_cuda.launches
         knn_cuda.launches = 0
-        want = body(gate, lambda p, f, o: list(f()) if bool(p) else o)
+        want = body(gate, decide_on_host)
         expect = [bool(gates[0]), bool(gates[0] and gates[1])]
         if (not all(torch.equal(a, b) for a, b in zip(got, want)) or took != [expect]
                 or launches != knn_cuda.launches):
@@ -2145,9 +2277,12 @@ def grad_row(name: str, remat: bool):
     and, for ``GRAD_EAGER_PROFILED`` rows, a profiled one. Captured: a
     first step (the warm-ups and the forward
     captures), a second (the backward captures of the warm-up frames'
-    keys), a steady step (every frame's forward and backward replayed, a
-    recovery branch's from graphs of its own: :func:`check_branch_graphs`)
-    and a profiled one. Every step's launches in the forward and the backward
+    keys), a steady step (every frame's forward and backward replayed:
+    armed with remat, one ``'armed'`` graph pair a frame with its branches
+    decided on the device and at most two reads a step,
+    :func:`check_armed_grad_graph`; else a recovery branch's from graphs
+    of its own, :func:`check_branch_graphs`) and a profiled one. The reads
+    back of every step are counted (:class:`ReadBacks`). Every step's launches in the forward and the backward
     phase equal :func:`grad_launches`' for the frames its branches ran on,
     and every step runs them on the first step's frames. Captured against
     eager: map, poses and depth gradients SHA-256-equal, the intrinsics
@@ -2166,10 +2301,14 @@ def grad_row(name: str, remat: bool):
     inputs = row_inputs(name, "cuda")
     branches = None
     B, L = shape[:2]
+    armed = kw.get("relocalize_below", 0) > 0
     rows, grads, results = {}, {}, {}
     for mode, use_jit in (("eager", False), ("captured", True)):
         slam = PointFusion(map_capacity=cap, remat=remat, use_jit=use_jit, **kw)
-        steps, secs = [], []
+        # armed and captured with remat: one graph pair a frame, the branches
+        # decided on the device (else each branch a graph pair of its own)
+        on_device = armed and armed_on_device(use_jit, True, remat)
+        steps, secs, reads = [], [], []
         steady = 1 if mode == "eager" else 2  # the steady step's index
         profile = mode == "captured" or name in GRAD_EAGER_PROFILED
         trace, kept, ledgers = None, 0, {}
@@ -2185,11 +2324,12 @@ def grad_row(name: str, remat: bool):
                 torch.cuda.reset_peak_memory_stats()
                 start = torch.cuda.memory_allocated()
             t0 = time.perf_counter()
-            with spy, ledger:
+            with spy, ledger, ReadBacks(slam) as read_backs:
                 out = grad_step(slam, inputs, spy if isinstance(spy, ScatterSpy) else None,
                                 trace or contextlib.nullcontext)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
+            reads.append(sum(read_backs.reads.values()))
             if i == steady:
                 peak = torch.cuda.max_memory_allocated()
             expect = grad_expect(name, remat, slam.recovery_log)
@@ -2230,12 +2370,14 @@ def grad_row(name: str, remat: bool):
                 k: launches["forward"][k] + launches["backward"][k] for k in ("knn", "scatter")}
         graphs = slam.frame_graphs.counts()
         by_key = graphs_by_key(slam.frame_graphs)
-        if use_jit:  # each branch's forward and backward graph replayed a frame
+        if on_device:
+            check_armed_grad_graph(f"grad {tag}", ledgers, L - 1, reads)
+        elif use_jit:  # each branch's forward and backward graph replayed a frame
             check_branch_graphs(f"grad {tag}", branches, ledgers, 2)
         elif any(led.captured or led.replays for led in ledgers.values()):
             raise AssertionError(f"grad {tag} eager: graphs captured or replayed")
         branch_graphs = ""
-        if use_jit and any(branches.values()):
+        if use_jit and not on_device and any(branches.values()):
             branch_graphs = "; ".join(f"{step} step(s): {led.branches()}"
                                       for step, led in ledgers.items())
         results[mode] = steps
@@ -2250,7 +2392,7 @@ def grad_row(name: str, remat: bool):
         memory = graph_memory(slam.frame_graphs)
         t = secs[steady]
         busy = trace and trace.busy
-        rows[mode] = dict(first_s=secs[0], steady_s=t, peak_b=peak, start_b=start,
+        rows[mode] = dict(first_s=secs[0], steady_s=t, peak_b=peak, start_b=start, reads=reads,
                           busy_s=busy, events=trace and trace.events,
                           branch=trace and trace.branch, graphs=graphs, capture_s=capture_s,
                           by_key=by_key, branch_graphs=branch_graphs,
@@ -2268,7 +2410,9 @@ def grad_row(name: str, remat: bool):
                 + f"; allocated after its forward {trace.forward_b} B, its arenas {kept} B")
         log(f"grad {tag} {mode} {shape} capacity {cap}: first step {secs[0]:.4f} s, steady "
             f"{B * L / t:.4f} frames/s ({t:.4f} s a step), peak memory {peak} B ({peak - start} "
-            f"B over the step's start), graphs {graphs} captured in {capture_s:.4f} s (by key "
+            f"B over the step's start), reads back by step {reads}"
+            f"{' (the branches decided on the device)' if on_device else ''}, graphs {graphs} "
+            f"captured in {capture_s:.4f} s (by key "
             f"{by_key}{f'; the branches, {branch_graphs}' if branch_graphs else ''}), map "
             f"{points} points, max |g| depth {gmax[0]:.6e}, intrinsics {gmax[1]:.6e}; launches "
             f"in every step (counters): forward {launches['forward']}, backward phase "
@@ -2312,8 +2456,8 @@ def grad_row(name: str, remat: bool):
 
 # (f) the online calls under grad, as the JAX package jits ``_step`` under
 # jax.grad: the step loop (``step_loop``, at ``ONLINE_CAP``) on the easy
-# 640x480x30 clip, remat on; name -> pipeline options
-ONLINE_GRAD_SHAPE = (1, 30, 480, 640)
+# 640x480 clip, remat on; name -> pipeline options
+ONLINE_GRAD_SHAPE = (1, 15, 480, 640)  # 15 of the clip's 30 frames: the script's time limit
 ONLINE_GRAD_ROWS = {"gt": dict(odom="gt"), "knn": GRADICP}
 
 
@@ -2439,6 +2583,74 @@ def online_grad_row(name: str) -> dict:
         f"captured {r_c['peak_b']} B; max |g| depth {r_c['gmax'][0]:.6e}, intrinsics "
         f"{r_c['gmax'][1]:.6e}")
     return rows
+
+
+def conditional_body_bytes(name: str, eager_peak: int) -> str:
+    r"""What captured armed gradients without remat would have to keep: the
+    bytes of the tensors that each conditional body (the relocalization,
+    the anchor re-solve, the anchor's refresh) saves for its backward on
+    one eager step of row ``name`` with remat off, read through
+    ``saved_tensors_hooks`` (``graphs._recording_saved``: the tensors whose
+    nodes the body's outputs reach, each storage once, the body's inputs'
+    left out), largest over the frames it ran on. JAX's scan keeps both sides'
+    residuals on every frame, so a frame graph with all three would keep
+    their sum on every tracked frame. A body that did not run on the row
+    is sized on one more step whose drift gate flags every frame (the
+    anchor re-solve then runs on each). Reported beside the own peak of
+    the row's eager steady step with remat (``eager_peak``: its peak less
+    what was allocated at its start) and the sizing steps' own."""
+    shape, cap, kw, _ = GRAD_ROWS[name]
+    inputs = row_inputs(name, "cuda")
+    bodies = {"relocalize": "_relocalize", "anchor": "_anchor_resolve", "refresh": "_refreshed"}
+    sizes = collections.defaultdict(list)
+    peaks = {}
+
+    def sized(slam, kind, real):
+        def body(*args):
+            inside = {t.untyped_storage().data_ptr() for t in graphs_module.flatten(args)[0]}
+            refs = []
+            with graphs_module._recording_saved(refs):
+                out = real(*args)
+            # what the outputs' backward reaches (graphs._alive), as a
+            # captured forward's arena keeps it
+            kept = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                    for t in graphs_module._alive(refs)}
+            sizes[kind].append(sum(n for p, n in kept.items() if p not in inside))
+            return out
+        return body
+
+    def drifting(gate):
+        def every(*args):
+            inl, drift = gate(*args)
+            return inl, torch.ones_like(drift)
+        return every
+
+    for tag in ("row", "drift on every frame"):
+        if tag != "row" and all(sizes[k] for k in bodies):
+            break
+        slam = PointFusion(map_capacity=cap, remat=False, use_jit=False, **kw)
+        for kind, attr in bodies.items():
+            if not sizes[kind]:
+                setattr(slam, attr, sized(slam, kind, getattr(slam, attr)))
+        if tag != "row":
+            slam._anchor_gate = drifting(slam._anchor_gate)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        grad_step(slam, inputs)
+        torch.cuda.synchronize()
+        peaks[tag] = torch.cuda.max_memory_allocated() - start
+        del slam
+        gc.collect()
+    tracked = shape[1] - 1
+    each = {k: max(v) if v else None for k, v in sizes.items()}
+    total = sum(v for v in each.values() if v)
+    return (f"grad {name}: each conditional body's saved tensors on an eager remat-off step "
+            f"(largest a frame, frames run): " + ", ".join(
+                f"{k} {each[k]} B ({len(sizes[k])})" for k in bodies)
+            + f"; all three on every one of the {tracked} tracked frames {total * tracked} B, "
+            f"beside the own peak of the row's eager remat-on step {eager_peak} B and the "
+            f"sizing steps' own peaks (remat off) {peaks}")
 
 
 def graph_memory(frame_graphs) -> dict:
@@ -2643,6 +2855,8 @@ def grad_phase() -> None:
             t_row = time.perf_counter()
             grads, rows = grad_row(name, remat)
             peaks[name, remat] = {mode: r["peak_b"] for mode, r in rows.items()}
+            if name == ARMED_ANCHOR_GRAD_ROW:  # its eager steady step's own peak
+                anchor_own = rows["eager"]["peak_b"] - rows["eager"]["start_b"]
             for key, row in GRAD_GOLDEN_ROWS.items():
                 if row == name and remat:
                     for mode, (gd, gk) in grads.items():
@@ -2653,6 +2867,10 @@ def grad_phase() -> None:
             torch.cuda.empty_cache()
             log(f"grad {name} remat={'on' if remat else 'off'}: "
                 f"{time.perf_counter() - t_row:.2f} s for the row's checks")
+    t_row = time.perf_counter()
+    log(conditional_body_bytes(ARMED_ANCHOR_GRAD_ROW, anchor_own))
+    torch.cuda.empty_cache()
+    log(f"grad conditional bodies sized: {time.perf_counter() - t_row:.2f} s")
     for mode in ("eager", "captured"):
         off, on = peaks["gt_640x480x30", False][mode], peaks["gt_640x480x30", True][mode]
         if not on < off:
@@ -3165,7 +3383,9 @@ def device_syncs(run) -> int:
     return sum("synchroniz" in str(w.message) for w in seen)
 
 
-ARMED_ROUNDS = 4  # rounds of one run of each armed row, the order reversed every other round
+# rounds of one run of each armed row, the order reversed every other round
+# (4 until PR 19; 2 for the script's time limit, PERF.md §4)
+ARMED_ROUNDS = 2
 
 
 def armed_phase(frames) -> dict:
@@ -5269,6 +5489,7 @@ def main() -> int:
     log(f"kernel build + load: {time.perf_counter() - t0:.2f} s")
     log("ptxas report:\n" + (_build.build_log.strip() or "(library already built)"))
     log(conditional_check())
+    log(conditional_grad_check())
     t0 = time.perf_counter()
     frameio.load_library()
     log(f"frame decoder library (gradslam_torch/datasets/csrc/frameio.cpp, "

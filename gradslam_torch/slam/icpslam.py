@@ -22,20 +22,26 @@ from the device inside the frame or solver loops, so with ``use_jit`` (the
 default, as in JAX) its frame body runs on the card as a CUDA graph,
 captured once for each capacity segment and replayed for each frame
 (:mod:`gradslam_torch.utils.graphs`), as ``jax.jit`` compiles the scan body
-once. Armed (``relocalize_below > 0``) and captured without gradients, a
-tracked frame is one graph too (:meth:`ICPSLAM._armed`), whose recovery
-branches are CUDA graph conditional nodes decided on the device, as the
-JAX body decides its three ``lax.cond``\ s: the gate (prediction,
-localization, the health gate and, with ``anchor_every``, the drift gate),
-the relocalization (with the anchor, the drift gate on the pose it
-leaves), the anchor re-solve, and the fuse (map update, motion, the
-anchor's refresh in a conditional of its own); the run reads the branch
-frames back once, after its last frame. Eagerly, and under autograd, the
-frame is split where the JAX body has its ``lax.cond``\ s: a gate body,
-one read back of its flags to the host, the recovery branches as Python
-``if``\ s, each a body of its own run only on the frames that need it (a
-second read after a relocalization with the anchor), and a fuse body;
-captured, each is a graph of its own (:meth:`ICPSLAM._track`).
+once. Armed (``relocalize_below > 0``) and captured, without gradients
+or under them with ``remat``, a tracked frame is one graph too
+(:meth:`ICPSLAM._armed`), whose recovery branches are CUDA graph
+conditional nodes decided on the device, as the JAX body decides its three
+``lax.cond``\ s: the gate (prediction, localization, the health gate and,
+with ``anchor_every``, the drift gate), the relocalization (with the
+anchor, the drift gate on the pose it leaves), the anchor re-solve, and
+the fuse (map update, motion, the anchor's refresh in a conditional of its
+own); the run reads the branch frames back once, after its last frame.
+Under autograd with ``remat`` the frame is one ``FrameGraphs.grad`` call:
+the forward replays that graph, the backward a graph of its recompute and
+VJP whose branches' VJPs are conditional nodes on the same predicates (as
+``jax.grad`` through ``lax.cond``), read once more after the backward's
+last frame. Eagerly, and under autograd without ``remat``, the frame is
+split where the JAX body has its ``lax.cond``\ s: a gate body, one read
+back of its flags to the host, the recovery branches as Python ``if``\ s,
+each a body of its own run only on the frames that need it (a second read
+after a relocalization with the anchor), and a fuse body; captured, each
+is a graph of its own (:meth:`ICPSLAM._track`). Which of the two is a pure
+function of (captured, grad, remat): :func:`armed_on_device`.
 ``remat=True`` runs each frame's bodies (the one ``jax.checkpoint`` wraps
 in JAX) under non-reentrant ``torch.utils.checkpoint``: their activations
 are dropped after the forward and recomputed in the backward. Under
@@ -137,11 +143,24 @@ def _through_views(args: tuple) -> tuple:
 
 def _read_back(flags: torch.Tensor) -> list:
     """The host's read of an armed frame's gate flags (any unhealthy; with
-    the anchor, any and all drifting), or, captured without gradients, of
-    every frame's branch predicates at once: the one place a tracked
-    ``forward`` waits for the device, once a frame where no branch runs
-    when the host decides, once a run when the device does."""
+    the anchor, any and all drifting), or, captured, of every frame's
+    branch predicates at once: the one place a tracked ``forward`` waits
+    for the device, once a frame where no branch runs when the host
+    decides, once a run when the device does (and, under autograd, once
+    more after the backward's last frame)."""
     return flags.tolist()
+
+
+def armed_on_device(captured: bool, grad: bool, remat: bool) -> bool:
+    r"""Whether an armed ``forward`` decides its recovery branches on the
+    device, one graph a tracked frame (:meth:`ICPSLAM._armed`): captured,
+    and without autograd or under it with ``remat`` (the backward a graph
+    of the recompute and its VJP, as ``jax.checkpoint`` of the scan body
+    under ``jax.grad``). Under autograd without ``remat`` a conditional
+    body's residuals would have to be kept for every frame, so the frame
+    is split and the host decides; so it is eagerly. A pure function of
+    these facts, never a reaction to a failure."""
+    return captured and (not grad or remat)
 
 
 class ICPSLAM(nn.Module):
@@ -225,10 +244,14 @@ class ICPSLAM(nn.Module):
             without gradients each tracked frame replays one graph whose
             recovery branches are conditional nodes decided on the device,
             and the run reads the branch frames back once, at its end;
-            under autograd each tracked frame replays a gate graph, reads
-            its flags back once, replays a recovery branch's graph where
-            one is needed (the relocalization's, the anchor re-solve's),
-            and replays a fuse graph (see ``relocalize_below``).
+            under autograd with ``remat`` each tracked frame replays that
+            graph forward and a graph of its recompute and VJP backward,
+            the branches' VJPs conditional nodes too, and the backward
+            reads once more, after its last frame; under autograd without
+            ``remat`` each tracked frame replays a gate graph, reads its
+            flags back once, replays a recovery branch's graph where one is
+            needed (the relocalization's, the anchor re-solve's), and
+            replays a fuse graph (see ``relocalize_below``).
 
             After each call ``last_call_captured`` says whether it ran so
             and ``last_eager_reason`` why not. Calls with ``use_jit=False``
@@ -259,12 +282,13 @@ class ICPSLAM(nn.Module):
             relocalize` runs from a :func:`~gradslam_torch.slam.relocalize.
             perturbation_grid` around the solved pose; its pose is taken
             only where it scores strictly better. Tracked odometry only.
-            Captured without gradients, the branches are decided on the
-            device inside the frame's graph, as the JAX package decides its
-            ``lax.cond``; eagerly and under autograd the host reads the
-            gates' flags once a frame, and each branch is a body of its
-            own, run on the frames that need it, where the anchor's gate is
-            read once more after a relocalization.
+            Captured without gradients, or under them with ``remat``, the
+            branches are decided on the device inside the frame's graphs,
+            as the JAX package decides its ``lax.cond``; eagerly and under
+            autograd without ``remat`` the host reads the gates' flags once
+            a frame, and each branch is a body of its own, run on the
+            frames that need it, where the anchor's gate is read once more
+            after a relocalization.
         relocalize_grid: the grid's ``yaw_deg`` and ``translations``.
         relocalize_dsratio, relocalize_numiters: the recovery solves'
             stride and iterations.
@@ -818,7 +842,10 @@ class ICPSLAM(nn.Module):
                     args = _through_views(args)
                 return self._frame(body, *args)
             if grad:
-                return self.frame_graphs.grad(name, body, args, options, remat=self.remat)
+                # the backward's predicates read through _read_back, looked up
+                # when they are read
+                return self.frame_graphs.grad(name, body, args, options, remat=self.remat,
+                                              read=lambda flags: _read_back(flags))
             return self.frame_graphs(name, body, args, options)
 
         return run
@@ -863,21 +890,28 @@ class ICPSLAM(nn.Module):
         return frame.with_poses(pred[:, None])
 
     def _fuse(self, cv: bool, map_pc: Pointclouds, pose: torch.Tensor, prev_pose: torch.Tensor,
-              frame: RGBDImages, anchor=None, drifting=None):
+              frame: RGBDImages, anchor=None, drifting=None, cond=None, keep=None):
         r"""A tracked frame's second half at the chosen ``pose (B, 1, 4,
         4)``: the map update, the world-frame motion (with ``cv``; else
         None) and, given an ``anchor``, its refresh at the pose except where
         ``drifting`` (a refresh there would bake the drift into the
-        reference). Returns ``(map, pose (B, 4, 4), motion, anchor)``: the
-        pose's last use, so that under autograd its gradient from later
-        frames comes first in this body's backward, as eagerly."""
+        reference); with ``cond`` (:func:`~gradslam_torch.utils.graphs.
+        when`) the refresh is a conditional that leaves the anchor whole
+        where ``keep`` (every sequence drifting) holds. Returns ``(map, pose
+        (B, 4, 4), motion, anchor)``: the pose's last use, so that under
+        autograd its gradient from later frames comes first in this body's
+        backward, as eagerly."""
         live = frame.with_poses(pose)
         map_pc = self._map(map_pc, live)
         delta = None
         if cv:  # world-frame motion of this frame, the next prediction
             delta = compose_transformations(pose[:, 0], inverse_transformation(prev_pose))
         if anchor is not None:
-            anchor = self._refreshed(live, anchor, drifting)
+            if cond is None:  # a body of its own, as the conditional's
+                anchor = self._refreshed(*_through_views((live, anchor, drifting)))
+            else:
+                anchor = tuple(cond(~keep, self._refreshed, (live, anchor, drifting),
+                                    [t.clone() for t in anchor]))
         return map_pc, pose[:, 0], delta, anchor
 
     def _refreshed(self, live: RGBDImages, anchor: Tuple[torch.Tensor, ...],
@@ -962,6 +996,12 @@ class ICPSLAM(nn.Module):
         device all false there."""
         run = run or self._runner(False, False)
         cv = self.motion_model == "constant_velocity"
+        if needs_grad(map_pc, prev_pose, prev_delta, anchor, frame):
+            # the frame's inputs through one view each: the gradients of their
+            # uses in the frame's bodies sum there first, as they do in the
+            # backward of a frame captured as one graph (:meth:`_armed`)
+            map_pc, prev_pose, prev_delta, anchor, frame = _through_views(
+                (map_pc, prev_pose, prev_delta, anchor, frame))
         pose, inlier, inl, drifting, flags, map_pc, anchor = run(
             "gate", functools.partial(self._gate, cv),
             (map_pc, prev_pose, prev_delta, anchor, frame), (cv,))
@@ -977,7 +1017,7 @@ class ICPSLAM(nn.Module):
         def branch(pred, name, body, args, through):
             if cond is None:
                 return run(name, body, args) if pred else None
-            return cond(pred, lambda: body(*args), [t.clone() for t in through])
+            return cond(pred, body, args, [t.clone() for t in through])
 
         drift = flags[1:]  # any and all drifting, with an anchor
         out = branch(flags[0], "relocalize", self._relocalize,
@@ -997,28 +1037,31 @@ class ICPSLAM(nn.Module):
         refresh = refresh and anchor is not None
         if cond is None:
             refresh = refresh and not drift[1]
-            map_pc, pose, delta, fresh = run(
-                "fuse", functools.partial(self._fuse, cv),
-                (map_pc, pose, prev_pose, frame, *((anchor, drifting) if refresh else ())),
-                (cv, refresh))
-            return map_pc, pose, delta if cv else prev_delta, fresh if refresh else anchor, events
-        fused, pose_out, delta, _ = self._fuse(cv, map_pc, pose, prev_pose, frame)
-        if refresh:  # where some sequence is not drifting
-            anchor = tuple(cond(~drift[1], lambda: self._refreshed(
-                frame.with_poses(pose), anchor, drifting), [t.clone() for t in anchor]))
-        return fused, pose_out, delta if cv else prev_delta, anchor, events
+            fuse = functools.partial(self._fuse, cv)
+        else:  # the refresh where some sequence is not drifting
+            fuse = functools.partial(self._fuse, cv, cond=cond, keep=drift[1] if refresh else None)
+        map_pc, pose, delta, fresh = run(
+            "fuse", fuse, (map_pc, pose, prev_pose, frame, *((anchor, drifting) if refresh else ())),
+            (cv, refresh))
+        return map_pc, pose, delta if cv else prev_delta, fresh if refresh else anchor, events
 
     def _armed(self, refresh: bool, map_pc: Pointclouds, prev_pose: torch.Tensor,
                prev_delta: torch.Tensor, anchor, deltas: torch.Tensor, frame: RGBDImages):
-        r"""The armed tracked frame as one no-grad body, captured as one graph
-        whose branches are conditional nodes decided on the device, as the
-        JAX scan body runs its three ``lax.cond``\ s: :meth:`_track` with
-        :func:`~gradslam_torch.utils.graphs.when`. Returns ``(map, pose (B,
+        r"""The armed tracked frame as one body, captured as one graph whose
+        branches are conditional nodes decided on the device, as the JAX
+        scan body runs its three ``lax.cond``\ s: :meth:`_track` with
+        :func:`~gradslam_torch.utils.graphs.when` (under autograd, with
+        ``remat``, the forward of one ``FrameGraphs.grad`` call, whose
+        backward graph recomputes it and decides its branches' VJPs on the
+        same predicates; each body's inputs that need a gradient go
+        through one view first, as eagerly). Returns ``(map, pose (B,
         4, 4), motion, anchor, health, relocalization taken, anchor re-solve
         taken)`` (the last None without an anchor); whether each branch ran
         stays on the device with the graph's predicates
         (:meth:`~gradslam_torch.utils.graphs.FrameGraphs.settle`)."""
         def direct(name, body, args, options=()):
+            if needs_grad(*args):  # as eagerly (:meth:`_runner`)
+                args = _through_views(args)
             return body(*args)
 
         map_pc, pose, delta, anchor, events = self._track(
@@ -1204,9 +1247,11 @@ class ICPSLAM(nn.Module):
         anchor = self._anchor_snapshot(live0) if self.anchor_every > 0 else None
         cv = self.motion_model == "constant_velocity"
         track = functools.partial(self._track_unarmed, cv)
-        # armed, captured and without grad: one graph a frame, its branches
-        # decided on the device; the branch frames are read once, at the end
-        on_device = self.relocalize_below > 0 and captured and not grad
+        # armed and captured, without grad or under it with remat: one graph
+        # a frame (under grad its forward's and its backward's), its
+        # branches decided on the device; the branch frames are read once,
+        # at the end (and the backward's once, after its last frame)
+        on_device = self.relocalize_below > 0 and armed_on_device(captured, grad, self.remat)
         deltas = self._grid_deltas(prev_pose) if on_device else None
         armed_frames = []
         start = 0  # tracked frames done; global frame = start + 1

@@ -116,9 +116,29 @@ stream's allocations there while the node is open), and its launches are
 counted apart: each replay keeps its predicates on the device, and
 :meth:`FrameGraphs.settle` reads them all at once and adds each body's
 launches where its predicate was true. A no-grad armed frame is one such
-graph (``ICPSLAM._armed``); under autograd the armed frame is split where
-JAX has its ``lax.cond``\ s into a gate graph, a read back, a graph for
-each branch that runs and a fuse graph (``ICPSLAM._track``).
+graph (``ICPSLAM._armed``).
+
+Under autograd :func:`when` is differentiable, as ``jax.grad`` of a
+``lax.cond`` is a ``lax.cond`` over the branches' VJPs on the same
+predicate: one :class:`_When` node whose forward is the IF node (the body
+run under grad on detached leaves of its inputs) and whose backward gives
+the values that pass through ``torch.where(pred, -0.0, g)`` and the body's
+inputs their gradients from a second IF node on the same predicate, which
+holds ``torch.autograd.grad`` through the body (on the body's stream,
+where its autograd nodes ran: no event joins the streams inside a
+capture). Where the predicate is false that node does not run, so nothing
+of the body's stale residuals reaches a gradient; its inputs' gradient
+buffers, filled with ``-0.0`` outside the node, add nothing to any other
+gradient, not even the sign of a zero. With ``remat`` an armed frame under
+grad is one :meth:`FrameGraphs.grad` call: the forward replays the no-grad
+frame graph, the backward a graph of the recompute and its backward, both
+with their conditionals decided on the device. The backward's predicates
+are read once, after its last frame (a callback queued on autograd's
+engine at the first frame's backward), and must equal the forward's for
+each frame, or the read raises. Without ``remat`` a conditional under
+grad is refused: the pipeline splits such a frame where JAX has its
+``lax.cond``\ s into a gate graph, a read back, a graph for each branch
+that runs and a fuse graph (``ICPSLAM._track``).
 """
 
 from __future__ import annotations
@@ -403,19 +423,23 @@ def _recording(branches: _Branches):
         _RECORDING.pop()
 
 
-def when(pred: torch.Tensor, body: Callable, outs: List[torch.Tensor]) -> List[torch.Tensor]:
-    r"""``jax.lax.cond(pred, body, lambda: outs)`` inside a frame body that
-    :class:`FrameGraphs` warms up and captures: ``outs``, tensors made
-    before the call and holding the values that pass through, take what
-    ``body()`` returns (one tensor each) where the 0-dim bool ``pred`` on
-    the device is true. Returns ``outs``.
+def when(pred: torch.Tensor, body: Callable, args: tuple,
+         outs: List[torch.Tensor]) -> List[torch.Tensor]:
+    r"""``jax.lax.cond(pred, lambda: body(*args), lambda: outs)`` inside a
+    frame body that :class:`FrameGraphs` warms up and captures: ``outs``,
+    tensors made before the call and holding the values that pass through,
+    take what ``body(*args)`` returns (one tensor each) where the 0-dim bool
+    ``pred`` on the device is true. Returns the result: ``outs`` themselves
+    without autograd; under it (grad mode and a tensor of ``args`` or
+    ``outs`` that requires a gradient) new tensors, the outputs of one
+    differentiable :class:`_When` node.
 
     Captured, it is an IF conditional node (:func:`_if_node`) whose body
-    graph holds ``body``'s kernels and the copies into ``outs``, decided on
-    the device on every replay. In the warm-up (the key's first call, under
-    the sync debug mode "error") ``pred`` is not read: ``body()`` runs
-    whatever it holds, on the stream the captured body will use, and
-    ``outs`` take ``torch.where(pred, new, out)``, so both sides are warmed
+    graph holds ``body``'s kernels and the copies into the result, decided
+    on the device on every replay. In the warm-up (the key's first call,
+    under the sync debug mode "error") ``pred`` is not read: ``body`` runs
+    whatever it holds, on the stream the captured body will use, and the
+    result takes ``torch.where(pred, new, out)``, so both sides are warmed
     before the capture and the result is the eager bits. Either way what
     ``body`` counted on the launch counters and tallies is taken back and
     kept with ``pred``: :meth:`FrameGraphs.settle` adds it where ``pred``
@@ -427,10 +451,11 @@ def when(pred: torch.Tensor, body: Callable, outs: List[torch.Tensor]) -> List[t
     branches = _RECORDING[-1]
     before = _read_counters()
     try:
-        if branches.capturing:
-            _if_node(branches, pred, body, outs)
+        if needs_grad(args, outs):
+            leaves, spec = flatten(args)
+            outs = list(_When.apply(pred, body, spec, len(outs), *outs, *leaves))
         else:
-            _select(branches.owner._branch_resources(branches.device)[0], pred, body, outs)
+            _conditional(branches, pred, lambda: body(*args), outs)
     finally:
         counted = _counted_since(before)
         _set_counters(before)
@@ -439,15 +464,95 @@ def when(pred: torch.Tensor, body: Callable, outs: List[torch.Tensor]) -> List[t
     return outs
 
 
-def _select(stream, pred: torch.Tensor, body: Callable, outs: List[torch.Tensor]) -> None:
-    """:func:`when` in a warm-up: ``body()`` on ``stream`` and ``outs``
-    chosen by ``pred`` there, the caller's stream waiting for it."""
+class _When(torch.autograd.Function):
+    r""":func:`when` under autograd: ``apply(pred, body, spec, n, *outs,
+    *leaves)``, ``leaves`` the tensors of ``body``'s arguments (``spec``
+    from :func:`flatten`). The forward runs ``body`` under grad on detached
+    leaves inside the conditional, and keeps its autograd graph; the
+    backward is the conditional of its VJP on the same predicate (the
+    module docstring), recorded like the forward's on the warm-up or
+    capture under way."""
+
+    @staticmethod
+    def forward(ctx, pred, body, spec, n, *tensors):
+        ctx.set_materialize_grads(False)
+        outs, leaves = tensors[:n], tensors[n:]
+        flags = [t.requires_grad for t in leaves]
+        res = [o.clone() for o in outs]
+        graph = {}  # the body's leaves and outputs, where it ran
+
+        def run():
+            xs = [t.detach().requires_grad_(f) for t, f in zip(leaves, flags)]
+            with torch.enable_grad():
+                new = flatten(body(*unflatten(spec, xs)))[0]
+            graph["xs"], graph["new"] = xs, new
+            return [t.detach() for t in new]
+
+        _conditional(_RECORDING[-1], pred, run, res)
+        ctx.pred, ctx.graph, ctx.n = pred, graph, n
+        ctx.like = [(t.shape, t.dtype, t.device) if f else None for t, f in zip(leaves, flags)]
+        ctx.mark_non_differentiable(*(r for r in res if not r.is_floating_point()))
+        return tuple(res)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if not _RECORDING:
+            raise RuntimeError("the backward of a when() under autograd runs inside the "
+                               "backward that FrameGraphs warms up or captures")
+        branches, pred = _RECORDING[-1], ctx.pred
+        through = [None if g is None else torch.where(pred, -0.0, g) for g in grads]
+        want = [j for j, like in enumerate(ctx.like) if like is not None]
+        sel = [i for i, g in enumerate(grads) if g is not None]
+        got: List[Optional[torch.Tensor]] = [None] * len(ctx.like)
+        if want and sel:
+            bufs = [torch.full(ctx.like[j][0], -0.0, dtype=ctx.like[j][1], device=ctx.like[j][2])
+                    for j in want]
+
+            def run():  # the body's VJP, on the body's stream
+                xs, new = ctx.graph["xs"], ctx.graph["new"]
+                live = [i for i in sel if new[i].requires_grad]
+                if not live:
+                    return [None] * len(want)
+                return list(torch.autograd.grad(
+                    [new[i] for i in live], [xs[j] for j in want], [grads[i] for i in live],
+                    allow_unused=True))
+
+            before = _read_counters()
+            try:
+                wrote = _conditional(branches, pred, run, bufs)
+            finally:
+                counted = _counted_since(before)
+                _set_counters(before)
+            branches.preds.append(pred)
+            branches.counts.append(counted)
+            for j, buf, w in zip(want, bufs, wrote):
+                got[j] = buf if w else None
+        return (None, None, None, None, *through, *got)
+
+
+def _conditional(branches: _Branches, pred: torch.Tensor, body: Callable,
+                 outs: List[torch.Tensor]) -> List[bool]:
+    """``body()``'s results written into ``outs`` where ``pred`` holds, as
+    the recording under way runs a conditional: an IF node in a capture,
+    :func:`_select` in a warm-up. A None result writes nothing. Returns
+    which of ``outs`` the body writes."""
+    if branches.capturing:
+        return _if_node(branches, pred, body, outs)
+    return _select(branches.owner._branch_resources(branches.device)[0], pred, body, outs)
+
+
+def _select(stream, pred: torch.Tensor, body: Callable, outs: List[torch.Tensor]) -> List[bool]:
+    """:func:`_conditional` in a warm-up: ``body()`` on ``stream`` and
+    ``outs`` chosen by ``pred`` there, the caller's stream waiting for it."""
     current = torch.cuda.current_stream(pred.device)
     stream.wait_stream(current)
     with torch.cuda.stream(stream):
-        for out, new in zip(outs, body()):
-            out.copy_(torch.where(pred, new, out))
+        new = list(body())
+        for out, t in zip(outs, new):
+            if t is not None:
+                out.copy_(torch.where(pred, t, out))
     current.wait_stream(stream)
+    return [t is not None for t in new]
 
 
 def _pool_hooks() -> Tuple[Callable, Callable]:
@@ -464,9 +569,10 @@ def _pool_hooks() -> Tuple[Callable, Callable]:
 
 
 def _if_node(branches: _Branches, pred: torch.Tensor, body: Callable,
-             outs: List[torch.Tensor]) -> None:
+             outs: List[torch.Tensor]) -> List[bool]:
     r"""An IF node in the graph the current stream captures, holding
-    ``body()`` and its copies into ``outs``: ``gradslam_if_begin``
+    ``body()`` and its copies into ``outs`` (a None result writes nothing;
+    returns which of ``outs`` it writes): ``gradslam_if_begin``
     (``ops/csrc/conditional.cu``) adds the node and the kernel that sets
     its handle from ``pred``, and starts capturing the owner's branch
     stream into the node's body; the body runs on that stream with its
@@ -494,13 +600,16 @@ def _if_node(branches: _Branches, pred: torch.Tensor, body: Callable,
             begin(device, pool)
             owner._branch_pool_refs[1] += 1
             try:
-                for out, new in zip(outs, body()):
-                    out.copy_(new)
+                new = list(body())
+                for out, t in zip(outs, new):
+                    if t is not None:
+                        out.copy_(t)
             finally:
                 end(device, pool)
     finally:
         err = lib.gradslam_if_end(body_stream)
     check(err, "closing a CUDA graph conditional node (gradslam_if_end)")
+    return [t is not None for t in new]
 
 
 class CapturedCall:
@@ -536,10 +645,12 @@ class CapturedCall:
 class _Backward(CapturedCall):
     r"""A captured backward for one set of output gradients: its static
     inputs are the output gradients, its static outputs the input gradients
-    of the inputs that got one (``present``)."""
+    of the inputs that got one (``present``); with remat, its conditionals'
+    predicates and body counts (the recompute's and their VJPs')."""
 
-    def __init__(self, graph, static_grads, grads_in, present, counts):
-        super().__init__(graph, static_grads, grads_in, (), counts)
+    def __init__(self, graph, static_grads, grads_in, present, counts,
+                 preds=(), branch_counts=()):
+        super().__init__(graph, static_grads, grads_in, (), counts, preds, branch_counts)
         self.present = present
 
     def __call__(self, grads: List[torch.Tensor]) -> List[Optional[torch.Tensor]]:
@@ -603,14 +714,18 @@ def _alive(saved: list) -> List[torch.Tensor]:
 
 class _GradCall:
     r"""One call of :meth:`FrameGraphs.grad`: the key, the body and its
-    input structure, and, once the forward ran, the output structure."""
+    input structure, and, once the forward ran, the output structure and
+    the forward's deferred predicates (``decided``, a :class:`_Pending`,
+    None without conditionals), which its backward's must equal; ``read``
+    settles the backward's."""
 
     def __init__(self, graphs: "FrameGraphs", key: tuple, fn: Callable, spec: tuple,
-                 flags: Tuple[bool, ...], remat: bool):
+                 flags: Tuple[bool, ...], remat: bool, read: Callable):
         self.graphs, self.key, self.fn, self.spec = graphs, key, fn, spec
-        self.flags, self.remat = flags, remat
+        self.flags, self.remat, self.read = flags, remat, read
         self.entry: Optional[_GradEntry] = None
         self.warm = False  # the warm-up's own autograd graph holds the backward
+        self.decided: Optional[_Pending] = None
 
     def body(self, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
         return flatten(self.fn(*unflatten(self.spec, leaves)))[0]
@@ -633,7 +748,10 @@ class _GradCall:
             return self._first(leaves, table)
         e = self.entry
         if self.remat:
+            pending = len(self.graphs._pending)
             out = self.graphs._replay_frame(self.key[:-1], self.fn, self.spec, leaves)
+            if len(self.graphs._pending) > pending:
+                self.decided = self.graphs._pending[-1]
             return [o.clone() if j is None else leaves[j]
                     for o, j in zip(flatten(out)[0], e.through)], list(leaves)
         fwd = e.forward
@@ -656,9 +774,15 @@ class _GradCall:
         result; without remat its autograd graph is this call's backward,
         and the forward is captured from it."""
         xs = self.leaves_for_grad(leaves)
-        with torch.enable_grad():
+        device = leaves[0].device
+        with _recording(_Branches(False, self.graphs, device)) as warmed, torch.enable_grad():
             outs, out_spec = self.graphs._warm(
-                lambda: flatten(self.fn(*unflatten(self.spec, xs))))
+                lambda: flatten(self.fn(*unflatten(self.spec, xs))), device)
+        if warmed.preds and not self.remat:
+            raise RuntimeError(
+                f"the {self.key[0]!r} frame body has conditionals (when) under autograd, which "
+                "FrameGraphs.grad captures only with remat=True")
+        self.decided = self.graphs._defer(warmed.preds, warmed.counts)
         place = {id(x): j for j, x in enumerate(xs)}
         through = tuple(place.get(id(o)) for o in outs)
         self.entry = _GradEntry(out_spec, tuple(o.requires_grad for o in outs), through)
@@ -735,7 +859,17 @@ class _GradCall:
             if bwd is None:
                 return self._scatter(want, self._capture_backward_kept(mask, sel, want, g))
         self.graphs._replayed(self.key[0])
-        return self._scatter(want, bwd(g))
+        got = bwd(g)
+        self._decide_after_backward(bwd.preds, bwd.branch_counts)
+        return self._scatter(want, got)
+
+    def _decide_after_backward(self, preds, counts) -> None:
+        """The backward's predicates deferred, held to the forward's, and
+        read with the other frames' after the backward's last frame."""
+        pending = self.graphs._defer(preds, counts)
+        if pending is not None:
+            pending.expect = self.decided
+            self.graphs._settle_after_backward(self.read)
 
     def _scatter(self, want, got) -> List[Optional[torch.Tensor]]:
         out: List[Optional[torch.Tensor]] = [None] * len(self.flags)
@@ -750,12 +884,17 @@ class _GradCall:
         static_grads = [_static_like(t) for t in g]
         for dst, src in zip(static_grads, g):
             dst.copy_(src)
-        got = self.graphs._warm(lambda: run(static_grads))
+        device = static_grads[0].device
+        with _recording(_Branches(False, self.graphs, device)) as warmed:
+            got = self.graphs._warm(lambda: run(static_grads), device)
+        self._decide_after_backward(warmed.preds, warmed.counts)
         present = [t is not None for t in got]
-        graph, grads_in, counts = self.graphs._captured(
-            self.key[0], "backward", "backward", lambda: [t for t in run(static_grads) if t is not None],
-            static_grads[0].device)
-        self.entry.backward[mask] = _Backward(graph, static_grads, grads_in, present, counts)
+        with _recording(_Branches(True, self.graphs, device)) as branches:
+            graph, grads_in, counts = self.graphs._captured(
+                self.key[0], "backward", "backward",
+                lambda: [t for t in run(static_grads) if t is not None], device)
+        self.entry.backward[mask] = _Backward(graph, static_grads, grads_in, present, counts,
+                                              branches.preds, branches.counts)
         return got
 
     def _capture_backward_kept(self, mask, sel, want, g):
@@ -784,6 +923,21 @@ class _GradCall:
                     static_grads, allow_unused=True))
 
         return self._backward_graph(mask, run, g)
+
+
+class _Pending:
+    r"""One call's predicates deferred on the device (a copy: a replay
+    overwrites the graph's), what each conditional's body counted, and,
+    once :meth:`FrameGraphs.settle` read them, ``took``. A backward's
+    ``expect`` is its forward's: the recompute must decide as the forward
+    did."""
+
+    __slots__ = ("preds", "counts", "took", "expect")
+
+    def __init__(self, preds: torch.Tensor, counts: List[Counts]):
+        self.preds, self.counts = preds, counts
+        self.took: Optional[List[bool]] = None
+        self.expect: Optional["_Pending"] = None
 
 
 class _FrameFunction(torch.autograd.Function):
@@ -834,7 +988,10 @@ class FrameGraphs:
     each replay, its predicates on the device beside what each
     conditional's body counts; :meth:`settle` reads them all at once, and
     ``branch_launches`` tallies what it added to the counters (by counter:
-    the launches inside conditional bodies)."""
+    the launches inside conditional bodies). Under autograd (``remat``) a
+    call's backward leaves its recompute's and its VJPs' predicates the
+    same way; they are settled once, by a callback on autograd's engine
+    after the backward's last node, and held to the forward's."""
 
     def __init__(self):
         self._entries: Dict[tuple, CapturedCall] = {}
@@ -847,8 +1004,9 @@ class FrameGraphs:
         self._branch_stream = None
         self._branch_pool = None
         self._branch_pool_refs = [None, 0]  # [device index, references]
-        # (predicates on the device, what each conditional's body counted)
-        self._pending: List[Tuple[torch.Tensor, List[Counts]]] = []
+        # the calls' predicates on the device, until settled
+        self._pending: List[_Pending] = []
+        self._settle_task = None  # the backward pass whose settle is queued
         self.branch_launches: "collections.Counter" = collections.Counter()
         self.capture_s = 0.0
         self.replays = 0
@@ -879,6 +1037,7 @@ class FrameGraphs:
         self._remat.clear()
         self._pool = self._stream = None
         self._pending.clear()
+        self._settle_task = None
         self.branch_launches.clear()
         if self._branch_pool is not None:
             self._release_branch_pool()
@@ -897,15 +1056,18 @@ class FrameGraphs:
         return self._replay_frame(key, fn, spec, leaves)
 
     def grad(self, name: str, fn: Callable, args: tuple, options: tuple = (),
-             remat: bool = False):
+             remat: bool = False, read: Callable = lambda flags: flags.tolist()):
         r"""``fn(*args)`` under autograd, its forward and backward replayed
         from graphs (the module docstring): the result is the caller's,
         later calls leave it alone. The key adds to :meth:`__call__`'s
-        which inputs require a gradient."""
+        which inputs require a gradient. A body with conditionals
+        (:func:`when`, ``remat`` only) defers its predicates as a no-grad
+        call does; its backward's are settled with ``read`` once, after the
+        backward's last frame, and must equal the forward's."""
         leaves, spec = flatten(args)
         flags = tuple(t.requires_grad for t in leaves)
         key = cache_key(name, options, leaves, spec) + (flags,)
-        call = _GradCall(self, key, fn, spec, flags, remat)
+        call = _GradCall(self, key, fn, spec, flags, remat, read)
         outs = _FrameFunction.apply(call, *leaves)
         return unflatten(call.entry.out_spec, outs)
 
@@ -914,27 +1076,45 @@ class FrameGraphs:
         body with conditionals (:func:`when`) warmed up or replayed since
         the last settle: each conditional's body counts are added to the
         counters where its predicate was true. Returns each such call's
-        predicates, in order."""
+        predicates, in order. A backward's recompute that decided otherwise
+        than its forward raises."""
         if not self._pending:
             return []
-        flags = read(torch.cat([preds for preds, _ in self._pending]))
-        took, i = [], 0
-        for _, counts in self._pending:
-            mine = [bool(x) for x in flags[i:i + len(counts)]]
-            i += len(counts)
-            for ran, c in zip(mine, counts):
+        pending, self._pending = self._pending, []
+        flags = read(torch.cat([p.preds for p in pending]))
+        i = 0
+        for p in pending:
+            p.took = [bool(x) for x in flags[i:i + len(p.counts)]]
+            i += len(p.counts)
+            for ran, c in zip(p.took, p.counts):
                 if ran:
                     _add_counts(c)
                     self.branch_launches.update(c)
-            took.append(mine)
-        self._pending.clear()
-        return took
+        for p in pending:
+            if p.expect is not None and (p.expect.took is None
+                                         or p.took[:len(p.expect.took)] != p.expect.took):
+                raise RuntimeError(
+                    f"a backward's recompute decided its conditionals {p.took} where its "
+                    f"forward decided {p.expect.took}: the gradient would not be the forward's")
+        return [p.took for p in pending]
 
-    def _defer(self, preds: List[torch.Tensor], counts: List[Counts]) -> None:
+    def _defer(self, preds: List[torch.Tensor], counts: List[Counts]) -> Optional[_Pending]:
         """A call's predicates, copied on the device (a replay overwrites
-        the graph's), kept with what each body counts until :meth:`settle`."""
-        if preds:
-            self._pending.append((torch.stack(preds), counts))
+        the graph's), kept with what each body counts until :meth:`settle`;
+        None without conditionals."""
+        if not preds:
+            return None
+        self._pending.append(_Pending(torch.stack(preds), counts))
+        return self._pending[-1]
+
+    def _settle_after_backward(self, read: Callable) -> None:
+        """:meth:`settle` with ``read`` queued once on the backward pass
+        under way, to run after its last node: one read for the backward's
+        frames."""
+        task = torch._C._current_graph_task_id()
+        if task != self._settle_task:
+            self._settle_task = task
+            torch.autograd.Variable._execution_engine.queue_callback(lambda: self.settle(read))
 
     def _replay_frame(self, key: tuple, fn: Callable, spec: tuple,
                       leaves: List[torch.Tensor]):

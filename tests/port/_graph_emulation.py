@@ -15,9 +15,14 @@ A conditional node (``graphs.when`` in a capture, ``graphs._if_node`` on
 the card) is emulated too: at the capture its body runs whatever the
 predicate holds, as the card captures it, but writes nothing; at a replay
 it runs, and writes into its outputs, only where the predicate reads true
-(the emulation reads it; the port never does). Each replay writes its
-predicates into the captured ones, which ``FrameGraphs`` keeps beside the
-replay, and poisons them with the graph's other pool tensors.
+(the emulation reads it; the port never does). That holds for the
+conditionals of a differentiable ``when`` in a captured backward too: the
+VJP's node runs only where its predicate reads true, so a body that did not
+run leaves no residuals for it to read. A node reports the outputs its
+capture wrote (a body's None results write nothing), as on the card, where
+a replay runs no Python. Each replay writes its predicates into the
+captured ones, which ``FrameGraphs`` keeps beside the replay, and poisons
+them with the graph's other pool tensors.
 
 :func:`count_at_dispatchers` raises the kernels' launch counters where the
 card would launch them: on the CPU no wrapper launches.
@@ -88,17 +93,29 @@ def _poison(t):
 
 
 _REPLAYING = [False]  # whether a conditional node runs in an emulated replay
+# the emulated graph being captured or replayed: which outputs each of its
+# conditional nodes writes (from the capture) and the next node's place
+_ACTIVE = []
 
 
 def emulated_if_node(branches, pred, body, outs):
     """graphs._if_node on the CPU: the capture runs ``body`` and writes
     nothing; a replay runs it where ``pred`` reads true, as the card does,
-    and writes what it returns into ``outs``."""
+    and writes what it returns into ``outs`` (a None result writes
+    nothing). Returns which of ``outs`` the node writes, as its capture
+    found."""
+    nodes = _ACTIVE[-1]
     if not _REPLAYING[0]:
-        body()
-    elif bool(pred):
+        wrote = [value is not None for value in body()]
+        nodes["writes"].append(wrote)
+        return wrote
+    wrote = nodes["writes"][nodes["next"]]
+    nodes["next"] += 1
+    if bool(pred):
         for out, value in zip(outs, body()):
-            out.copy_(value)
+            if value is not None:
+                out.copy_(value)
+    return wrote
 
 
 def emulated_graph(self, fn, device):
@@ -117,7 +134,12 @@ def emulated_graph(self, fn, device):
     them, and poisons them in later graphs."""
     recording = graphs._RECORDING[-1] if graphs._RECORDING else None
     first = len(recording.preds) if recording is not None else 0
-    out = fn()
+    nodes = {"writes": [], "next": 0}
+    _ACTIVE.append(nodes)
+    try:
+        out = fn()
+    finally:
+        _ACTIVE.pop()
     preds = list(recording.preds[first:]) if recording is not None else []
     static = flatten(out)[0]
     order = self.__dict__.setdefault("_emulated_order", [])
@@ -127,11 +149,14 @@ def emulated_graph(self, fn, device):
     def replay():
         before = graphs._read_counters()  # a replay runs no wrapper and no helper
         _REPLAYING[0] = True
+        nodes["next"] = 0
+        _ACTIVE.append(nodes)
         try:
             with torch.no_grad(), graphs._recording(graphs._Branches(True)) as fresh_branches:
                 fresh = flatten(fn())[0]
         finally:
             _REPLAYING[0] = False
+            _ACTIVE.pop()
         graphs._set_counters(before)
         with torch.no_grad():
             for dst, src in zip(static + preds, fresh + fresh_branches.preds):

@@ -50,14 +50,14 @@ def body(src, tgt, A, gate, decide):
     outs = [torch.zeros(src.shape[0], dtype=src.dtype, device=src.device),
             torch.zeros(src.shape[0], dtype=torch.int64, device=src.device)]
     pred1 = gate[0] > 0
-    outs = decide(pred1, lambda: branch(src, tgt, A, 1.0), outs)
+    outs = decide(pred1, branch, (src, tgt, A, 1.0), outs)
     pred2 = (outs[0].sum() != 0) & (gate[1] > 0)
-    outs = decide(pred2, lambda: branch(src, tgt, A, 2.0), outs)
+    outs = decide(pred2, branch, (src, tgt, A, 2.0), outs)
     return outs
 
 
-def on_host(pred, fn, outs):
-    return list(fn()) if bool(pred) else outs
+def on_host(pred, fn, args, outs):
+    return list(fn(*args)) if bool(pred) else outs
 
 
 def main():

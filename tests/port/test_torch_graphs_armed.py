@@ -6,10 +6,12 @@ conditional node, ``tests/port/_graph_emulation.py``).
 
 Without grad each tracked frame is one graph (key ``'armed'``,
 ``ICPSLAM._armed``) whose recovery branches are conditional nodes
-(``graphs.when``) decided on the device, as JAX's ``lax.cond``; under
-autograd a frame is a gate graph, one read back of its flags, a graph for
-each recovery branch where one is needed (keys ``'relocalize'`` and
-``'anchor'``), and a fuse graph (``ICPSLAM._track``). Held here:
+(``graphs.when``) decided on the device, as JAX's ``lax.cond``; so it is
+under autograd with remat (one ``FrameGraphs.grad`` call a frame,
+``test_torch_graphs_armed_grad.py``); under autograd without remat a frame
+is a gate graph, one read back of its flags, a graph for each recovery
+branch where one is needed (keys ``'relocalize'`` and ``'anchor'``), and a
+fuse graph (``ICPSLAM._track``). Held here:
 
 - The emulated armed ``forward`` gives the ``use_jit=False`` bits (poses
   and map), the same ``recovery_log`` (every gate reading, the branch
@@ -24,18 +26,20 @@ each recovery branch where one is needed (keys ``'relocalize'`` and
   launches added where its predicate read true, and the relocalization
   takes the grid's deltas as an input of that graph, made outside the
   capture.
-- Eagerly and under grad one host read (``icpslam._read_back``) on each
-  tracked frame where no branch runs, and after a relocalization an
-  anchored frame reads once more; captured without grad, one read a run,
-  after the last frame.
+- Eagerly and under grad without remat one host read
+  (``icpslam._read_back``) on each tracked frame where no branch runs, and
+  after a relocalization an anchored frame reads once more; captured
+  without grad, one read a run, after the last frame (under grad with
+  remat, one more after the backward's last frame).
 - The anchor, which the gate passes through, comes back to the frame
   graph's own static inputs on a frame that does not refresh it (and is
   not copied onto itself there); so does the motion without the
   constant-velocity model.
 - Armed on a clean clip, the captured run is the unarmed captured run.
-- Under grad, with ``remat`` on and off, the captured armed gradients to
-  the depth and the intrinsics are eager's bits over two steps, on the
-  kidnap (projective tracker) and on the anchored clip.
+- Under grad, with ``remat`` on (one ``'armed'`` call a frame, two reads a
+  step) and off (the split), the captured armed gradients to the depth and
+  the intrinsics are eager's bits over two steps, on the kidnap
+  (projective tracker) and on the anchored clip.
 - Over two capacity segments, the health readings the log keeps outlive
   the branch graphs' replays (the emulation poisons a later graph's
   memory on an earlier graph's replay, as the shared pool does).
@@ -376,8 +380,9 @@ def eager_reads(log: dict, anchored: bool) -> dict:
 def test_one_read_back_a_frame_where_no_branch_runs(name):
     """Eagerly each tracked frame reads its gate's flags back once, and a
     frame where the relocalization ran with the anchor armed reads the
-    anchor's gate once more (under grad the captured run reads the same:
-    ``test_armed_captured_gradients_give_the_eager_bits``). Captured
+    anchor's gate once more (under grad without remat the captured run
+    reads the same: ``test_armed_captured_gradients_give_the_eager_bits``).
+    Captured
     without grad, the branches are decided on the device and a run reads
     once, after its last frame: the predicates of every frame together."""
     runs = armed_runs(name)
@@ -500,15 +505,20 @@ def test_armed_captured_gradients_give_the_eager_bits(monkeypatch, name, remat):
     """Two gradient steps captured against ``use_jit=False`` (remat off:
     eagerly remat on gives its bits, ``test_torch_recovery.py``): the
     same map, poses and gradient bits to the depth and the intrinsics, and
-    the same branch frames in every step, each branch run through
-    ``FrameGraphs.grad`` on each of its frames (its forward and backward
-    replayed from graphs of its own; eagerly its inputs that need a
-    gradient go through one view). The projective tracker armed on the
-    kidnap (cut after the kidnapped frame) relocalizes on frame 8; the
+    the same branch frames in every step. The projective tracker armed on
+    the kidnap (cut after the kidnapped frame) relocalizes on frame 8; the
     anchored clip re-solves against its anchor on most frames, with
     refreshes. Three iterations a solve and four a recovery solve: the
-    bits, not the recovery, are under test. Under grad the branches are
-    decided on the host: each step reads back as eagerly
+    bits, not the recovery, are under test.
+
+    With remat the branches are decided on the device, as ``jax.grad``
+    through ``lax.cond``: each tracked frame is one ``FrameGraphs.grad``
+    call of the key ``'armed'`` (no branch body of its own), and a step
+    reads twice, after the forward's last frame and after the backward's.
+    Without remat the host decides: each branch runs through
+    ``FrameGraphs.grad`` on each of its frames (its forward and backward
+    replayed from graphs of its own; eagerly its inputs that need a
+    gradient go through one view), and each step reads back as eagerly
     (:func:`eager_reads`)."""
     arrays, kw, want, ran = eager_grad_steps(name)
     counted = Counted(monkeypatch)
@@ -522,6 +532,11 @@ def test_armed_captured_gradients_give_the_eager_bits(monkeypatch, name, remat):
         counted.reads.clear()
         got.append(_grad_step(jit, arrays, s))
         assert jit.last_call_captured and _branches(jit) == r
+        tracked = len(jit.recovery_log["health"])
+        if remat:
+            assert dict(names) == {("grad", "armed"): tracked}
+            assert counted.reads == {tracked + 1: 2}
+            continue
         assert {k: names["grad", k] for k in BRANCHES} == {k: len(r[k]) for k in BRANCHES}
         assert all(names["grad", k] for k in ROW_BRANCHES[name])
         assert counted.reads == eager_reads(jit.recovery_log, "anchor_every" in kw)
@@ -591,5 +606,5 @@ def test_when_runs_only_inside_a_warm_up_or_capture():
     capture raises and leaves its outputs as they were."""
     outs = [torch.zeros(2)]
     with pytest.raises(RuntimeError, match="branches on the host"):
-        graphs_module.when(torch.tensor(True), lambda: [torch.ones(2)], outs)
+        graphs_module.when(torch.tensor(True), lambda: [torch.ones(2)], (), outs)
     assert torch.equal(outs[0], torch.zeros(2))
