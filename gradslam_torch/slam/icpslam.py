@@ -22,26 +22,26 @@ from the device inside the frame or solver loops, so with ``use_jit`` (the
 default, as in JAX) its frame body runs on the card as a CUDA graph,
 captured once for each capacity segment and replayed for each frame
 (:mod:`gradslam_torch.utils.graphs`), as ``jax.jit`` compiles the scan body
-once. Armed (``relocalize_below > 0``) and captured, without gradients
-or under them with ``remat``, a tracked frame is one graph too
-(:meth:`ICPSLAM._armed`), whose recovery branches are CUDA graph
+once. Armed (``relocalize_below > 0``) and captured, a tracked frame is one
+graph too (:meth:`ICPSLAM._armed`), whose recovery branches are CUDA graph
 conditional nodes decided on the device, as the JAX body decides its three
 ``lax.cond``\ s: the gate (prediction, localization, the health gate and,
 with ``anchor_every``, the drift gate), the relocalization (with the
 anchor, the drift gate on the pose it leaves), the anchor re-solve, and
 the fuse (map update, motion, the anchor's refresh in a conditional of its
 own); the run reads the branch frames back once, after its last frame.
-Under autograd with ``remat`` the frame is one ``FrameGraphs.grad`` call:
-the forward replays that graph, the backward a graph of its recompute and
-VJP whose branches' VJPs are conditional nodes on the same predicates (as
+Under autograd the frame is one ``FrameGraphs.grad`` call, whose
+branches' VJPs are conditional nodes on the same predicates (as
 ``jax.grad`` through ``lax.cond``), read once more after the backward's
-last frame. Eagerly, and under autograd without ``remat``, the frame is
-split where the JAX body has its ``lax.cond``\ s: a gate body, one read
-back of its flags to the host, the recovery branches as Python ``if``\ s,
-each a body of its own run only on the frames that need it (a second read
-after a relocalization with the anchor), and a fuse body; captured, each
-is a graph of its own (:meth:`ICPSLAM._track`). Which of the two is a pure
-function of (captured, grad, remat): :func:`armed_on_device`.
+last frame: with ``remat`` the forward replays that graph and the backward
+a graph of its recompute and VJP; without, the forward is captured with
+its residuals kept, each branch's only on the frames where it ran, and the
+backward graph reads them. Eagerly the frame is split where the JAX body
+has its ``lax.cond``\ s: a gate body, one read back of its flags to the
+host, the recovery branches as Python ``if``\ s, each a body of its own run
+only on the frames that need it (a second read after a relocalization with
+the anchor), and a fuse body (:meth:`ICPSLAM._track`); which of the two is
+a pure function of whether the call is captured: :func:`armed_on_device`.
 ``remat=True`` runs each frame's bodies (the one ``jax.checkpoint`` wraps
 in JAX) under non-reentrant ``torch.utils.checkpoint``: their activations
 are dropped after the forward and recomputed in the backward. Under
@@ -147,20 +147,19 @@ def _read_back(flags: torch.Tensor) -> list:
     branch predicates at once: the one place a tracked ``forward`` waits
     for the device, once a frame where no branch runs when the host
     decides, once a run when the device does (and, under autograd, once
-    more after the backward's last frame)."""
+    more after the backward's last frame; once more again in the forward
+    that grows a conditional body's store: ``FrameGraphs.settle``)."""
     return flags.tolist()
 
 
 def armed_on_device(captured: bool, grad: bool, remat: bool) -> bool:
     r"""Whether an armed ``forward`` decides its recovery branches on the
-    device, one graph a tracked frame (:meth:`ICPSLAM._armed`): captured,
-    and without autograd or under it with ``remat`` (the backward a graph
-    of the recompute and its VJP, as ``jax.checkpoint`` of the scan body
-    under ``jax.grad``). Under autograd without ``remat`` a conditional
-    body's residuals would have to be kept for every frame, so the frame
-    is split and the host decides; so it is eagerly. A pure function of
-    these facts, never a reaction to a failure."""
-    return captured and (not grad or remat)
+    device, one graph a tracked frame (:meth:`ICPSLAM._armed`): whenever it
+    is captured, without autograd and under it with or without ``remat``
+    (without, each branch's residuals kept only on the frames where it
+    ran: ``FrameGraphs.grad``). Eagerly the host decides. A pure function
+    of these facts, never a reaction to a failure."""
+    return captured
 
 
 class ICPSLAM(nn.Module):
@@ -244,14 +243,11 @@ class ICPSLAM(nn.Module):
             without gradients each tracked frame replays one graph whose
             recovery branches are conditional nodes decided on the device,
             and the run reads the branch frames back once, at its end;
-            under autograd with ``remat`` each tracked frame replays that
-            graph forward and a graph of its recompute and VJP backward,
-            the branches' VJPs conditional nodes too, and the backward
-            reads once more, after its last frame; under autograd without
-            ``remat`` each tracked frame replays a gate graph, reads its
-            flags back once, replays a recovery branch's graph where one is
-            needed (the relocalization's, the anchor re-solve's), and
-            replays a fuse graph (see ``relocalize_below``).
+            under autograd each tracked frame replays a forward and a
+            backward graph, the branches' VJPs conditional nodes too, and
+            the backward reads once more, after its last frame (with
+            ``remat`` the forward is that graph and the backward its
+            recompute and VJP; without, see ``remat``).
 
             After each call ``last_call_captured`` says whether it ran so
             and ``last_eager_reason`` why not. Calls with ``use_jit=False``
@@ -270,7 +266,12 @@ class ICPSLAM(nn.Module):
             the backward replays a graph of the recompute and its
             backward. Without ``remat`` a captured frame keeps, in one
             copy, the storages of every tensor autograd saved (what eager
-            keeps), and its backward graph reads them back.
+            keeps), and its backward graph reads them back; an armed
+            frame's recovery branches keep theirs only on the frames where
+            they ran, in a store each that the first gradient step sizes
+            (that step's forward runs twice: ``FrameGraphs.settle``), and
+            again a step whose branches run on more frames, or a second
+            forward before the first one's backward.
         odom_point_weight: point-to-point rows at this weight beside the
             projective solver's plane rows (0 disables).
         odom_subpixel: bilinear projective association at the continuous
@@ -282,13 +283,12 @@ class ICPSLAM(nn.Module):
             relocalize` runs from a :func:`~gradslam_torch.slam.relocalize.
             perturbation_grid` around the solved pose; its pose is taken
             only where it scores strictly better. Tracked odometry only.
-            Captured without gradients, or under them with ``remat``, the
-            branches are decided on the device inside the frame's graphs,
-            as the JAX package decides its ``lax.cond``; eagerly and under
-            autograd without ``remat`` the host reads the gates' flags once
-            a frame, and each branch is a body of its own, run on the
-            frames that need it, where the anchor's gate is read once more
-            after a relocalization.
+            Captured, with or without gradients, the branches are
+            decided on the device inside the frame's graphs, as the JAX
+            package decides its ``lax.cond``; eagerly the host reads the
+            gates' flags once a frame, and each branch is a body of its
+            own, run on the frames that need it, where the anchor's gate
+            is read once more after a relocalization.
         relocalize_grid: the grid's ``yaw_deg`` and ``translations``.
         relocalize_dsratio, relocalize_numiters: the recovery solves'
             stride and iterations.
@@ -944,10 +944,7 @@ class ICPSLAM(nn.Module):
         drifting.
 
         The map and the anchor come back as they went in, and the branches
-        and the fuse body read these: captured, they are this graph's
-        static inputs, which no replay overwrites, where the fuse graph's
-        outputs that went in may lie in this graph's scratch (the graphs
-        share a pool; :mod:`~gradslam_torch.utils.graphs`)."""
+        and the fuse body read these."""
         live = self._predicted(cv, prev_pose, prev_delta, frame)
         pose, window = self._localize(map_pc, live, live, return_window=True)
         inlier = self._health_gate(live, pose, window)
@@ -964,8 +961,7 @@ class ICPSLAM(nn.Module):
         return self.anchor_every > 0 and f % self.anchor_every == 0
 
     def _track(self, map_pc: Pointclouds, prev_pose: torch.Tensor, prev_delta: torch.Tensor,
-               anchor, refresh: bool, frame: RGBDImages, run=None, owned=lambda tree: tree,
-               cond=None, deltas=None):
+               anchor, refresh: bool, frame: RGBDImages, run=None, cond=None, deltas=None):
         r"""One armed tracked frame, in the JAX body's order: the gate body
         (:meth:`_gate`), the relocalization where any sequence is unhealthy
         (:meth:`_relocalize`, with an anchor followed by the drift gate on
@@ -975,12 +971,12 @@ class ICPSLAM(nn.Module):
         refresh where some sequence is not drifting). ``frame`` is the
         sequence-length-1 frame (its poses are not read).
 
-        ``cond`` None decides on the host: one read back of the gate's flags
-        (and one more of the drift gate's after a relocalization with an
-        anchor), and each branch a body of its own run through ``run``
-        (:meth:`_runner`; eager by default) on the frames that need it:
-        captured, each body is a graph of its own (keys ``'gate'``,
-        ``'relocalize'``, ``'anchor'``, ``'fuse'``). ``cond`` given
+        ``cond`` None decides on the host, eagerly: one read back of the
+        gate's flags (and one more of the drift gate's after a
+        relocalization with an anchor), and each branch a body of its own
+        run through ``run`` (:meth:`_runner`'s eager form by default; the
+        names ``'gate'``, ``'relocalize'``, ``'anchor'``, ``'fuse'``) on
+        the frames that need it. ``cond`` given
         (:func:`~gradslam_torch.utils.graphs.when`, inside :meth:`_armed`)
         decides each branch on the device, as JAX's ``lax.cond``: the
         branch's outputs start as copies of what passes through (no
@@ -988,9 +984,8 @@ class ICPSLAM(nn.Module):
         the relocalization grid's, an input of the body.
 
         Returns ``(map, pose (B, 4, 4), motion (B, 4, 4), anchor,
-        events)``: ``events`` holds the gate's reading (``'health'``,
-        through ``owned`` before a branch runs: a later graph's replay may
-        overwrite the gate graph's outputs) and, for each branch
+        events)``: ``events`` holds the gate's reading (``'health'``) and,
+        for each branch
         (``'relocalize'``, ``'anchor'``), the sequences ``(B,)`` that took
         its pose: on the host None where the branch did not run, on the
         device all false there."""
@@ -1005,7 +1000,7 @@ class ICPSLAM(nn.Module):
         pose, inlier, inl, drifting, flags, map_pc, anchor = run(
             "gate", functools.partial(self._gate, cv),
             (map_pc, prev_pose, prev_delta, anchor, frame), (cv,))
-        events = {"health": owned(inlier), "relocalize": None, "anchor": None}
+        events = {"health": inlier, "relocalize": None, "anchor": None}
         untaken = None  # on the device, what a branch that does not run leaves
         if cond is None:
             flags = _read_back(flags)
@@ -1050,10 +1045,10 @@ class ICPSLAM(nn.Module):
         r"""The armed tracked frame as one body, captured as one graph whose
         branches are conditional nodes decided on the device, as the JAX
         scan body runs its three ``lax.cond``\ s: :meth:`_track` with
-        :func:`~gradslam_torch.utils.graphs.when` (under autograd, with
-        ``remat``, the forward of one ``FrameGraphs.grad`` call, whose
-        backward graph recomputes it and decides its branches' VJPs on the
-        same predicates; each body's inputs that need a gradient go
+        :func:`~gradslam_torch.utils.graphs.when` (under autograd the
+        forward of one ``FrameGraphs.grad`` call, whose backward graph
+        decides its branches' VJPs on the same predicates, with ``remat``
+        after recomputing it; each body's inputs that need a gradient go
         through one view first, as eagerly). Returns ``(map, pose (B,
         4, 4), motion, anchor, health, relocalization taken, anchor re-solve
         taken)`` (the last None without an anchor); whether each branch ran
@@ -1209,29 +1204,46 @@ class ICPSLAM(nn.Module):
             raise ValueError("`frames` must have poses when `odom='gt'`.")
         self._check_features(frames, "frames carry")
         frames = self._with_normal_pitch(frames.to_channels_last())
-        B, L, _, _ = frames.shape
         schedule = self._capacity_schedule(frames)
-        map_pc = self.empty_map(B, schedule[0][1], device=frames.device, dtype=frames.dtype)
         captured = self._plan(frames)
         grad = captured and needs_grad(frames)
+        if self.odom != "gt":
+            out, regrew = self._tracked(frames, schedule, captured, grad)
+            if regrew:  # a conditional body's store grew: the forward again, once
+                del out  # the first run's graph, before the second's
+                out, regrew = self._tracked(frames, schedule, captured, grad)
+                if regrew:
+                    raise RuntimeError("a conditional body's store grew twice in one forward")
+            return out
+        map_pc = self.empty_map(frames.shape[0], schedule[0][1], device=frames.device,
+                                dtype=frames.dtype)
+        run = self._runner(captured, grad)
+        start = 0
+        for n, cap_seg in schedule:
+            map_pc = map_pc.with_capacity(cap_seg)
+            for sub_n, prune_after in split_prune_segments(start, n, self.prune_every):
+                for i in range(start, start + sub_n):
+                    map_pc = run("map", self._map, (map_pc, frames[:, i]))
+                if prune_after:
+                    map_pc = self._prune(map_pc)
+                start += sub_n
+        # a no-grad replay's outputs are the graph's: what is kept is a copy
+        return (clone_tree(map_pc) if captured and not grad else map_pc), frames.poses
+
+    def _tracked(self, frames: RGBDImages, schedule: list, captured: bool, grad: bool):
+        r"""The tracked ``forward`` (odometry on), its results and whether
+        its read of the armed frames' predicates grew a conditional body's
+        store (captured under autograd without ``remat``: the pushes past a
+        store's capacity stored nothing, the key's graphs are captured
+        again at its next call, and the caller runs the forward again;
+        ``FrameGraphs.settle``)."""
+        B = frames.shape[0]
+        map_pc = self.empty_map(B, schedule[0][1], device=frames.device, dtype=frames.dtype)
         run = self._runner(captured, grad)
         # a no-grad replay's outputs are the graph's: what is kept is a copy
         owned = clone_tree if captured and not grad else (lambda tree: tree)
-
-        if self.odom == "gt":
-            start = 0
-            for n, cap_seg in schedule:
-                map_pc = map_pc.with_capacity(cap_seg)
-                for sub_n, prune_after in split_prune_segments(start, n, self.prune_every):
-                    for i in range(start, start + sub_n):
-                        map_pc = run("map", self._map, (map_pc, frames[:, i]))
-                    if prune_after:
-                        map_pc = self._prune(map_pc)
-                    start += sub_n
-            return owned(map_pc), frames.poses
-
-        # Tracked: bootstrap frame 0 at the provided (or identity) pose,
-        # then track frame to map, each solve starting at the prediction.
+        # bootstrap frame 0 at the provided (or identity) pose, then track
+        # frame to map, each solve starting at the prediction
         if frames.poses is not None:
             prev_pose = frames.poses[:, 0]
         else:
@@ -1247,10 +1259,10 @@ class ICPSLAM(nn.Module):
         anchor = self._anchor_snapshot(live0) if self.anchor_every > 0 else None
         cv = self.motion_model == "constant_velocity"
         track = functools.partial(self._track_unarmed, cv)
-        # armed and captured, without grad or under it with remat: one graph
-        # a frame (under grad its forward's and its backward's), its
-        # branches decided on the device; the branch frames are read once,
-        # at the end (and the backward's once, after its last frame)
+        # armed and captured: one graph a frame (under grad its forward's and
+        # its backward's), its branches decided on the device; the branch
+        # frames are read once, at the end (and the backward's once, after
+        # its last frame)
         on_device = self.relocalize_below > 0 and armed_on_device(captured, grad, self.remat)
         deltas = self._grid_deltas(prev_pose) if on_device else None
         armed_frames = []
@@ -1270,8 +1282,7 @@ class ICPSLAM(nn.Module):
                         armed_frames.append(f)
                     elif self.relocalize_below > 0:
                         map_pc, prev_pose, prev_delta, anchor, events = self._track(
-                            map_pc, prev_pose, prev_delta, anchor, refresh, frames[:, f], run,
-                            owned)
+                            map_pc, prev_pose, prev_delta, anchor, refresh, frames[:, f])
                         log["health"].append(events["health"])
                         for kind in ("relocalize", "anchor"):
                             if events[kind] is not None:
@@ -1280,16 +1291,18 @@ class ICPSLAM(nn.Module):
                         map_pc, prev_pose, prev_delta = run(
                             "track", track, (map_pc, prev_pose, prev_delta, frames[:, f]), (cv,))
                     # a copy: the next frame's first replay overwrites a pose its
-                    # graph output, and the armed fuse body still reads this one
+                    # graph output
                     prev_pose = owned(prev_pose)
                     poses.append(prev_pose)
                 if prune_after:
                     map_pc = self._prune(map_pc)
                 start += sub_n
+        regrew = False
         if armed_frames:  # the one read: which branches ran, and their launches
             took = self.frame_graphs.settle(_read_back)[-len(armed_frames):]
+            regrew = self.frame_graphs.regrew
             for f, ran in zip(armed_frames, took):
                 for kind, r in zip(("relocalize", "anchor"), ran):
                     if r:
                         log[kind].append(f)
-        return owned(map_pc), torch.stack(poses, dim=1)
+        return (owned(map_pc), torch.stack(poses, dim=1)), regrew

@@ -129,16 +129,47 @@ where its autograd nodes ran: no event joins the streams inside a
 capture). Where the predicate is false that node does not run, so nothing
 of the body's stale residuals reaches a gradient; its inputs' gradient
 buffers, filled with ``-0.0`` outside the node, add nothing to any other
-gradient, not even the sign of a zero. With ``remat`` an armed frame under
-grad is one :meth:`FrameGraphs.grad` call: the forward replays the no-grad
-frame graph, the backward a graph of the recompute and its backward, both
-with their conditionals decided on the device. The backward's predicates
-are read once, after its last frame (a callback queued on autograd's
-engine at the first frame's backward), and must equal the forward's for
-each frame, or the read raises. Without ``remat`` a conditional under
-grad is refused: the pipeline splits such a frame where JAX has its
-``lax.cond``\ s into a gate graph, a read back, a graph for each branch
-that runs and a fuse graph (``ICPSLAM._track``).
+gradient, not even the sign of a zero. An armed frame under grad is one
+:meth:`FrameGraphs.grad` call either way. With ``remat`` the forward
+replays the no-grad frame graph, the backward a graph of the recompute and
+its backward, both with their conditionals decided on the device. The
+backward's predicates are read once, after its last frame (a callback
+queued on autograd's engine at the first frame's backward); with ``remat``
+they must equal the forward's for each frame, or the read raises.
+
+Without ``remat`` the forward is captured under the saved-tensor hooks with
+its conditional nodes in it, and a body's residuals are kept only on the
+calls where its predicate held, as eagerly (JAX's scan keeps both sides'
+on every iteration: a frame of the armed 640x480 row would keep about
+330 MB more). The tensors a body saves are recorded apart from the frame's
+(:class:`_Kept`); each body has a store (:class:`_Store`: slots of its
+saved bytes and a slot counter on the device, made before the capture and
+outside the graphs' pool, whose free memory a later graph may use as
+scratch, from what the key's warm-up saved), and a second IF node after
+the body's, on "predicate and a free slot", gathers them into a stage
+(one ``_foreach_copy_``) and copies that into the slot the counter gives
+(one ``index_copy_``), and the counter takes a step where the predicate
+held. The frame's arena keeps the predicate and the slot; the body's VJP
+node in the backward graph copies that slot back through the stage into
+the body's own tensors (``index_select``, ``_foreach_copy_``) before its
+``autograd.grad`` (a
+backward's warm-up, which runs each VJP whatever its predicate, runs a
+body's only where the call's forward, read by then, ran it: elsewhere the
+body's tensors hold another call's bytes). A
+store is sized from the calls of its key in the forwards before (none at
+the first capture); :meth:`FrameGraphs.settle` reads the counters with
+the predicates, and where a body ran more often than its store holds (a
+push past the capacity stores nothing) it grows the store to what the
+forward needed, drops the key's graphs (their copies name the store's
+memory) and sets ``regrew``: the caller runs that forward again, whose
+first call of the key captures the graphs anew (counted in ``regrows``).
+A call holds its slots until its backward has run, the call is freed, or
+its forward's read grew a store (that forward runs again): a forward that
+starts while calls of earlier forwards still hold slots takes the slots
+after theirs, so several forwards may run before one backward (their
+store grows to hold them all), and the counter starts again at the first
+forward when no call holds a slot. A second backward of a call whose
+slots were taken again raises.
 """
 
 from __future__ import annotations
@@ -393,17 +424,134 @@ class _Arena:
             t.shape, t.stride(), (off + _span(t)[0] - lo) // t.element_size())
 
 
+class _Store:
+    r"""The residuals of one conditional body of a forward captured without
+    ``remat`` (the module docstring), kept only where its predicate held:
+    ``capacity`` slots (``rows``, one row of ``layout.total`` bytes each)
+    of the spans ``layout`` (an :class:`_Arena` of the tensors the body
+    saved in the capture) reads, and ``count``, on the device, the slots
+    the replays asked for since it last started. ``stage``, at least
+    ``layout.total`` bytes, is where a push gathers the spans and a pop
+    lands the slot, so that each moves its slot with one indexed copy and
+    the spans with one multi-tensor copy, however many there are (the
+    relocalization's body saves about 2,100 tensors). ``epoch`` numbers the
+    counter's starts; ``held`` counts the calls that hold slots (their
+    backward has not run), ``base`` the slots taken before the forward
+    under way (the counter's last reading); ``warm`` is the key's warm-up's
+    deferred predicates with this body's place among them (its frame's
+    body ran eagerly, in its own autograd graph): what the next forward,
+    which replays that frame too, needs besides."""
+
+    def __init__(self, key: tuple, index: int, layout: "_Arena", rows: torch.Tensor,
+                 count: torch.Tensor, stage: torch.Tensor):
+        if rows.shape[1] != layout.total:
+            raise RuntimeError("a conditional body saved other tensors in its capture than in "
+                               "its warm-up, which sized its store")
+        self.key, self.index, self.layout, self.capacity = key, index, layout, rows.shape[0]
+        self.rows, self.count, self.stage = rows, count, stage
+        self.open = False
+        self.epoch, self.held, self.base = 0, 0, 0
+        self.warm: Optional[Tuple["_Pending", int]] = None
+
+    def push(self, branches: "_Branches", pred: torch.Tensor, layout: "_Arena") -> torch.Tensor:
+        r"""Records, in the capture under way, after the body's node: the
+        slot (the counter's value, a tensor of the graph), an IF node on
+        "``pred`` and a free slot" that copies the spans of ``layout`` (the
+        body's saved tensors; their storages are this store's layout's on
+        the card) into it, and the counter's step where ``pred`` holds.
+        Returns the slot."""
+        if layout.views and layout.total != self.layout.total:
+            raise RuntimeError("a conditional body saved other tensors than at its capture")
+        slot = self.count.clone()
+        if self.capacity and self.layout.total:
+            ok = pred & (slot < self.capacity)
+
+            def copy():
+                stage = self.stage[:layout.total]
+                torch._foreach_copy_(layout.slices(stage), layout.views)
+                self.rows.index_copy_(0, slot.view(1), stage.view(1, -1))
+                return []
+
+            _conditional(branches, ok, copy, [])
+        self.count.add_(pred)
+        return slot
+
+    def pop(self, slot: torch.Tensor) -> None:
+        r"""``slot``'s bytes copied back into the body's saved tensors, in a
+        body's VJP (inside its IF node, or in a warm-up where the call's
+        forward ran the body)."""
+        if not (self.capacity and self.layout.total):
+            return
+        stage = self.stage[:self.layout.total]
+        torch.index_select(self.rows, 0, slot.clamp(max=self.capacity - 1).view(1),
+                           out=stage.view(1, -1))
+        torch._foreach_copy_(self.layout.views, self.layout.slices(stage))
+
+
+class _Kept:
+    r"""A forward captured without ``remat`` (the key ``key``, its static
+    inputs ``static_in``): the :class:`_Store` of each conditional body by
+    its place among the body's conditionals, and what each store is made
+    of before the capture, outside the graphs' pool (a graph captured
+    later may use that pool's free memory as scratch, and a store outlives
+    its forward): its counter (``counts``, zeroed: no kernel of the graph
+    sets it) and its slots (``rows``, ``capacity`` by the calls of its key
+    before, each of the bytes the warm-up's body saved, ``warm``), and one
+    ``stage`` the bodies' copies share (their nodes run one after another:
+    the largest slot of a store with a capacity); and the
+    storages of the static inputs that a body saved (``inputs``: the call
+    keeps those inputs, as the frame's)."""
+
+    def __init__(self, graphs: "FrameGraphs", key: tuple, static_in: List[torch.Tensor],
+                 leaves: List[torch.Tensor], warm: Dict[int, List[torch.Tensor]]):
+        self.graphs, self.key, self.static_in = graphs, key, static_in
+        device = static_in[0].device
+        self.counts, self.rows = {}, {}
+        for index, saved in warm.items():
+            self.counts[index] = torch.zeros((), dtype=torch.int64, device=device)
+            self.rows[index] = torch.empty(
+                (graphs._capacity.get((key, index), 0), _Arena(leaves, saved).total),
+                dtype=torch.uint8, device=device)
+        self.stage = torch.empty(max((r.shape[1] for r in self.rows.values() if r.shape[0]),
+                                     default=0), dtype=torch.uint8, device=device)
+        self.stores: Dict[int, _Store] = {}
+        self.inputs: set = set()
+
+    def push(self, branches: "_Branches", index: int, pred: torch.Tensor,
+             saved: List[torch.Tensor]) -> Tuple[_Store, torch.Tensor]:
+        """The store of conditional ``index``, and its slot for ``saved``
+        (the tensors its body saved) where ``pred`` holds
+        (:meth:`_Store.push`)."""
+        ins = {x.untyped_storage().data_ptr() for x in self.static_in}
+        self.inputs.update(p for p in (t.untyped_storage().data_ptr() for t in saved) if p in ins)
+        layout = _Arena(self.static_in, saved)
+        store = self.stores.get(index)
+        if store is None:
+            store = self.stores[index] = _Store(self.key, index, layout, self.rows[index],
+                                                self.counts[index], self.stage)
+        return store, store.push(branches, pred, layout)
+
+
 class _Branches:
     r"""What :func:`when` records in one warm-up (``capturing`` False) or
     capture of a frame body: each conditional's predicate and what its body
     counted on every counter (taken back from the counters). ``owner`` is
     the :class:`FrameGraphs` whose conditional bodies' stream and pool
-    (:meth:`FrameGraphs._branch_resources`) the bodies use on ``device``."""
+    (:meth:`FrameGraphs._branch_resources`) the bodies use on ``device``.
+    ``kept`` is the :class:`_Kept` of a forward captured without ``remat``
+    (else None): its bodies' residuals go to their stores; ``saves``, in
+    such a forward's warm-up, the tensors each body saved, by place (they
+    size its store). ``took``, in
+    the warm-up of such a forward's backward, is which of its call's
+    conditionals ran (read after the forward), by place."""
 
     def __init__(self, capturing: bool, owner: "FrameGraphs" = None, device=None):
         self.capturing = capturing
         self.owner = owner
         self.device = device
+        self.kept: Optional[_Kept] = None
+        self.saves: Optional[Dict[int, List[torch.Tensor]]] = None
+        self.took: Optional[List[bool]] = None
         self.preds: List[torch.Tensor] = []
         self.counts: List[Counts] = []
 
@@ -471,7 +619,10 @@ class _When(torch.autograd.Function):
     leaves inside the conditional, and keeps its autograd graph; the
     backward is the conditional of its VJP on the same predicate (the
     module docstring), recorded like the forward's on the warm-up or
-    capture under way."""
+    capture under way. The predicate is saved for the backward (a captured
+    forward's arena keeps it); in a forward captured without ``remat``
+    the tensors the body saves go to its store (:class:`_Kept`), and the
+    slot is saved too."""
 
     @staticmethod
     def forward(ctx, pred, body, spec, n, *tensors):
@@ -480,16 +631,27 @@ class _When(torch.autograd.Function):
         flags = [t.requires_grad for t in leaves]
         res = [o.clone() for o in outs]
         graph = {}  # the body's leaves and outputs, where it ran
+        branches = _RECORDING[-1]
+        # what the body saves, apart
+        saved = None if branches.kept is None and branches.saves is None else []
 
         def run():
             xs = [t.detach().requires_grad_(f) for t, f in zip(leaves, flags)]
-            with torch.enable_grad():
+            hooks = contextlib.nullcontext() if saved is None else _recording_saved(saved)
+            with torch.enable_grad(), hooks:
                 new = flatten(body(*unflatten(spec, xs)))[0]
             graph["xs"], graph["new"] = xs, new
             return [t.detach() for t in new]
 
-        _conditional(_RECORDING[-1], pred, run, res)
-        ctx.pred, ctx.graph, ctx.n = pred, graph, n
+        _conditional(branches, pred, run, res)
+        ctx.store, ctx.index, keep = None, len(branches.preds), [pred]
+        if branches.kept is not None:
+            ctx.store, slot = branches.kept.push(branches, ctx.index, pred, _alive(saved))
+            keep.append(slot)
+        elif saved is not None:
+            branches.saves[ctx.index] = _alive(saved)
+        ctx.save_for_backward(*keep)
+        ctx.graph, ctx.n = graph, n
         ctx.like = [(t.shape, t.dtype, t.device) if f else None for t, f in zip(leaves, flags)]
         ctx.mark_non_differentiable(*(r for r in res if not r.is_floating_point()))
         return tuple(res)
@@ -499,8 +661,18 @@ class _When(torch.autograd.Function):
         if not _RECORDING:
             raise RuntimeError("the backward of a when() under autograd runs inside the "
                                "backward that FrameGraphs warms up or captures")
-        branches, pred = _RECORDING[-1], ctx.pred
+        branches, (pred, *slot) = _RECORDING[-1], ctx.saved_tensors
         through = [None if g is None else torch.where(pred, -0.0, g) for g in grads]
+        if ctx.store is not None and not branches.capturing:
+            # a warm-up runs a VJP whatever its predicate, but where this call's
+            # forward did not run the body, its tensors hold another call's bytes
+            # (or what the pool held: a capture runs nothing), not residuals to
+            # run on: the VJP gives nothing there, as eagerly
+            if branches.took is None:
+                raise RuntimeError("a forward captured without remat is settled "
+                                   "(FrameGraphs.settle) before its backward")
+            if not branches.took[ctx.index]:
+                return (None, None, None, None, *through, *[None] * len(ctx.like))
         want = [j for j, like in enumerate(ctx.like) if like is not None]
         sel = [i for i, g in enumerate(grads) if g is not None]
         got: List[Optional[torch.Tensor]] = [None] * len(ctx.like)
@@ -509,13 +681,16 @@ class _When(torch.autograd.Function):
                     for j in want]
 
             def run():  # the body's VJP, on the body's stream
+                if ctx.store is not None:  # this call's residuals back in the body's
+                    ctx.store.pop(slot[0])
                 xs, new = ctx.graph["xs"], ctx.graph["new"]
                 live = [i for i in sel if new[i].requires_grad]
                 if not live:
                     return [None] * len(want)
+                # a captured forward's body graph serves every replay's backward
                 return list(torch.autograd.grad(
                     [new[i] for i in live], [xs[j] for j in want], [grads[i] for i in live],
-                    allow_unused=True))
+                    retain_graph=ctx.store is not None, allow_unused=True))
 
             before = _read_counters()
             try:
@@ -665,10 +840,12 @@ class _GradEntry:
     returned as it came (that input's index, else None), ``backward`` the
     captured backwards by the set of output gradients they take. With
     ``remat=False`` also the captured forward (``forward``, a
-    :class:`CapturedCall` whose ``static_in`` are leaves), the
-    :class:`_Arena` of its saved tensors, and ``restore_in``, the static
-    inputs whose storages hold saved tensors; with ``remat=True`` the
-    recompute's leaves (``backward_in``)."""
+    :class:`CapturedCall` whose ``static_in`` are leaves, with its
+    conditionals' predicates), the :class:`_Arena` of its saved tensors
+    outside its conditional bodies, the :class:`_Store` of each body
+    (``stores``), and ``restore_in``, the static inputs whose storages hold
+    saved tensors; with ``remat=True`` the recompute's leaves
+    (``backward_in``)."""
 
     def __init__(self, out_spec: tuple, diff: Tuple[bool, ...],
                  through: Tuple[Optional[int], ...]):
@@ -678,6 +855,7 @@ class _GradEntry:
         self.backward: Dict[tuple, _Backward] = {}
         self.forward: Optional[CapturedCall] = None
         self.arena: Optional[_Arena] = None
+        self.stores: List[_Store] = []
         self.restore_in: List[int] = []
         self.backward_in: Optional[List[torch.Tensor]] = None
 
@@ -716,8 +894,12 @@ class _GradCall:
     r"""One call of :meth:`FrameGraphs.grad`: the key, the body and its
     input structure, and, once the forward ran, the output structure and
     the forward's deferred predicates (``decided``, a :class:`_Pending`,
-    None without conditionals), which its backward's must equal; ``read``
-    settles the backward's."""
+    None without conditionals), which with ``remat`` its backward's must
+    equal; ``read`` settles the backward's. A replayed forward without
+    ``remat`` notes each of its key's stores with the counter's start
+    (``epochs``), and holds its slots there until its backward has run, it
+    is freed, or its forward's read grew a store (``claims``; then
+    ``lost``: the caller runs that forward again)."""
 
     def __init__(self, graphs: "FrameGraphs", key: tuple, fn: Callable, spec: tuple,
                  flags: Tuple[bool, ...], remat: bool, read: Callable):
@@ -726,6 +908,9 @@ class _GradCall:
         self.entry: Optional[_GradEntry] = None
         self.warm = False  # the warm-up's own autograd graph holds the backward
         self.decided: Optional[_Pending] = None
+        self.epochs: List[Tuple[_Store, int]] = []
+        self.claims: List[_Store] = []
+        self.lost = False
 
     def body(self, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
         return flatten(self.fn(*unflatten(self.spec, leaves)))[0]
@@ -755,8 +940,18 @@ class _GradCall:
             return [o.clone() if j is None else leaves[j]
                     for o, j in zip(flatten(out)[0], e.through)], list(leaves)
         fwd = e.forward
+        for store in e.stores:
+            self.graphs._open(store)
         fwd.run(leaves)
         self.graphs._replayed(self.key[0])
+        self.decided = self.graphs._defer(fwd.preds, fwd.branch_counts)
+        if e.stores:
+            self.epochs = [(store, store.epoch) for store in e.stores]
+            self.claims = list(e.stores)
+            for store in self.claims:
+                store.held += 1
+            weakref.finalize(self, _release, self.claims)
+            self.graphs._claimed.append(self)
         arena = e.arena.gather(leaves[0].device)  # this frame's saved tensors
         self.graphs.kept_bytes += arena.numel()
         outs = []
@@ -776,12 +971,9 @@ class _GradCall:
         xs = self.leaves_for_grad(leaves)
         device = leaves[0].device
         with _recording(_Branches(False, self.graphs, device)) as warmed, torch.enable_grad():
+            warmed.saves = None if self.remat else {}
             outs, out_spec = self.graphs._warm(
                 lambda: flatten(self.fn(*unflatten(self.spec, xs))), device)
-        if warmed.preds and not self.remat:
-            raise RuntimeError(
-                f"the {self.key[0]!r} frame body has conditionals (when) under autograd, which "
-                "FrameGraphs.grad captures only with remat=True")
         self.decided = self.graphs._defer(warmed.preds, warmed.counts)
         place = {id(x): j for j, x in enumerate(xs)}
         through = tuple(place.get(id(o)) for o in outs)
@@ -790,7 +982,9 @@ class _GradCall:
             table[self.key] = self.entry
             return [o.detach().clone() if j is None else leaves[j]
                     for o, j in zip(outs, through)], list(leaves)
-        self._capture_forward(leaves)
+        self._capture_forward(leaves, warmed.saves)
+        for store in self.entry.stores:
+            store.warm = (self.decided, store.index)
         table[self.key] = self.entry
         self.warm = True
         inputs = set(t.untyped_storage().data_ptr() for t in leaves)
@@ -800,11 +994,15 @@ class _GradCall:
                  else o.detach() for o, j in zip(outs, through)]
         return owned, [*xs, *outs]
 
-    def _capture_forward(self, leaves) -> None:
+    def _capture_forward(self, leaves, warm: dict) -> None:
+        """The forward captured under the saved-tensor hooks, with the
+        stores of its conditional bodies (:class:`_Kept`; ``warm``, what
+        each saved in the warm-up), opened for the forward under way."""
         static_in = [_static_like(t, f) for t, f in zip(leaves, self.flags)]
         for dst, src in zip(static_in, leaves):
             _write(dst, src)
         device = leaves[0].device
+        kept = _Kept(self.graphs, self.key, static_in, leaves, warm)
 
         def captured():
             refs: list = []
@@ -812,8 +1010,10 @@ class _GradCall:
                 outs = self.body(static_in)
             return outs, _alive(refs)
 
-        graph, (static_out, saved), counts = self.graphs._captured(
-            self.key[0], "forward", "forward", captured, device)
+        with _recording(_Branches(True, self.graphs, device)) as branches:
+            branches.kept = kept
+            graph, (static_out, saved), counts = self.graphs._captured(
+                self.key[0], "forward", "forward", captured, device)
         e = self.entry
         place = {id(x): j for j, x in enumerate(static_in)}
         if (tuple(o.requires_grad for o in static_out) != e.diff
@@ -821,11 +1021,15 @@ class _GradCall:
             raise RuntimeError(f"the {self.key[0]!r} frame body's captured forward carries "
                                "gradients on other outputs, or passes other inputs through, "
                                "than its warm-up")
-        e.forward = CapturedCall(graph, static_in, static_out, e.out_spec, counts)
+        e.forward = CapturedCall(graph, static_in, static_out, e.out_spec, counts,
+                                 branches.preds, branches.counts)
         e.arena = _Arena(static_in, saved, static_out)
+        e.stores = [kept.stores[i] for i in sorted(kept.stores)]
+        for store in e.stores:  # for the forward under way, which replays the key next
+            self.graphs._open(store)
         ins = {x.untyped_storage().data_ptr(): j for j, x in enumerate(static_in)}
-        e.restore_in = sorted({ins[p] for p in (t.untyped_storage().data_ptr() for t in saved)
-                               if p in ins})
+        held = {t.untyped_storage().data_ptr() for t in saved} | kept.inputs
+        e.restore_in = sorted(ins[p] for p in held if p in ins)
 
     # -- backward --------------------------------------------------------
     def backward(self, saved, grads) -> List[Optional[torch.Tensor]]:
@@ -842,9 +1046,12 @@ class _GradCall:
             return [None] * len(self.flags)
         if self.warm:  # this call's own autograd graph, from the warm-up
             xs, outs_w = saved[:len(self.flags)], saved[len(self.flags):]
-            got = self.graphs._warm(lambda: list(torch.autograd.grad(
-                [outs_w[i] for i in sel], [xs[j] for j in want], g,
-                retain_graph=True, allow_unused=True)))
+            device = xs[0].device
+            with _recording(_Branches(False, self.graphs, device)) as warmed:
+                got = self.graphs._warm(lambda: list(torch.autograd.grad(
+                    [outs_w[i] for i in sel], [xs[j] for j in want], g,
+                    retain_graph=True, allow_unused=True)), device)
+            self._decide_after_backward(warmed.preds, warmed.counts)
             return self._scatter(want, got)
         bwd = e.backward.get(mask)
         if self.remat:
@@ -853,6 +1060,11 @@ class _GradCall:
             for dst, src in zip(e.backward_in, saved):
                 _write(dst, src)
         else:
+            if self.lost or any(store.epoch != epoch for store, epoch in self.epochs):
+                raise RuntimeError(
+                    f"the {self.key[0]!r} frame's conditional body residuals are gone: its "
+                    "forward's read grew a store (FrameGraphs.settle, regrew: run the forward "
+                    "again), or its backward ran before and a later forward took its slots")
             for j, src in zip(e.restore_in, saved):
                 _write(e.forward.static_in[j], src)
             e.arena.scatter(saved[-1])  # this frame's saved tensors
@@ -863,12 +1075,19 @@ class _GradCall:
         self._decide_after_backward(bwd.preds, bwd.branch_counts)
         return self._scatter(want, got)
 
+    def release(self) -> None:
+        """The slots this call holds given back: its backward has run."""
+        _release(self.claims)
+
     def _decide_after_backward(self, preds, counts) -> None:
-        """The backward's predicates deferred, held to the forward's, and
-        read with the other frames' after the backward's last frame."""
+        """The backward's predicates deferred, held to the forward's with
+        ``remat`` (its recompute decides again; without, each VJP's node
+        reads the forward's own predicate), and read with the other frames'
+        after the backward's last frame."""
         pending = self.graphs._defer(preds, counts)
         if pending is not None:
-            pending.expect = self.decided
+            if self.remat:
+                pending.expect = self.decided
             self.graphs._settle_after_backward(self.read)
 
     def _scatter(self, want, got) -> List[Optional[torch.Tensor]]:
@@ -880,21 +1099,24 @@ class _GradCall:
     def _backward_graph(self, mask, run, g) -> List[Optional[torch.Tensor]]:
         """Warm ``run`` (the backward under synchronisation as an error:
         its result is this call's), then capture it with static output
-        gradients."""
+        gradients. The inputs that get a gradient are the capture's: a
+        warm-up without ``remat`` skips the VJPs of the bodies its call's
+        forward did not run, which a capture holds."""
         static_grads = [_static_like(t) for t in g]
         for dst, src in zip(static_grads, g):
             dst.copy_(src)
         device = static_grads[0].device
         with _recording(_Branches(False, self.graphs, device)) as warmed:
+            warmed.took = self.decided and self.decided.took
             got = self.graphs._warm(lambda: run(static_grads), device)
         self._decide_after_backward(warmed.preds, warmed.counts)
-        present = [t is not None for t in got]
         with _recording(_Branches(True, self.graphs, device)) as branches:
-            graph, grads_in, counts = self.graphs._captured(
-                self.key[0], "backward", "backward",
-                lambda: [t for t in run(static_grads) if t is not None], device)
-        self.entry.backward[mask] = _Backward(graph, static_grads, grads_in, present, counts,
-                                              branches.preds, branches.counts)
+            graph, grads, counts = self.graphs._captured(
+                self.key[0], "backward", "backward", lambda: run(static_grads), device)
+        present = [t is not None for t in grads]
+        self.entry.backward[mask] = _Backward(graph, static_grads,
+                                              [t for t in grads if t is not None], present,
+                                              counts, branches.preds, branches.counts)
         return got
 
     def _capture_backward_kept(self, mask, sel, want, g):
@@ -958,7 +1180,15 @@ class _FrameFunction(torch.autograd.Function):
     def backward(ctx, *grads):
         with torch.no_grad():
             got = ctx.call.backward(list(ctx.saved_tensors), list(grads))
+        ctx.call.release()
         return (None, *got)
+
+
+def _release(claims: List[_Store]) -> None:
+    """The slots of a call's stores (``claims``) given back, once."""
+    for store in claims:
+        store.held -= 1
+    claims.clear()
 
 
 def _release_pool(pool, refs: list) -> None:
@@ -988,10 +1218,16 @@ class FrameGraphs:
     each replay, its predicates on the device beside what each
     conditional's body counts; :meth:`settle` reads them all at once, and
     ``branch_launches`` tallies what it added to the counters (by counter:
-    the launches inside conditional bodies). Under autograd (``remat``) a
-    call's backward leaves its recompute's and its VJPs' predicates the
-    same way; they are settled once, by a callback on autograd's engine
-    after the backward's last node, and held to the forward's."""
+    the launches inside conditional bodies). Under autograd a call's
+    backward leaves its VJPs' predicates (with ``remat``, its recompute's
+    too) the same way; they are settled once, by a callback on autograd's
+    engine after the backward's last node, and with ``remat`` held to the
+    forward's. Without ``remat`` :meth:`settle` also reads the conditional
+    bodies' store counters (:class:`_Store`): ``pushed_bytes`` is what the
+    bodies that ran in the forward it settled saved in their stores,
+    :meth:`store_bytes` what the stores hold, ``regrew`` whether that read
+    grew a store (the forward must run again) and ``regrows`` how often
+    one did."""
 
     def __init__(self):
         self._entries: Dict[tuple, CapturedCall] = {}
@@ -1013,6 +1249,15 @@ class FrameGraphs:
         self.kept_bytes = 0
         self.by_key: Dict[str, collections.Counter] = collections.defaultdict(
             collections.Counter)
+        # the conditional bodies' stores: capacity by (key, place), the stores
+        # opened since the last settle and the calls that took slots in them,
+        # and what the settles found
+        self._capacity: Dict[Tuple[tuple, int], int] = {}
+        self._opened: List[_Store] = []
+        self._claimed: List[_GradCall] = []
+        self.pushed_bytes = 0
+        self.regrew = False
+        self.regrows = 0
 
     def counts(self) -> Dict[str, int]:
         """The graphs of each kind: ``frame`` (no grad; with ``remat`` also
@@ -1026,7 +1271,12 @@ class FrameGraphs:
     def saved_bytes(self) -> int:
         """The bytes of the storages the captured forwards (without
         ``remat``) keep their saved tensors in: one frame's for each key."""
-        return sum(e.arena.total for e in self._kept.values() if e.arena is not None)
+        return sum(e.arena.total + sum(s.layout.total for s in e.stores)
+                   for e in self._kept.values() if e.arena is not None)
+
+    def store_bytes(self) -> int:
+        """The bytes the conditional bodies' stores hold (their slots)."""
+        return sum(s.rows.numel() for e in self._kept.values() for s in e.stores)
 
     def __len__(self) -> int:
         return sum(self.counts().values())
@@ -1046,6 +1296,12 @@ class FrameGraphs:
         self.replays = 0
         self.kept_bytes = 0
         self.by_key.clear()
+        self._capacity.clear()
+        self._opened.clear()
+        self._claimed.clear()
+        self.pushed_bytes = 0
+        self.regrew = False
+        self.regrows = 0
 
     def __call__(self, name: str, fn: Callable, args: tuple, options: tuple = ()):
         r"""``fn(*args)``, from the graph of this call's key: replayed when
@@ -1061,9 +1317,11 @@ class FrameGraphs:
         from graphs (the module docstring): the result is the caller's,
         later calls leave it alone. The key adds to :meth:`__call__`'s
         which inputs require a gradient. A body with conditionals
-        (:func:`when`, ``remat`` only) defers its predicates as a no-grad
-        call does; its backward's are settled with ``read`` once, after the
-        backward's last frame, and must equal the forward's."""
+        (:func:`when`) defers its predicates as a no-grad call does (the
+        caller settles them after its forward; without ``remat`` that read
+        may ask for the forward again: ``regrew``); its backward's are
+        settled with ``read`` once, after the backward's last frame, and
+        with ``remat`` must equal the forward's."""
         leaves, spec = flatten(args)
         flags = tuple(t.requires_grad for t in leaves)
         key = cache_key(name, options, leaves, spec) + (flags,)
@@ -1072,16 +1330,30 @@ class FrameGraphs:
         return unflatten(call.entry.out_spec, outs)
 
     def settle(self, read: Callable = lambda flags: flags.tolist()) -> List[List[bool]]:
-        r"""One read (``read``, of one bool tensor) of the predicates of every
+        r"""One read (``read``, of one tensor) of the predicates of every
         body with conditionals (:func:`when`) warmed up or replayed since
-        the last settle: each conditional's body counts are added to the
+        the last settle, and of the counters of the stores opened since
+        (:class:`_Store`): each conditional's body counts are added to the
         counters where its predicate was true. Returns each such call's
         predicates, in order. A backward's recompute that decided otherwise
-        than its forward raises."""
+        than its forward raises.
+
+        A store that was asked for more slots than it holds (by the
+        forward settled and by the earlier ones whose calls hold theirs,
+        counting the key's warm-up, whose frame the next forward replays)
+        is sized to that from now on and its key's graphs are dropped, to
+        be captured again with it at the key's next call; ``regrew`` says
+        so (the forward settled lost those pushes and must run again: its
+        calls give their slots back, and their backward raises), and
+        ``regrows`` counts such reads."""
         if not self._pending:
             return []
         pending, self._pending = self._pending, []
-        flags = read(torch.cat([p.preds for p in pending]))
+        opened, self._opened = self._opened, []
+        parts = [p.preds for p in pending]
+        if opened:  # one read of the predicates and the counters
+            parts = [t.long() for t in parts] + [s.count.view(1) for s in opened]
+        flags = read(torch.cat(parts))
         i = 0
         for p in pending:
             p.took = [bool(x) for x in flags[i:i + len(p.counts)]]
@@ -1096,7 +1368,52 @@ class FrameGraphs:
                 raise RuntimeError(
                     f"a backward's recompute decided its conditionals {p.took} where its "
                     f"forward decided {p.expect.took}: the gradient would not be the forward's")
+        self._size_stores(opened, [int(n) for n in flags[i:]])
+        claimed, self._claimed = self._claimed, []
+        if self.regrew:  # the forward settled runs again: its calls' slots go
+            for call in claimed:
+                call.lost = True
+                call.release()
         return [p.took for p in pending]
+
+    def _size_stores(self, stores: List[_Store], ran: List[int]) -> None:
+        """Each of ``stores`` closed with its counter's reading ``ran`` (the
+        slots taken since the counter started: ``base`` of them before this
+        forward), and grown where that was more than it holds
+        (:meth:`settle`)."""
+        self.regrew = False
+        if stores:
+            self.pushed_bytes = 0
+        for store, n in zip(stores, ran):
+            store.open = False
+            # the pushes past the capacity stored nothing
+            self.pushed_bytes += max(min(n, store.capacity) - store.base, 0) * store.layout.total
+            store.base = n
+            if store.warm is not None:
+                pending, index = store.warm
+                store.warm = None
+                n += bool(pending.took and pending.took[index])
+            if n <= store.capacity:
+                continue
+            self._capacity[store.key, store.index] = n
+            entry = self._kept.get(store.key)
+            if entry is not None and store in entry.stores:
+                del self._kept[store.key]
+            self.regrew = True
+        self.regrows += self.regrew
+
+    def _open(self, store: _Store) -> None:
+        """``store`` opened for the forward under way, at the first call of
+        its key since the last settle: its counter started again where no
+        call holds a slot, else the forward takes the slots after the
+        held ones."""
+        if not store.open:
+            if not store.held:
+                store.count.zero_()
+                store.epoch += 1
+                store.base = 0
+            store.open = True
+            self._opened.append(store)
 
     def _defer(self, preds: List[torch.Tensor], counts: List[Counts]) -> Optional[_Pending]:
         """A call's predicates, copied on the device (a replay overwrites

@@ -18,7 +18,10 @@ it runs, and writes into its outputs, only where the predicate reads true
 (the emulation reads it; the port never does). That holds for the
 conditionals of a differentiable ``when`` in a captured backward too: the
 VJP's node runs only where its predicate reads true, so a body that did not
-run leaves no residuals for it to read. A node reports the outputs its
+run leaves no residuals for it to read. In a forward captured without
+remat the node that pushes a body's residuals to its store runs, as on the
+card, after the body's and only where its own predicate reads true; a
+replay's body saves fresh tensors, which that node copies. A node reports the outputs its
 capture wrote (a body's None results write nothing), as on the card, where
 a replay runs no Python. Each replay writes its predicates into the
 captured ones, which ``FrameGraphs`` keeps beside the replay, and poisons
@@ -131,7 +134,8 @@ def emulated_graph(self, fn, device):
     alone). A caller that reads a graph's outputs after another graph's
     replay reads poison, as it reads garbage on the card. A body's
     conditional nodes' predicates are graph tensors too: a replay writes
-    them, and poisons them in later graphs."""
+    them, and poisons them in later graphs (but not those of an earlier
+    graph that a later one reads)."""
     recording = graphs._RECORDING[-1] if graphs._RECORDING else None
     first = len(recording.preds) if recording is not None else 0
     nodes = {"writes": [], "next": 0}
@@ -151,8 +155,12 @@ def emulated_graph(self, fn, device):
         _REPLAYING[0] = True
         nodes["next"] = 0
         _ACTIVE.append(nodes)
+        fresh_branches = graphs._Branches(True)
+        # a forward captured without remat pushes its bodies' residuals to
+        # the stores of its capture
+        fresh_branches.kept = recording.kept if recording is not None else None
         try:
-            with torch.no_grad(), graphs._recording(graphs._Branches(True)) as fresh_branches:
+            with torch.no_grad(), graphs._recording(fresh_branches):
                 fresh = flatten(fn())[0]
         finally:
             _REPLAYING[0] = False
@@ -161,9 +169,14 @@ def emulated_graph(self, fn, device):
         with torch.no_grad():
             for dst, src in zip(static + preds, fresh + fresh_branches.preds):
                 _one_per_run(dst).copy_(_one_per_run(src))
+            # a later graph's tensor that an earlier graph holds (the
+            # forward's predicate, read by a backward's node without remat)
+            # is that graph's, alive: never the later graph's scratch
+            held = {t.untyped_storage().data_ptr() for ts in order[:later] for t in ts}
             for tensors in order[later:]:
                 for t in tensors:
-                    _poison(t)
+                    if t.untyped_storage().data_ptr() not in held:
+                        _poison(t)
 
     return types.SimpleNamespace(replay=replay), out
 

@@ -28,6 +28,10 @@ from gradslam_tpu.slam import fusionutils as JF  # noqa: E402
 
 from ._parity import both_frames, jax_map_to_torch, msrd  # noqa: E402
 
+
+from ._threads import one_thread  # noqa: E402,F401
+
+
 DIST_TH, DOT_TH, SIGMA = 0.05, math.cos(math.radians(20)), 0.6
 
 

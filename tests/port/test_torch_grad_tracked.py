@@ -23,6 +23,10 @@ from gradslam_torch.examples import gradient_refinement as example  # noqa: E402
 
 from . import _gradparity as GP  # noqa: E402
 
+
+from ._threads import one_thread  # noqa: E402,F401
+
+
 BAR = 1e-3
 SOLVE = dict(dsratio=2, numiters=3)
 CONFIGS = {

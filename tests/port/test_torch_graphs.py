@@ -61,6 +61,10 @@ from gradslam_tpu.datasets import synthetic_sequence  # noqa: E402
 
 from ._graph_emulation import StandInGraph, emulate, emulated_graph, fake_cuda  # noqa: E402
 
+
+from ._threads import one_thread  # noqa: E402,F401
+
+
 L, H, W = 6, 24, 32
 SCHEDULE = [(2, 2 * H * W), (2, 4 * H * W), (2, 6 * H * W)]
 

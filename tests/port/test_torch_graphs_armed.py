@@ -7,11 +7,11 @@ conditional node, ``tests/port/_graph_emulation.py``).
 Without grad each tracked frame is one graph (key ``'armed'``,
 ``ICPSLAM._armed``) whose recovery branches are conditional nodes
 (``graphs.when``) decided on the device, as JAX's ``lax.cond``; so it is
-under autograd with remat (one ``FrameGraphs.grad`` call a frame,
-``test_torch_graphs_armed_grad.py``); under autograd without remat a frame
-is a gate graph, one read back of its flags, a graph for each recovery
-branch where one is needed (keys ``'relocalize'`` and ``'anchor'``), and a
-fuse graph (``ICPSLAM._track``). Held here:
+under autograd, with remat or without (one ``FrameGraphs.grad`` call a
+frame, ``test_torch_graphs_armed_grad.py`` and
+``test_torch_graphs_armed_grad_nomat.py``). Eagerly a frame is a gate
+body, one read back of its flags, a body for each recovery branch where
+one is needed, and a fuse body (``ICPSLAM._track``). Held here:
 
 - The emulated armed ``forward`` gives the ``use_jit=False`` bits (poses
   and map), the same ``recovery_log`` (every gate reading, the branch
@@ -26,19 +26,19 @@ fuse graph (``ICPSLAM._track``). Held here:
   launches added where its predicate read true, and the relocalization
   takes the grid's deltas as an input of that graph, made outside the
   capture.
-- Eagerly and under grad without remat one host read
-  (``icpslam._read_back``) on each tracked frame where no branch runs, and
-  after a relocalization an anchored frame reads once more; captured
-  without grad, one read a run, after the last frame (under grad with
-  remat, one more after the backward's last frame).
+- Eagerly one host read (``icpslam._read_back``) on each tracked frame
+  where no branch runs, and after a relocalization an anchored frame reads
+  once more; captured without grad, one read a run, after the last frame
+  (under grad, one more after the backward's last frame).
 - The anchor, which the gate passes through, comes back to the frame
   graph's own static inputs on a frame that does not refresh it (and is
   not copied onto itself there); so does the motion without the
   constant-velocity model.
 - Armed on a clean clip, the captured run is the unarmed captured run.
-- Under grad, with ``remat`` on (one ``'armed'`` call a frame, two reads a
-  step) and off (the split), the captured armed gradients to the depth and
-  the intrinsics are eager's bits over two steps, on the kidnap
+- Under grad, with ``remat`` on and off (one ``'armed'`` call a frame, two
+  reads a step; without remat the first step grows the branches' stores
+  and runs its forward twice), the captured armed gradients to the depth
+  and the intrinsics are eager's bits over two steps, on the kidnap
   (projective tracker) and on the anchored clip.
 - Over two capacity segments, the health readings the log keeps outlive
   the branch graphs' replays (the emulation poisons a later graph's
@@ -69,16 +69,7 @@ from ._parity import both_frames  # noqa: E402
 from ._graph_emulation import count_at_dispatchers, emulate  # noqa: E402
 from .test_torch_graphs import _grad_step, _same, _same_grads  # noqa: E402
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for this module: its pipelines are thousands of
-    small ops, which more threads do not speed up (the module takes the
-    same time on one), while threads that spin slow the suite's other
-    workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from ._threads import one_thread  # noqa: E402,F401
 
 
 KIDNAP = dict(odom="gradicp", dsratio=4, numiters=10, map_capacity=R.L * R.H * R.W, **R.TUNED)
@@ -380,11 +371,9 @@ def eager_reads(log: dict, anchored: bool) -> dict:
 def test_one_read_back_a_frame_where_no_branch_runs(name):
     """Eagerly each tracked frame reads its gate's flags back once, and a
     frame where the relocalization ran with the anchor armed reads the
-    anchor's gate once more (under grad without remat the captured run
-    reads the same: ``test_armed_captured_gradients_give_the_eager_bits``).
-    Captured
-    without grad, the branches are decided on the device and a run reads
-    once, after its last frame: the predicates of every frame together."""
+    anchor's gate once more. Captured without grad, the branches are
+    decided on the device and a run reads once, after its last frame: the
+    predicates of every frame together."""
     runs = armed_runs(name)
     _, _, _, log = runs["eager"]
     L = len(log["health"]) + 1
@@ -511,15 +500,13 @@ def test_armed_captured_gradients_give_the_eager_bits(monkeypatch, name, remat):
     refreshes. Three iterations a solve and four a recovery solve: the
     bits, not the recovery, are under test.
 
-    With remat the branches are decided on the device, as ``jax.grad``
-    through ``lax.cond``: each tracked frame is one ``FrameGraphs.grad``
-    call of the key ``'armed'`` (no branch body of its own), and a step
-    reads twice, after the forward's last frame and after the backward's.
-    Without remat the host decides: each branch runs through
-    ``FrameGraphs.grad`` on each of its frames (its forward and backward
-    replayed from graphs of its own; eagerly its inputs that need a
-    gradient go through one view), and each step reads back as eagerly
-    (:func:`eager_reads`)."""
+    The branches are decided on the device, as ``jax.grad`` through
+    ``lax.cond``: each tracked frame is one ``FrameGraphs.grad`` call of
+    the key ``'armed'`` (no branch body of its own), and a step reads
+    twice, after the forward's last frame and after the backward's.
+    Without remat the first step grows the branches' stores (the
+    relocalization ran on a replayed frame), so its forward runs twice and
+    reads once more; the second step grows nothing."""
     arrays, kw, want, ran = eager_grad_steps(name)
     counted = Counted(monkeypatch)
     emulate(monkeypatch)
@@ -527,19 +514,17 @@ def test_armed_captured_gradients_give_the_eager_bits(monkeypatch, name, remat):
     jit = T.PointFusion(remat=remat, **kw)
     counted.slam = jit
     got = []
-    for s, r in zip(GRAD_SCALES, ran):
+    for i, (s, r) in enumerate(zip(GRAD_SCALES, ran)):
         names.clear()
         counted.reads.clear()
+        regrows = jit.frame_graphs.regrows
         got.append(_grad_step(jit, arrays, s))
         assert jit.last_call_captured and _branches(jit) == r
         tracked = len(jit.recovery_log["health"])
-        if remat:
-            assert dict(names) == {("grad", "armed"): tracked}
-            assert counted.reads == {tracked + 1: 2}
-            continue
-        assert {k: names["grad", k] for k in BRANCHES} == {k: len(r[k]) for k in BRANCHES}
-        assert all(names["grad", k] for k in ROW_BRANCHES[name])
-        assert counted.reads == eager_reads(jit.recovery_log, "anchor_every" in kw)
+        regrew = jit.frame_graphs.regrows - regrows
+        assert regrew == (not remat and i == 0)
+        assert dict(names) == {("grad", "armed"): (1 + regrew) * tracked}
+        assert counted.reads == {tracked + 1: 2 + regrew}
     assert jit.frame_graphs.counts()["backward"] >= 2 and jit.frame_graphs.replays > 0
     assert all(_same_grads(g, w) for g, w in zip(got, want))
     assert bool(torch.isfinite(got[1][2]).all()) and not torch.equal(got[0][2], got[1][2])

@@ -1,12 +1,14 @@
 """Armed recovery under autograd decided on the device, tested on the CPU
 with the capture emulated (``tests/port/_graph_emulation.py``).
 
-With ``use_jit`` and ``remat`` an armed tracked frame under grad is one
-``FrameGraphs.grad`` call of the key ``'armed'``: the forward replays the
-no-grad frame graph, the backward a graph of the recompute and its VJP, and
-the recovery branches and their VJPs are conditional nodes on the same
-predicates (``graphs.when`` under autograd), as ``jax.grad`` of a
-``lax.cond`` is a ``lax.cond`` over the branches' VJPs. Held here:
+With ``use_jit`` an armed tracked frame under grad is one
+``FrameGraphs.grad`` call of the key ``'armed'``, and the recovery branches
+and their VJPs are conditional nodes on the same predicates
+(``graphs.when`` under autograd), as ``jax.grad`` of a ``lax.cond`` is a
+``lax.cond`` over the branches' VJPs. With ``remat`` the forward replays
+the no-grad frame graph and the backward a graph of the recompute and its
+VJP; without it (``test_torch_graphs_armed_grad_nomat.py``) the forward
+keeps each branch's residuals only where it ran. Held here:
 
 - A differentiable conditional on a toy body, its predicate true and false,
   through warm-ups, captures and replays: the gradients of the eager
@@ -14,9 +16,9 @@ predicates (``graphs.when`` under autograd), as ``jax.grad`` of a
   false (square roots of negatives), the gradients the host's decision
   gives, finite, where the ``torch.where`` form's are NaN. A recompute whose
   predicates differ from the forward's raises at the backward's read; a
-  conditional under autograd without remat is refused.
+  conditional under autograd without remat is captured too.
 - Which path an armed ``forward`` takes is a pure function of (captured,
-  grad, remat) (``icpslam.armed_on_device``).
+  grad, remat) (``icpslam.armed_on_device``): on the device when captured.
 - On the 60x80 kidnap cut after frame 8 (1-NN tracker) and the short
   anchored clip (the anchor re-solve on frames 4-6, refreshes): one
   ``'armed'`` grad call a tracked frame and two reads a step; the
@@ -60,13 +62,7 @@ from . import test_torch_recovery as R  # noqa: E402
 from ._graph_emulation import emulate  # noqa: E402
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread, as ``test_torch_graphs_armed.py``."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from ._threads import one_thread  # noqa: E402,F401
 
 
 # ---------------------------------------------------------------------- #
@@ -177,24 +173,39 @@ def test_a_recompute_that_decides_otherwise_raises(monkeypatch):
 
 
 def test_a_conditional_under_grad_needs_remat(monkeypatch):
-    """Without remat a conditional body's residuals would be kept for every
-    call: ``FrameGraphs.grad`` refuses it (the pipeline splits such a frame
-    and decides on the host)."""
+    """Without remat too ``FrameGraphs.grad`` captures a body with a
+    conditional (the warm-up, then the forward graph with the body's
+    store): the call's result and gradients are the ``torch.where``
+    form's, and the forward graph holds the conditional's predicate beside
+    its store (``test_torch_graphs_armed_grad_nomat.py`` holds the rest)."""
     emulate(monkeypatch)
     x0, w0 = toy_inputs()
-    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
-    with pytest.raises(RuntimeError, match="only with remat=True"):
-        FrameGraphs().grad("toy", lambda *a: toy_body(*a, graphs_module.when),
-                           (x, w, torch.tensor([1.0])), remat=False)
+    graphs = FrameGraphs()
+
+    def run(x, w, gate):
+        out = graphs.grad("toy", lambda *a: toy_body(*a, graphs_module.when), (x, w, gate),
+                          remat=False)
+        graphs.settle()
+        return out
+
+    want = toy_step(lambda x, w, g: toy_body(x, w, g, by_where), 1.0, x0, w0)
+    for step in range(2):
+        got = toy_step(run, 1.0, x0, w0)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        if step == 0:  # the warm-up ran the body: its store grows, the key's graphs go
+            assert graphs.regrows == 1 and not graphs._kept
+    (entry,) = graphs._kept.values()  # captured again, with a slot for the body
+    assert graphs.counts()["forward"] == 1 and len(entry.forward.preds) == 1
+    assert len(entry.stores) == 1 and entry.stores[0].capacity == 1
 
 
 @pytest.mark.parametrize("captured", [False, True], ids=["eager", "captured"])
 @pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])
 @pytest.mark.parametrize("remat", [False, True], ids=["remat_off", "remat_on"])
 def test_where_an_armed_forward_decides_is_a_pure_choice(captured, grad, remat):
-    """On the device when captured, without grad or under it with remat; on
-    the host eagerly and under grad without remat."""
-    want = captured and (not grad or remat)
+    """On the device when captured, without grad or under it, with remat or
+    without; on the host eagerly."""
+    want = captured
     assert icpslam_module.armed_on_device(captured, grad, remat) is want
 
 
@@ -212,13 +223,15 @@ GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
 
 
 def grad_row(name: str) -> tuple:
-    """``(arrays, options)``: the 1-NN kidnap cut after frame 8, or the
-    anchored clip, each solve cut as ``eager_grad_steps``'."""
+    """``(arrays, options)``: the 1-NN kidnap cut after frame 8 (with the
+    anchor armed too for ``'knn_anchor'``), or the anchored clip, each
+    solve cut as ``eager_grad_steps``'."""
     if name == "anchored":
         arrays, kw = A.rows()["anchored"]
         return arrays, dict(kw, **CUT)
     arrays, jump = A._kidnap_grad_arrays()
-    return arrays, dict(A.KIDNAP, map_capacity=9 * R.H * R.W, **R.rows(jump)["knn"], **CUT)
+    kw = dict(A.KIDNAP, map_capacity=9 * R.H * R.W, **R.rows(jump)["knn"], **CUT)
+    return arrays, dict(kw, anchor_every=3) if name == "knn_anchor" else kw
 
 
 def map_loss_step(slam, arrays):
@@ -234,29 +247,35 @@ def map_loss_step(slam, arrays):
 _CAPTURED = {}
 
 
-def captured_steps(name: str) -> dict:
-    """Two emulated captured gradient steps of the row with remat (the
-    second replays every frame): each step's results, the bodies it ran
-    through ``FrameGraphs`` by ``(method, name)``, its host reads by frame
-    and its branch frames. Made once a row."""
-    if name not in _CAPTURED:
+def captured_steps(name: str, remat: bool = True) -> dict:
+    """Two emulated captured gradient steps of the row (the second replays
+    every frame): each step's results, the bodies it ran through
+    ``FrameGraphs`` by ``(method, name)``, its host reads by frame, its
+    branch frames, and the stores' regrowths (``regrows``), bytes
+    (``store_b``) and bytes the bodies that ran pushed (``pushed_b``).
+    Made once a row and mode."""
+    if (name, remat) not in _CAPTURED:
         arrays, kw = grad_row(name)
         steps = []
         with pytest.MonkeyPatch.context() as mp:
             counted = A.Counted(mp)
             emulate(mp)
             names = A.spy_on_frame_graphs(mp)
-            jit = T.PointFusion(remat=True, **kw)
+            jit = T.PointFusion(remat=remat, **kw)
             counted.slam = jit
+            graphs = jit.frame_graphs
             for _ in range(2):
                 names.clear()
                 counted.reads.clear()
+                regrows = graphs.regrows
                 out = map_loss_step(jit, arrays)
                 steps.append(dict(out=out, names=dict(names), reads=dict(counted.reads),
                                   branches=A._branches(jit), captured=jit.last_call_captured,
-                                  tracked=len(jit.recovery_log["health"])))
-        _CAPTURED[name] = steps
-    return _CAPTURED[name]
+                                  tracked=len(jit.recovery_log["health"]),
+                                  regrows=graphs.regrows - regrows, store_b=graphs.store_bytes(),
+                                  pushed_b=graphs.pushed_bytes))
+        _CAPTURED[name, remat] = steps
+    return _CAPTURED[name, remat]
 
 
 ROWS = ["knn", "anchored"]
@@ -333,9 +352,14 @@ def test_armed_gradients_against_the_jax_packages_grad(name):
     of at most 1e-6 (a near tie that float32 rounding decides), of JAX's
     at one of those depths. The gap at the same depths and the near-tie
     pixels are reported (PERF.md §6)."""
+    hold_to_the_golden(name, captured_steps(name)[1])
+
+
+def hold_to_the_golden(name: str, step: dict) -> None:
+    """A captured step of row ``name`` against the JAX golden at the bars of
+    :func:`test_armed_gradients_against_the_jax_packages_grad`."""
     arrays, kw = grad_row(name)
     ref = golden(name)
-    step = captured_steps(name)[1]
     poses, gd, gk = step["out"]
     np.testing.assert_allclose(poses.numpy(), ref["poses"], atol=1e-4, rtol=0)
     jax_frames = [f + 1 for f, r in enumerate(ref["readings"])

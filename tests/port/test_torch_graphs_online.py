@@ -41,6 +41,10 @@ from gradslam_tpu.datasets import synthetic_sequence  # noqa: E402
 from . import _gradparity as GP  # noqa: E402
 from ._graph_emulation import emulate  # noqa: E402
 
+
+from ._threads import one_thread  # noqa: E402,F401
+
+
 L, H, W = 5, 24, 32
 TRACKED = dict(odom="gradicp", dsratio=4, numiters=3, motion_model="constant_velocity")
 LOOPS = {  # name -> (pipeline arguments, split into localize and map_update)

@@ -37,6 +37,10 @@ from gradslam_tpu.slam.fusionutils import (  # noqa: E402
 from ._parity import both_frames, golden, jax_map_to_torch, msrd  # noqa: E402
 from .test_torch_icp import _batched_masked_inputs, _icp_golden_inputs, _t  # noqa: E402
 
+
+from ._threads import one_thread  # noqa: E402,F401
+
+
 ATOL_T = 1e-5
 
 

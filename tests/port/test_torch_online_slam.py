@@ -18,6 +18,10 @@ pytest.importorskip("jax")
 
 from ._cli import check_online_cli, cs  # noqa: E402
 
+
+from ._threads import one_thread  # noqa: E402,F401
+
+
 SMALL = ["--height", "48", "--width", "64"]
 
 

@@ -13,6 +13,9 @@ pytest.importorskip("jax")
 from ._cli import check_online_cli, cs  # noqa: E402
 
 
+from ._threads import one_thread  # noqa: E402,F401
+
+
 @pytest.fixture(scope="module")
 def tum(tmp_path_factory):
     root = tmp_path_factory.mktemp("online_tree")

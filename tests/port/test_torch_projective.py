@@ -32,6 +32,10 @@ from gradslam_tpu.odometry import projective as JP  # noqa: E402
 from . import _gradparity as GP  # noqa: E402
 from ._parity import both_frames, jax_map_to_torch, msrd  # noqa: E402
 
+
+from ._threads import one_thread  # noqa: E402,F401
+
+
 ATOL_T = 1e-5
 
 

@@ -10,7 +10,9 @@ Tolerances:
   prediction carried across): poses within 1e-4, equal map counts, map rows
   within 1e-5;
 - the whole run: poses within 1e-4 up to frame 2 and within 5e-3 after, map
-  counts within 0.2%. The whole run cannot hold 1e-4 to the end: the gap
+  counts within 0.2%, against the JAX package's whole run on the same clip
+  in the committed golden ``tests/port/data/recipe_jax_cpu.npz`` (written
+  by ``tests/port/make_recipe_golden.py``). The whole run cannot hold 1e-4 to the end: the gap
   first appears on frame 1, in the 1-NN level's 4th iteration, where one
   nearest-neighbour near-tie flips on a 1.8e-7 m difference of the source
   iterate (the JAX CPU backend fuses multiply-adds and orders its sums
@@ -20,6 +22,9 @@ Tolerances:
   2.9e-4 on frame 3 and 2.3e-3 on frame 8, while every single step stays
   within 2.5e-5.
 """
+
+import hashlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -46,6 +51,16 @@ RECIPE = dict(
     lookahead_assoc="reuse", motion_model="constant_velocity", robust_loss="tukey",
     robust_scale=0.03, dist_thresh=0.01, normal_pitch=1,
 )
+
+
+GOLDEN = Path(__file__).resolve().parent / "data" / "recipe_jax_cpu.npz"
+
+
+def clip_sha256(clip) -> str:
+    h = hashlib.sha256()
+    for a in clip:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
 
 
 @pytest.fixture(scope="module")
@@ -90,20 +105,20 @@ def test_recipe_each_frame_matches_jax(clip):
 
 def test_recipe_whole_run_matches_jax(clip):
     rgb, depth, K, P = clip
-    frames = G.RGBDImages(*(jnp.asarray(a) for a in clip))
-    jpc, jposes = G.PointFusion(**RECIPE)(frames)
+    golden = np.load(GOLDEN)  # the JAX package's run of this clip
+    assert str(golden["clip_sha256"]) == clip_sha256(clip)
     tpc, tposes = PointFusion(**RECIPE)(rgbdimages_from_numpy(rgb, depth, K, P, device="cpu"))
-    jposes, tposes = np.asarray(jposes), tposes.numpy()
+    jposes, tposes = golden["poses"], tposes.numpy()
     assert tposes.shape == (1, L, 4, 4) and np.isfinite(tposes).all()
     gap = np.abs(tposes - jposes).reshape(L, 16).max(-1)
     assert (gap[:3] <= 1e-4).all(), gap
     assert (gap <= 5e-3).all(), gap
-    n_j, n_t = int(jpc.num_points[0]), int(tpc.num_points[0])
+    n_j, n_t = int(golden["num_points"]), int(tpc.num_points[0])
     assert abs(n_t - n_j) <= 0.002 * n_j
-    assert int(tpc.num_dropped[0]) == int(jpc.num_dropped[0]) == 0
+    assert int(tpc.num_dropped[0]) == int(golden["num_dropped"]) == 0
     assert tpc.colors is None and tpc.features.shape[-1] == 2  # quantized layout
     assert tpc.capacity == 4 * H * W
     # both track the 6 cm/frame clip to within a few cm
     ate_t = float(ate_rmse(torch.from_numpy(tposes[0]), torch.from_numpy(P[0])))
-    ate_j = float(G.metrics.ate_rmse(jposes[0], P[0]))
+    ate_j = float(golden["ate_m"])
     assert ate_t < 0.05 and abs(ate_t - ate_j) < 5e-3

@@ -38,6 +38,9 @@ ORDER = [0, 1, 2, 3, 4, 5, 6, 7, 0, 1, 2]
 L = len(ORDER)
 
 
+from ._threads import one_thread  # noqa: E402,F401
+
+
 @pytest.fixture(scope="module")
 def kidnapped():
     rgb, d, K, poses = T.synthetic_sequence(B, 12, H, W, speed=8.0)
@@ -143,20 +146,29 @@ def test_anchor_branch_matches_jax():
     np.testing.assert_allclose(tposes.numpy(), np.asarray(jposes), atol=1e-4, rtol=0)
 
 
+HEALTHY = dict(odom="gradicp", odom_assoc="projective", odom_sym_normals=True, dsratio=2,
+               numiters=8, map_capacity=8 * H * W)
+
+
+@pytest.fixture(scope="module")
+def healthy():
+    """The clean clip's frames and the unarmed run's digest, made once for
+    both armed cases."""
+    rgb, d, K, poses = T.synthetic_sequence(1, 8, H, W)
+    _, tf = both_frames(rgb, d, K, poses)
+    return tf, _digest(*T.PointFusion(**HEALTHY)(tf))
+
+
 @pytest.mark.parametrize("armed", [
     dict(relocalize_below=0.2),
     dict(relocalize_below=0.2, anchor_every=3),
 ], ids=["relocalize", "relocalize_anchor"])
-def test_armed_healthy_run_is_the_unarmed_run(armed):
+def test_armed_healthy_run_is_the_unarmed_run(healthy, armed):
     """On a clean clip nothing trips: the armed run's poses and map are the
     unarmed run's bits (the branches never ran)."""
-    rgb, d, K, poses = T.synthetic_sequence(1, 8, H, W)
-    _, tf = both_frames(rgb, d, K, poses)
-    kw = dict(odom="gradicp", odom_assoc="projective", odom_sym_normals=True, dsratio=2,
-              numiters=8, map_capacity=8 * H * W)
-    base = T.PointFusion(**kw)(tf)
-    slam = T.PointFusion(**kw, **armed)
-    assert _digest(*slam(tf)) == _digest(*base)
+    tf, base = healthy
+    slam = T.PointFusion(**HEALTHY, **armed)
+    assert _digest(*slam(tf)) == base
     assert slam.recovery_log["relocalize"] == slam.recovery_log["anchor"] == []
     assert len(slam.recovery_log["health"]) == 7
 

@@ -29,6 +29,9 @@ from gradslam_torch.odometry.icputils import downsample_rgbdimages  # noqa: E402
 from ._parity import both_frames, jax_map_to_torch, rigid_transforms  # noqa: E402
 
 
+from ._threads import one_thread  # noqa: E402,F401
+
+
 @pytest.fixture(scope="module")
 def tracked_run():
     """The last frame of the clip in both packages, the map of all six
